@@ -1,0 +1,376 @@
+"""Smoke test of the PyTorch port on one CUDA card: python3 chip_smoke.py
+
+Drives pic1dp_tpu_torch's main path — the default bump-on-tail run at its
+full width of 6.4M markers — through the hand-written CUDA substep kernels,
+and checks it.  It imports neither jax nor pic1dp_tpu, catches nothing, and
+exits non-zero at the first failed check.  Phases, each printed:
+
+  1. environment: torch, CUDA, triton and nvcc versions, the card
+  2. build: nvcc builds the kernels from pic1dp_tpu_torch/csrc
+  3. each kernel against its plain PyTorch version on the same inputs:
+     f32 at full width, f64 with three modes, five Stepper steps
+  4. the main path: Simulation.run to t = 100, with launch counts, the
+     pic1dp.out size and read-back, and the growth rate against theory
+  5. timing: ms/step of the kernel and the plain Stepper at the main path's
+     shape and at bench.py's headline shape (2^26 markers, nx 1024)
+
+The last three lines of standard output are the card's name and power
+limit, one JSON object on the kernels, and {"ok": true, "device": ...}.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+# Kinetic dispersion root of the default bump-on-tail case (k = 0.36):
+# pic1dp_tpu.analysis.dispersion gives 1.16937651 + 0.08383105i
+# (examples/bump_on_tail_pre83.py); tests/test_torch_io.py pins it.
+BOT_OMEGA = complex(1.1693765077352976, 0.08383105105484892)
+GAMMA_REL_TOL = 0.05
+GAMMA_WINDOW = (25.0, 70.0)          # linear growth, as in the example's fit
+FULL_N = 6_400_000                   # the default case's marker count
+BENCH_N, BENCH_NX = 2**26, 1024      # bench.py's headline shape
+F64_N = 262_144
+# f32 bounds of tests/test_spectral_path.py:141-170: x and v absolute,
+# w and the projections relative to their max
+F32_TOL = dict(x=5e-5, v=1e-5, w=1e-4, proj=1e-4)
+F64_TOL = 1e-12                      # relative to each field's max
+TIMING_STEPS, WARMUP_STEPS = 50, 5
+SEED = 20261016
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"FAILED: {what}")
+
+
+def periodic_err(a, b, lx: float) -> float:
+    """Largest distance between two position sets on the periodic box (a
+    marker at lx - 1 ulp in one and at 0 in the other is the same marker)."""
+    d = torch.remainder(a.double() - b.double() + 0.5 * lx, lx) - 0.5 * lx
+    return float(d.abs().max())
+
+
+def abs_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def rel_err(a, b) -> float:
+    return abs_err(a, b) / max(float(b.double().abs().max()), 1e-300)
+
+
+# ---- phases ----
+
+def environment() -> str:
+    from pic1dp_tpu_torch.utils.nvcc import find_nvcc
+
+    say(f"[1 environment] python {sys.version.split()[0]}  torch {torch.__version__}"
+        f"  torch.version.cuda {torch.version.cuda}")
+    spec = importlib.util.find_spec("triton")
+    tv = "absent" if spec is None else __import__("triton").__version__
+    nvcc = find_nvcc()
+    nv = subprocess.run([nvcc, "--version"], check=True, capture_output=True,
+                        text=True, timeout=60).stdout.strip().splitlines()[-1]
+    say(f"[1 environment] triton {tv}  nvcc {nvcc} ({nv})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[1 environment] allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}"
+        f"  cudnn {torch.backends.cudnn.allow_tf32}")
+    smi = card()
+    say(f"[1 environment] card: {smi}  ({torch.cuda.get_device_name(0)},"
+        f" {torch.cuda.device_count()} visible)")
+    return smi
+
+
+def build() -> None:
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+
+    start = time.perf_counter()
+    built = sk.library()
+    say(f"[2 build] {built.path.name}: nvcc {built.build_seconds:.1f} s, "
+        f"load {time.perf_counter() - start:.1f} s")
+    for line in built.log.splitlines():
+        if "Used" in line or "spill" in line:
+            say(f"[2 build] {line.strip()}")
+
+
+def _inputs(cfg, n: int, device: str):
+    """A marker state as the loader makes one (x in [0, lx), v in
+    [-v_max, v_max), p and w by the loader's formulas) from numpy draws,
+    and mode components of a saturated amplitude."""
+    from pic1dp_tpu_torch import distributions as dist
+    from pic1dp_tpu_torch.core.loading import _initial_w
+
+    rng = np.random.default_rng(SEED)
+    dtype = getattr(torch, cfg.dtype)
+
+    def t(a):
+        return torch.from_numpy(a).to(device=device, dtype=dtype).contiguous()
+
+    x = t(rng.uniform(0.0, cfg.lx, (1, n)))
+    v = t(rng.uniform(-cfg.v_max, cfg.v_max, (1, n)))
+    sp = dist.SpeciesParams.from_config(cfg, dtype, device)
+    p0 = dist.loader_weight_uniform(cfg.equilibrium, sp, v, cfg.lx, cfg.v_max,
+                                    torch.full((1, 1), float(n), dtype=dtype, device=device))
+    w = _initial_w(cfg, x, p0).contiguous()
+    modes = [t(rng.uniform(-0.05, 0.05, cfg.nmode)) for _ in range(4)]
+    return x, v, (p0 + w).contiguous(), w, modes, sp
+
+
+def compare_substeps(cfg, n: int, tol: dict | None) -> dict:
+    """Both kernels and both plain versions on the same inputs; returns each
+    kernel's largest absolute error; raises past the tolerance (tol None:
+    F64_TOL relative to each field's max)."""
+    from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+
+    x, v, p, w, (mre0, mim0, mre1, mim1), sp = _inputs(cfg, n, "cuda")
+    subs = FusedSubsteps(cfg, sp)
+    kw1, kv1, kproj1 = subs.substep1(x, v, p, w, mre0, mim0)
+    pw1, pv1, pproj1 = subs.substep1_plain(x, v, p, w, mre0, mim0)
+    streams = [t.clone() for t in (x, v, w)]
+    kx2, kv2, kw2, kproj2 = subs.substep2(*streams[:2], p, streams[2], kw1, kv1, mre1, mim1)
+    streams = [t.clone() for t in (x, v, w)]
+    px2, pv2, pw2, pproj2 = subs.substep2_plain(*streams[:2], p, streams[2],
+                                               kw1, kv1, mre1, mim1)
+    torch.cuda.synchronize()
+    pairs = {"substep1": dict(w=(kw1, pw1), v=(kv1, pv1), proj=(
+                 torch.stack(kproj1), torch.stack(pproj1))),
+             "substep2": dict(x=(kx2, px2), v=(kv2, pv2), w=(kw2, pw2), proj=(
+                 torch.stack(kproj2), torch.stack(pproj2)))}
+    worst = {}
+    for name, fields in pairs.items():
+        errs = []
+        for field, (a, b) in fields.items():
+            check(bool(torch.isfinite(a).all()), f"{name} {field} finite")
+            ab = periodic_err(a, b, cfg.lx) if field == "x" else abs_err(a, b)
+            rel = ab / max(float(b.double().abs().max()), 1e-300)
+            limit = F64_TOL if tol is None else tol[field]
+            measured = rel if (tol is None or field in ("w", "proj")) else ab
+            say(f"[3 compare] {cfg.dtype} n={n} modes={cfg.modes} {name} {field}: "
+                f"max abs err {ab:.3e}, rel to max {rel:.3e} (limit {limit:g})")
+            check(measured <= limit, f"{name} {field} {cfg.dtype} within {limit}")
+            errs.append(ab)
+        worst[name] = max(errs)
+    return worst
+
+
+def trig_accuracy() -> None:
+    """The kernels' grid-angle sin/cos against float64, for every
+    realizable angle 2 pi (m ix0 mod nx) / nx; bound of
+    tests/test_spectral_path.py:338-368 (2 f32 ulp at 1)."""
+    from pic1dp_tpu_torch.ops.substep_kernels import grid_angle_f32
+
+    worst = 0.0
+    for nx in (64, 192, 1024):
+        for m in (1, 2, 3, 4, 7, 8):
+            k = (m * np.arange(nx)) % nx
+            c, s = grid_angle_f32(torch.from_numpy(k.astype(np.int32)).cuda(), nx)
+            th = 2.0 * np.pi * k / nx
+            worst = max(worst, float(np.abs(c.cpu().numpy() - np.cos(th)).max()),
+                        float(np.abs(s.cpu().numpy() - np.sin(th)).max()))
+    say(f"[3 compare] grid-angle trig: max abs err {worst:.3e} (limit 2.4e-07)")
+    check(worst < 2 * 1.2e-7, "grid-angle trig within 2 f32 ulp")
+
+
+def compare_steppers(cfg) -> None:
+    """The kernel Stepper against the plain-version Stepper, 5 steps from
+    one loaded state, f32 bounds."""
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+
+    kern, plain = Stepper(cfg, "cuda"), Stepper(cfg, "cuda", plain=True)
+    a = kern.initial_field(load_particles(cfg, "cuda"))
+    b, c = a.clone(), a.clone()
+    a, b = kern.multi_step(a, 5), plain.multi_step(b, 5)
+    c = kern.multi_step(c, 5)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(a, f), getattr(c, f))
+               for f in ("x", "v", "w", "mode_re", "mode_im"))
+    say(f"[3 compare] kernel Stepper run twice from one state: bitwise equal {same}")
+    check(same, "kernel steps repeat bit for bit (no float atomics)")
+    errs = dict(x=periodic_err(a.x, b.x, cfg.lx), v=abs_err(a.v, b.v),
+                w=rel_err(a.w, b.w), proj=max(rel_err(a.mode_re, b.mode_re),
+                                             rel_err(a.mode_im, b.mode_im)))
+    say(f"[3 compare] Stepper 5 steps, kernel vs plain, n={cfg.nparticle_max}: "
+        + ", ".join(f"{k} {v:.3e} (limit {F32_TOL[k]:g})" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= F32_TOL[k], f"Stepper {k} within {F32_TOL[k]}")
+
+
+def main_path(cfg) -> tuple[dict, int]:
+    from pic1dp_tpu_torch import Simulation
+    from pic1dp_tpu_torch.io import petsc_binary as pb
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+
+    snaps = []
+    with tempfile.TemporaryDirectory() as out:
+        sim = Simulation(cfg, out_path=out, device="cuda")
+        for k in sk.KERNELS:
+            k.launches = 0
+        start = time.perf_counter()
+        sim.run(snapshot_callback=snaps.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {k.name: k.launches for k in sk.KERNELS}
+        path = os.path.join(out, "pic1dp.out")
+        size = os.path.getsize(path)
+        nm, ns, nxo, nvo = cfg.nmode, cfg.nspecies, cfg.nx_opd, cfg.nv_opd
+        header = 4 * (6 + nm) + 8 * 2
+        snap = (8 * (2 + 3 * ns) + 2 * (8 + 8 * nm) + 2 * (8 + 8 * cfg.nx)
+                + ns * 8 * 3 * (nxo * nvo + nvo))
+        with open(path, "rb") as fh:
+            fh.seek(header + (len(snaps) - 1) * snap)
+            last = pb.read_real(fh, 2 + 3 * ns)
+    steps = sim.itime
+    say(f"[4 main path] n={cfg.nparticle_max} nx={cfg.nx} t={sim.time:.3f} "
+        f"steps={steps} snapshots={len(snaps)} wall {wall:.2f} s; launches {launches}")
+    check(steps == round(cfg.time_max / cfg.dt), "step count")
+    check(all(v == steps for v in launches.values()), "one launch of each kernel per step")
+    check(len(snaps) == round(cfg.time_max / cfg.output_interval) + 1, "snapshot count")
+    check(size == header + len(snaps) * snap,
+          f"pic1dp.out size {size} == {header} + {len(snaps)} x {snap}")
+    check(last[0] == snaps[-1]["time"] and last[1] == snaps[-1]["field_energy"],
+          "last snapshot read back from pic1dp.out")
+    s = sim.state
+    for f in ("x", "v", "p", "w"):
+        t = getattr(s, f)
+        check(tuple(t.shape) == (1, cfg.nparticle_max) and bool(torch.isfinite(t).all()),
+              f"final {f} finite with shape (1, {cfg.nparticle_max})")
+    check(bool(((s.x >= 0) & (s.x < cfg.lx)).all()), "final x in [0, lx)")
+    t = np.array([q["time"] for q in snaps])
+    e = np.array([q["field_energy"] for q in snaps])
+    check(bool(np.isfinite(e).all() and (e > 0).all()), "field energies finite")
+    m = (t >= GAMMA_WINDOW[0]) & (t <= GAMMA_WINDOW[1])
+    gamma = float(np.polyfit(t[m], np.log(e[m]), 1)[0] / 2.0)
+    rel = abs(gamma - BOT_OMEGA.imag) / BOT_OMEGA.imag
+    say(f"[4 main path] gamma {gamma:.5f} vs theory {BOT_OMEGA.imag:.5f}: "
+        f"rel err {rel:.4f} (limit {GAMMA_REL_TOL}); int E^2 dx at t=100: {e[-1]:.4e}")
+    check(rel <= GAMMA_REL_TOL, "growth rate within 5% of the dispersion root")
+    return launches, steps
+
+
+def _events_ms(fn, reps: int) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_steppers(cfg, smi: str) -> tuple[float, float]:
+    """ms/step of the kernel and the plain Stepper, in turns plain, kernel,
+    kernel, plain; returns the means."""
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+
+    kern, plain = Stepper(cfg, "cuda"), Stepper(cfg, "cuda", plain=True)
+    state0 = kern.initial_field(load_particles(cfg, "cuda"))
+    ms = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        st = kern if which == "kernel" else plain
+        box = [st.multi_step(state0.clone(), WARMUP_STEPS)]
+        torch.cuda.synchronize()
+
+        def one():
+            box[0] = st.step(box[0])
+
+        ms[which].append(_events_ms(one, TIMING_STEPS))
+        check(bool(torch.isfinite(box[0].w).all()), f"{which} timing run finite")
+        del box
+    k, p = (float(np.mean(ms[w])) for w in ("kernel", "plain"))
+    n = cfg.nspecies * cfg.nparticle_max
+    say(f"[5 timing] n={n} nx={cfg.nx} {cfg.dtype}: kernel {k:.4f} ms/step "
+        f"({ms['kernel'][0]:.4f}, {ms['kernel'][1]:.4f}) = {n / k * 1e3:.4e} pushes/s; "
+        f"plain {p:.4f} ms/step ({ms['plain'][0]:.4f}, {ms['plain'][1]:.4f}) = "
+        f"{n / p * 1e3:.4e} pushes/s; card {smi}")
+    return k, p
+
+
+def time_kernels(cfg) -> dict:
+    """ms per call of each kernel and of its plain version at the main path's
+    shape (these launches come after the main path's counts were read)."""
+    from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+
+    x, v, p, w, (mre0, mim0, mre1, mim1), sp = _inputs(cfg, cfg.nparticle_max, "cuda")
+    subs = FusedSubsteps(cfg, sp)
+    w1, v1, _ = subs.substep1(x, v, p, w, mre0, mim0)
+    out = {}
+    for name, fn in (("substep1", lambda: subs.substep1(x, v, p, w, mre0, mim0)),
+                     ("substep1_plain", lambda: subs.substep1_plain(x, v, p, w, mre0, mim0)),
+                     ("substep2", lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1)),
+                     ("substep2_plain",
+                      lambda: subs.substep2_plain(x, v, p, w, w1, v1, mre1, mim1))):
+        fn()
+        out[name] = _events_ms(fn, TIMING_STEPS)
+    say("[5 timing] per call at n={} nx={}: ".format(cfg.nparticle_max, cfg.nx)
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
+                         "is False")
+    from pic1dp_tpu_torch.config import bump_on_tail_default
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+
+    smi = environment()
+    build()
+
+    main_cfg = bump_on_tail_default(time_max=100.0, verbosity=0)
+    check(main_cfg.nparticle_max == FULL_N and main_cfg.nx == 192, "full width")
+    trig_accuracy()
+    err32 = compare_substeps(main_cfg, FULL_N, F32_TOL)
+    f64 = dataclasses.replace(main_cfg, dtype="float64", nparticle_max=F64_N,
+                              modes=(1, 2, 3), init_modes=(1, 2),
+                              init_amp_cos=(1e-5, 0.0), init_amp_sin=(1e-4, 5e-5))
+    compare_substeps(f64, F64_N, None)
+    compare_substeps(dataclasses.replace(f64, modes=(1,), init_modes=(1,),
+                                         init_amp_cos=(0.0,), init_amp_sin=(1e-5,)),
+                     F64_N, None)
+    compare_steppers(main_cfg)
+    torch.cuda.synchronize()
+
+    launches, _ = main_path(main_cfg)
+
+    per_call = time_kernels(main_cfg)
+    time_steppers(main_cfg, smi)
+    time_steppers(bump_on_tail_default(nparticle_max=BENCH_N, nx=BENCH_NX,
+                                       verbosity=0), smi)
+
+    kernels = [{"name": k.name, "route": "cuda", "source": k.source,
+                "replaces": k.replaces, "launches": launches[k.name],
+                "max_abs_err": err32[k.name], "ms": per_call[k.name],
+                "plain_ms": per_call[f"{k.name}_plain"]} for k in sk.KERNELS]
+    say(smi)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

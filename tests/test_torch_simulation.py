@@ -1,0 +1,142 @@
+"""The slice as a whole: one loaded state runs through both packages'
+Simulation with output on, in float64.  Snapshots, pic1dp.out and the
+progress lines must agree; the port's command line must run on the CPU."""
+
+import contextlib
+import io
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+from _torch_port import assert_rel, to_port
+
+from pic1dp_tpu.analysis.output_data import OutputData
+from pic1dp_tpu.config import bump_on_tail_default as jax_bot
+from pic1dp_tpu.core.loading import load_particles as jax_load
+from pic1dp_tpu.core.simulation import Simulation as JaxSimulation
+from pic1dp_tpu_torch import Simulation
+from pic1dp_tpu_torch.config import OptimizationConfig
+from pic1dp_tpu_torch.config import bump_on_tail_default as bot
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KW = dict(nx=192, nparticle_max=8192, time_max=1.0, dtype="float64", verbosity=1)
+
+
+def _progress(err: str) -> tuple[list[str], list[str]]:
+    """(progress lines without the version line, timer phase names)."""
+    lines = err.splitlines()
+    cut = lines.index("Info: timers:")
+    phases = [ln.split()[0] for ln in lines[cut + 2:-1]]
+    return lines[1:cut], phases
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both simulations from the JAX loader's state, with their snapshots,
+    output directories and stderr."""
+    out = tmp_path_factory.mktemp("sim")
+    jcfg = jax_bot(**KW)
+    raw = jax_load(jcfg, jax.random.PRNGKey(0))
+    result = {}
+    for name in ("jax", "torch"):
+        if name == "jax":
+            sim = JaxSimulation(jcfg, out_path=str(out / name))
+            sim.state = sim.stepper.initial_field(raw)
+        else:
+            sim = Simulation(bot(**KW), out_path=str(out / name), device="cpu")
+            sim.state = sim.stepper.initial_field(to_port(raw))
+        snaps = []
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            sim.run(snapshot_callback=snaps.append)
+        err = err.getvalue()
+        result[name] = dict(snaps=snaps, dir=str(out / name), err=err)
+    return result
+
+
+def test_snapshots_agree(runs):
+    js, ts = runs["jax"]["snaps"], runs["torch"]["snaps"]
+    assert [s["time"] for s in ts] == [s["time"] for s in js]
+    assert len(ts) == 3   # t = 0, 0.5, 1.0
+    for a, b in zip(ts, js):
+        np.testing.assert_allclose(a["field_energy"], b["field_energy"], rtol=1e-10)
+        for key in ("marker", "total", "pertb", "mode_re", "mode_im"):
+            assert_rel(a[key], b[key], 1e-12, f"t={a['time']}:{key}")
+
+
+def test_output_files_agree(runs):
+    a, b = OutputData(runs["torch"]["dir"]), OutputData(runs["jax"]["dir"])
+    assert (a.nspecies, a.nmode, a.nx, a.nv, a.nx_pd, a.nv_pd, a.ntime) == \
+        (b.nspecies, b.nmode, b.nx, b.nv, b.nx_pd, b.nv_pd, b.ntime)
+    assert (a.lx, a.v_max) == (b.lx, b.v_max)
+    assert_rel(a.get_scalar_t(), b.get_scalar_t(), 1e-12, "scalars")
+    assert_rel(a.get_mode_t(), b.get_mode_t(), 1e-12, "modes")
+    for it in range(a.ntime):
+        assert_rel(a.get_field_x(it), b.get_field_x(it), 1e-12, f"fields {it}")
+        for k in range(3):
+            assert_rel(a.get_ptcldist_xv(it, 0, k), b.get_ptcldist_xv(it, 0, k),
+                       1e-12, f"xv {it} {k}")
+            assert_rel(a.get_ptcldist_v(it, 0, k), b.get_ptcldist_v(it, 0, k),
+                       1e-12, f"v {it} {k}")
+
+
+def test_progress_lines_agree(runs):
+    tlines, tphases = _progress(runs["torch"]["err"])
+    jlines, jphases = _progress(runs["jax"]["err"])
+    assert runs["torch"]["err"].splitlines()[0] == "pic1dp_tpu_torch version 0.1.0"
+    assert tlines == jlines
+    assert tphases == jphases
+
+
+def test_nonfinite_field_energy_raises():
+    sim = Simulation(bot(nx=64, nparticle_max=1024, time_max=0.2, dtype="float64",
+                         verbosity=0), device="cpu")
+    sim.load()
+    sim.state.electric[0] = float("nan")
+    with pytest.raises(FloatingPointError, match="non-finite field energy"):
+        sim.output_snapshot()
+
+
+def test_optimization_schedule_not_ported():
+    cfg = bot(nparticle_max=1024, optimization=OptimizationConfig(
+        tsplit=(1.0,), thshsplit=(0.1,)))
+    with pytest.raises(NotImplementedError, match="optimization"):
+        Simulation(cfg, device="cpu")
+
+
+def test_run_cli_on_cpu(tmp_path):
+    """`python -m pic1dp_tpu_torch.run --device cpu` writes a readable
+    pic1dp.out whose field energies the same run in process reproduces."""
+    sets = ["nx=64", "nparticle_max=2048", "time_max=0.2", "output_interval=0.1",
+            "dtype='float64'", "verbosity=0"]
+    cmd = [sys.executable, "-m", "pic1dp_tpu_torch.run", "--device", "cpu",
+           "-o", str(tmp_path)] + [a for s in sets for a in ("-s", s)]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    od = OutputData(str(tmp_path))
+    assert od.ntime == 3 and od.nx == 64
+    snaps = []
+    Simulation(bot(nx=64, nparticle_max=2048, time_max=0.2, output_interval=0.1,
+                   dtype="float64", verbosity=0), device="cpu").run(snaps.append)
+    np.testing.assert_allclose(od.get_scalar_t()[1], [s["field_energy"] for s in snaps],
+                               rtol=1e-12)
+
+
+def test_run_cli_without_cuda_refuses():
+    proc = subprocess.run([sys.executable, "-m", "pic1dp_tpu_torch.run", "--no-output",
+                           "-s", "nparticle_max=1024"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_run_cli_write_config(tmp_path):
+    path = tmp_path / "cfg.json"
+    proc = subprocess.run([sys.executable, "-m", "pic1dp_tpu_torch.run", "-s", "nx=256",
+                           "--write-config", str(path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert bot(nx=256).to_json() == path.read_text()
