@@ -1,18 +1,25 @@
 """Smoke test of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
-Drives pic1dp_tpu_torch's main path — the default bump-on-tail run at its
-full width of 6.4M markers — through the hand-written CUDA substep kernels,
-and checks it.  It imports neither jax nor pic1dp_tpu, catches nothing, and
-exits non-zero at the first failed check.  Phases, each printed:
+Drives pic1dp_tpu_torch's main paths — the default bump-on-tail run at its
+full width of 6.4M markers, in f32 and with bf16_weights, through the
+hand-written CUDA substep kernels, and the two probes through the stream
+kernels — and checks them.  It imports neither jax nor pic1dp_tpu, catches
+nothing, and exits non-zero at the first failed check.  Phases, each printed:
 
   1. environment: torch, CUDA, triton and nvcc versions, the card
-  2. build: nvcc builds the kernels from pic1dp_tpu_torch/csrc
+  2. build: nvcc builds every kernel source of pic1dp_tpu_torch/csrc, one
+     process per source, all at once
   3. each kernel against its plain PyTorch version on the same inputs:
-     f32 at full width, f64 with three modes, five Stepper steps
-  4. the main path: Simulation.run to t = 100, with launch counts, the
-     pic1dp.out size and read-back, and the growth rate against theory
-  5. timing: ms/step of the kernel and the plain Stepper at the main path's
-     shape and at bench.py's headline shape (2^26 markers, nx 1024)
+     the substeps in f32 and bf16_weights at full width and in f64 with
+     three modes, five Stepper steps in f32 and bf16, and both stream
+     kernels on every built pattern
+  4. the main paths, each with its launch counts set to 0 just before and
+     read just after: Simulation.run to t = 100 in f32 and in bf16_weights
+     (launch counts, the pic1dp.out size and read-back, the growth rate
+     against theory), then the kernel and pipeline probes at 2^26
+  5. timing: ms per call of each substep kernel and its plain version, and
+     ms/step of the kernel and the plain Stepper at the main path's shape
+     and at bench.py's headline shape (2^26 markers, nx 1024)
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object on the kernels, and {"ok": true, "device": ...}.
@@ -45,6 +52,10 @@ F64_N = 262_144
 # w and the projections relative to their max
 F32_TOL = dict(x=5e-5, v=1e-5, w=1e-4, proj=1e-4)
 F64_TOL = 1e-12                      # relative to each field's max
+# stream kernels: outputs bitwise equal to the plain version; the element
+# sum (float64 in both, summed in another order) within this relative bound
+STREAM_SUM_TOL = 1e-6
+PROBE_LOG2 = 26                      # 256 MB per stream: HBM, not the 50 MB L2
 TIMING_STEPS, WARMUP_STEPS = 50, 5
 SEED = 20261016
 
@@ -79,6 +90,26 @@ def rel_err(a, b) -> float:
     return abs_err(a, b) / max(float(b.double().abs().max()), 1e-300)
 
 
+def bf16_ulps(a, b, eta: float) -> dict:
+    """|a - b| elementwise in units of one bfloat16 ulp of max(|a|, |b|)
+    (2^(e-8) for a magnitude m * 2^e, m in [0.5, 1)): the largest, the
+    number of elements that differ at all and beyond one ulp, at the worst
+    element its magnitude and |a - b| relative to max|b|, and whether every
+    element is within one ulp plus eta * max|b|."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    diff = (a - b).abs()
+    ratio = torch.where(diff > 0, diff / ulp, torch.zeros_like(diff))
+    worst = int(ratio.argmax())
+    scale = float(b.abs().max())
+    within = bool((diff <= ulp + eta * scale).all())
+    return dict(within=within, ulps=float(ratio.max()), differ=int((diff > 0).sum()),
+                beyond=int((ratio > 1).sum()), worst_mag=float(mag.flatten()[worst]),
+                worst_rel=float(diff.flatten()[worst]) / scale,
+                rel=float(diff.max()) / scale)
+
+
 # ---- phases ----
 
 def environment() -> str:
@@ -103,15 +134,20 @@ def environment() -> str:
 
 
 def build() -> None:
+    from pic1dp_tpu_torch.ops import stream_probes as sp
     from pic1dp_tpu_torch.ops import substep_kernels as sk
+    from pic1dp_tpu_torch.utils import nvcc
 
     start = time.perf_counter()
-    built = sk.library()
-    say(f"[2 build] {built.path.name}: nvcc {built.build_seconds:.1f} s, "
-        f"load {time.perf_counter() - start:.1f} s")
-    for line in built.log.splitlines():
-        if "Used" in line or "spill" in line:
-            say(f"[2 build] {line.strip()}")
+    for built in nvcc.load_all([sk.SOURCE, sp.SOURCE]):
+        say(f"[2 build] {built.path.name}: nvcc {built.build_seconds:.1f} s")
+        for line in built.log.splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                say(f"[2 build] {line.strip()}")
+    sk.library()
+    sp.library()
+    say(f"[2 build] both libraries built in parallel and loaded in "
+        f"{time.perf_counter() - start:.1f} s")
 
 
 def _inputs(cfg, n: int, device: str):
@@ -134,13 +170,17 @@ def _inputs(cfg, n: int, device: str):
                                     torch.full((1, 1), float(n), dtype=dtype, device=device))
     w = _initial_w(cfg, x, p0).contiguous()
     modes = [t(rng.uniform(-0.05, 0.05, cfg.nmode)) for _ in range(4)]
-    return x, v, (p0 + w).contiguous(), w, modes, sp
+    p = (p0 + w).to(getattr(torch, cfg.p_dtype)).contiguous()
+    return x, v, p, w, modes, sp
 
 
 def compare_substeps(cfg, n: int, tol: dict | None) -> dict:
     """Both kernels and both plain versions on the same inputs; returns each
     kernel's largest absolute error; raises past the tolerance (tol None:
-    F64_TOL relative to each field's max)."""
+    F64_TOL relative to each field's max).  Under bf16_weights substep 1's
+    w1 is held to one bfloat16 ulp per element: the kernel's float w1 may
+    differ from torch's by an ulp (FMA contraction), which flips the
+    rounding of a few markers."""
     from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 
     x, v, p, w, (mre0, mim0, mre1, mim1), sp = _inputs(cfg, n, "cuda")
@@ -153,24 +193,38 @@ def compare_substeps(cfg, n: int, tol: dict | None) -> dict:
     px2, pv2, pw2, pproj2 = subs.substep2_plain(*streams[:2], p, streams[2],
                                                kw1, kv1, mre1, mim1)
     torch.cuda.synchronize()
+    bf16 = cfg.bf16_weights
     pairs = {"substep1": dict(w=(kw1, pw1), v=(kv1, pv1), proj=(
                  torch.stack(kproj1), torch.stack(pproj1))),
              "substep2": dict(x=(kx2, px2), v=(kv2, pv2), w=(kw2, pw2), proj=(
                  torch.stack(kproj2), torch.stack(pproj2)))}
+    check(kw1.dtype == pw1.dtype == p.dtype and kv1.dtype == kx2.dtype == x.dtype,
+          f"substep output dtypes (w1 {kw1.dtype}, v1 {kv1.dtype}, x2 {kx2.dtype})")
     worst = {}
     for name, fields in pairs.items():
         errs = []
         for field, (a, b) in fields.items():
             check(bool(torch.isfinite(a).all()), f"{name} {field} finite")
+            if bf16 and name == "substep1" and field == "w":
+                u = bf16_ulps(a, b, tol["w"])
+                say(f"[3 compare] bf16 n={n} substep1 w1: {u['differ']} of {a.numel()} "
+                    f"markers differ, {u['beyond']} by more than one bf16 ulp; worst "
+                    f"{u['ulps']:g} ulp at |w1| {u['worst_mag']:.3e} ({u['worst_rel']:.3e} "
+                    f"of max); max abs err {u['rel']:.3e} of max; every marker within "
+                    f"one ulp + {tol['w']:g} of max: {u['within']}")
+                check(u["within"], f"bf16 w1 within one bf16 ulp + {tol['w']} of max")
+                errs.append(abs_err(a, b))
+                continue
             ab = periodic_err(a, b, cfg.lx) if field == "x" else abs_err(a, b)
             rel = ab / max(float(b.double().abs().max()), 1e-300)
             limit = F64_TOL if tol is None else tol[field]
             measured = rel if (tol is None or field in ("w", "proj")) else ab
-            say(f"[3 compare] {cfg.dtype} n={n} modes={cfg.modes} {name} {field}: "
+            say(f"[3 compare] {cfg.dtype}{'/bf16' if bf16 else ''} n={n} "
+                f"modes={cfg.modes} {name} {field}: "
                 f"max abs err {ab:.3e}, rel to max {rel:.3e} (limit {limit:g})")
             check(measured <= limit, f"{name} {field} {cfg.dtype} within {limit}")
             errs.append(ab)
-        worst[name] = max(errs)
+        worst[name + ("_bf16" if bf16 else "")] = max(errs)
     return worst
 
 
@@ -204,24 +258,74 @@ def compare_steppers(cfg) -> None:
     a, b = kern.multi_step(a, 5), plain.multi_step(b, 5)
     c = kern.multi_step(c, 5)
     torch.cuda.synchronize()
+    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+    check(a.p.dtype == getattr(torch, cfg.p_dtype) and a.w.dtype == getattr(torch, cfg.dtype),
+          f"{label} Stepper keeps p {cfg.p_dtype} and w {cfg.dtype}")
     same = all(torch.equal(getattr(a, f), getattr(c, f))
                for f in ("x", "v", "w", "mode_re", "mode_im"))
-    say(f"[3 compare] kernel Stepper run twice from one state: bitwise equal {same}")
+    say(f"[3 compare] {label} kernel Stepper run twice from one state: bitwise equal {same}")
     check(same, "kernel steps repeat bit for bit (no float atomics)")
     errs = dict(x=periodic_err(a.x, b.x, cfg.lx), v=abs_err(a.v, b.v),
                 w=rel_err(a.w, b.w), proj=max(rel_err(a.mode_re, b.mode_re),
                                              rel_err(a.mode_im, b.mode_im)))
-    say(f"[3 compare] Stepper 5 steps, kernel vs plain, n={cfg.nparticle_max}: "
+    say(f"[3 compare] {label} Stepper 5 steps, kernel vs plain, n={cfg.nparticle_max}: "
         + ", ".join(f"{k} {v:.3e} (limit {F32_TOL[k]:g})" for k, v in errs.items()))
     for k, v in errs.items():
         check(v <= F32_TOL[k], f"Stepper {k} within {F32_TOL[k]}")
 
 
-def main_path(cfg) -> tuple[dict, int]:
+def stream_cases():
+    """(label, kernel, keyword arguments, reads, writes, alias) of every
+    built pattern under stream_rw and the default stream_bulk ring, and the
+    pipeline probe's other rings on the substep-2 pattern."""
+    from pic1dp_tpu_torch.ops.stream_probes import stream_bulk, stream_rw
+    from pic1dp_tpu_torch.probes import kernel_probe, pipeline_probe
+
+    for label, nr, nw, alias in kernel_probe.TPU_PATTERNS + kernel_probe.PORT_PATTERNS:
+        yield "stream_rw", stream_rw, {}, nr, nw, alias, label
+        yield "stream_bulk", stream_bulk, {}, nr, nw, alias, label
+    for label, kernel, kw, alias in pipeline_probe.CASES:
+        if kernel is stream_bulk:
+            yield "stream_bulk", kernel, kw, pipeline_probe.N_READ, \
+                pipeline_probe.N_WRITE, alias, label
+
+
+def compare_streams(n: int) -> dict:
+    """Each stream kernel against stream_plain on fresh copies of the same
+    inputs (an odd n, so the masked tails run): outputs and inputs bitwise
+    equal after the call, the element sum within STREAM_SUM_TOL."""
+    from pic1dp_tpu_torch.ops.stream_probes import stream_plain
+    from pic1dp_tpu_torch.probes import fresh_streams
+
+    worst = {"stream_rw": 0.0, "stream_bulk": 0.0}
+    for k, (name, kernel, kw, nr, nw, alias, label) in enumerate(stream_cases()):
+        base = fresh_streams(nr, n, torch.device("cuda"), seed=k)
+        a, b = [t.clone() for t in base], [t.clone() for t in base]
+        outs_k, sum_k = kernel(a, nw, alias, **kw)
+        outs_p, sum_p = stream_plain(b, nw, alias)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(outs_k + a, outs_p + b))
+        err = max(abs_err(x, y) for x, y in zip(outs_k, outs_p))
+        rel = abs(float(sum_k) - float(sum_p)) / abs(float(sum_p))
+        say(f"[3 compare] {name} {kw or ''} {label} n={n}: outputs and inputs bitwise "
+            f"equal {same}; sum rel err {rel:.3e} (limit {STREAM_SUM_TOL:g})")
+        check(same, f"{name} {label} {kw} bitwise equal to stream_plain")
+        check(rel <= STREAM_SUM_TOL, f"{name} {label} sum within {STREAM_SUM_TOL}")
+        worst[name] = max(worst[name], err)
+        del base, a, b, outs_k, outs_p
+    return worst
+
+
+def main_path(cfg) -> tuple[dict, float]:
+    """Simulation.run to time_max with every substep kernel's count set to 0
+    just before and read just after; returns the counts and gamma."""
     from pic1dp_tpu_torch import Simulation
     from pic1dp_tpu_torch.io import petsc_binary as pb
     from pic1dp_tpu_torch.ops import substep_kernels as sk
 
+    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+    used = ({sk.SUBSTEP1_BF16.name, sk.SUBSTEP2_BF16.name} if cfg.bf16_weights
+            else {sk.SUBSTEP1.name, sk.SUBSTEP2.name})
     snaps = []
     with tempfile.TemporaryDirectory() as out:
         sim = Simulation(cfg, out_path=out, device="cuda")
@@ -242,10 +346,11 @@ def main_path(cfg) -> tuple[dict, int]:
             fh.seek(header + (len(snaps) - 1) * snap)
             last = pb.read_real(fh, 2 + 3 * ns)
     steps = sim.itime
-    say(f"[4 main path] n={cfg.nparticle_max} nx={cfg.nx} t={sim.time:.3f} "
+    say(f"[4 main path] {label} n={cfg.nparticle_max} nx={cfg.nx} t={sim.time:.3f} "
         f"steps={steps} snapshots={len(snaps)} wall {wall:.2f} s; launches {launches}")
     check(steps == round(cfg.time_max / cfg.dt), "step count")
-    check(all(v == steps for v in launches.values()), "one launch of each kernel per step")
+    check(all(v == (steps if k in used else 0) for k, v in launches.items()),
+          f"one launch of each of {sorted(used)} per step and no other")
     check(len(snaps) == round(cfg.time_max / cfg.output_interval) + 1, "snapshot count")
     check(size == header + len(snaps) * snap,
           f"pic1dp.out size {size} == {header} + {len(snaps)} x {snap}")
@@ -256,6 +361,7 @@ def main_path(cfg) -> tuple[dict, int]:
         t = getattr(s, f)
         check(tuple(t.shape) == (1, cfg.nparticle_max) and bool(torch.isfinite(t).all()),
               f"final {f} finite with shape (1, {cfg.nparticle_max})")
+    check(s.p.dtype == getattr(torch, cfg.p_dtype), f"final p is {cfg.p_dtype}")
     check(bool(((s.x >= 0) & (s.x < cfg.lx)).all()), "final x in [0, lx)")
     t = np.array([q["time"] for q in snaps])
     e = np.array([q["field_energy"] for q in snaps])
@@ -263,10 +369,44 @@ def main_path(cfg) -> tuple[dict, int]:
     m = (t >= GAMMA_WINDOW[0]) & (t <= GAMMA_WINDOW[1])
     gamma = float(np.polyfit(t[m], np.log(e[m]), 1)[0] / 2.0)
     rel = abs(gamma - BOT_OMEGA.imag) / BOT_OMEGA.imag
-    say(f"[4 main path] gamma {gamma:.5f} vs theory {BOT_OMEGA.imag:.5f}: "
+    say(f"[4 main path] {label} gamma {gamma:.5f} vs theory {BOT_OMEGA.imag:.5f}: "
         f"rel err {rel:.4f} (limit {GAMMA_REL_TOL}); int E^2 dx at t=100: {e[-1]:.4e}")
     check(rel <= GAMMA_REL_TOL, "growth rate within 5% of the dispersion root")
-    return launches, steps
+    return launches, gamma
+
+
+def probes_path() -> tuple[dict, dict]:
+    """The kernel and pipeline probes at 2^PROBE_LOG2 through their entry
+    points, with the stream kernels' counts set to 0 just before and read
+    just after; returns the counts and the probes' rows."""
+    from pic1dp_tpu_torch.ops import stream_probes as sp
+    from pic1dp_tpu_torch.probes import kernel_probe, pipeline_probe
+
+    for k in sp.KERNELS:
+        k.launches = 0
+    rows = {}
+    for probe in (kernel_probe, pipeline_probe):
+        say(f"[4 probes] python -m {probe.__name__} {PROBE_LOG2}")
+        rows.update(probe.main([str(PROBE_LOG2)]))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in sp.KERNELS}
+    say(f"[4 probes] launches {launches}")
+    check(all(v > 0 for v in launches.values()), "both stream kernels launched")
+    return launches, rows
+
+
+def device_state() -> str:
+    """The caching allocator's state and the card's clocks, power and
+    temperature, printed beside each timing window."""
+    st = torch.cuda.memory_stats()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return (f"reserved {torch.cuda.memory_reserved() / 2**30:.1f} GiB, allocator "
+            f"retries {st.get('num_alloc_retries', 0)}, cudaMalloc "
+            f"{st.get('num_device_alloc', 0)}, cudaFree {st.get('num_device_free', 0)}; "
+            f"{smi}")
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -287,6 +427,7 @@ def time_steppers(cfg, smi: str) -> tuple[float, float]:
 
     kern, plain = Stepper(cfg, "cuda"), Stepper(cfg, "cuda", plain=True)
     state0 = kern.initial_field(load_particles(cfg, "cuda"))
+    say(f"[5 timing] before: {device_state()}")
     ms = {"kernel": [], "plain": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         st = kern if which == "kernel" else plain
@@ -299,9 +440,11 @@ def time_steppers(cfg, smi: str) -> tuple[float, float]:
         ms[which].append(_events_ms(one, TIMING_STEPS))
         check(bool(torch.isfinite(box[0].w).all()), f"{which} timing run finite")
         del box
+    say(f"[5 timing] after: {device_state()}")
     k, p = (float(np.mean(ms[w])) for w in ("kernel", "plain"))
     n = cfg.nspecies * cfg.nparticle_max
-    say(f"[5 timing] n={n} nx={cfg.nx} {cfg.dtype}: kernel {k:.4f} ms/step "
+    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+    say(f"[5 timing] n={n} nx={cfg.nx} {label}: kernel {k:.4f} ms/step "
         f"({ms['kernel'][0]:.4f}, {ms['kernel'][1]:.4f}) = {n / k * 1e3:.4e} pushes/s; "
         f"plain {p:.4f} ms/step ({ms['plain'][0]:.4f}, {ms['plain'][1]:.4f}) = "
         f"{n / p * 1e3:.4e} pushes/s; card {smi}")
@@ -309,18 +452,21 @@ def time_steppers(cfg, smi: str) -> tuple[float, float]:
 
 
 def time_kernels(cfg) -> dict:
-    """ms per call of each kernel and of its plain version at the main path's
-    shape (these launches come after the main path's counts were read)."""
+    """ms per call of each substep kernel and of its plain version at the
+    main path's shape (these launches come after the main path's counts
+    were read)."""
     from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 
     x, v, p, w, (mre0, mim0, mre1, mim1), sp = _inputs(cfg, cfg.nparticle_max, "cuda")
     subs = FusedSubsteps(cfg, sp)
     w1, v1, _ = subs.substep1(x, v, p, w, mre0, mim0)
+    tag = "_bf16" if cfg.bf16_weights else ""
     out = {}
-    for name, fn in (("substep1", lambda: subs.substep1(x, v, p, w, mre0, mim0)),
-                     ("substep1_plain", lambda: subs.substep1_plain(x, v, p, w, mre0, mim0)),
-                     ("substep2", lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1)),
-                     ("substep2_plain",
+    for name, fn in ((f"substep1{tag}", lambda: subs.substep1(x, v, p, w, mre0, mim0)),
+                     (f"substep1{tag}_plain",
+                      lambda: subs.substep1_plain(x, v, p, w, mre0, mim0)),
+                     (f"substep2{tag}", lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1)),
+                     (f"substep2{tag}_plain",
                       lambda: subs.substep2_plain(x, v, p, w, w1, v1, mre1, mim1))):
         fn()
         out[name] = _events_ms(fn, TIMING_STEPS)
@@ -329,20 +475,37 @@ def time_kernels(cfg) -> dict:
     return out
 
 
+def time_stream_plain() -> float:
+    """ms per call of stream_plain on the substep-2 pattern (4r+3w aliased)
+    at 2^PROBE_LOG2, the pattern the stream kernels' "ms" is read at."""
+    from pic1dp_tpu_torch.ops.stream_probes import stream_plain
+    from pic1dp_tpu_torch.probes import fresh_streams, pipeline_probe
+
+    ins = fresh_streams(4, 2**PROBE_LOG2, torch.device("cuda"), seed=7)
+    fn = lambda: stream_plain(ins, 3, pipeline_probe.ALIAS)   # noqa: E731
+    fn()
+    ms = _events_ms(fn, 10)
+    say(f"[5 timing] stream_plain 4r+3w aliased n=2^{PROBE_LOG2}: {ms:.4f} ms")
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
                          "is False")
     from pic1dp_tpu_torch.config import bump_on_tail_default
+    from pic1dp_tpu_torch.ops import stream_probes as sp
     from pic1dp_tpu_torch.ops import substep_kernels as sk
 
     smi = environment()
     build()
 
     main_cfg = bump_on_tail_default(time_max=100.0, verbosity=0)
+    bf16_cfg = dataclasses.replace(main_cfg, bf16_weights=True)
     check(main_cfg.nparticle_max == FULL_N and main_cfg.nx == 192, "full width")
     trig_accuracy()
-    err32 = compare_substeps(main_cfg, FULL_N, F32_TOL)
+    err = compare_substeps(main_cfg, FULL_N, F32_TOL)
+    err.update(compare_substeps(bf16_cfg, FULL_N, F32_TOL))
     f64 = dataclasses.replace(main_cfg, dtype="float64", nparticle_max=F64_N,
                               modes=(1, 2, 3), init_modes=(1, 2),
                               init_amp_cos=(1e-5, 0.0), init_amp_sin=(1e-4, 5e-5))
@@ -351,19 +514,33 @@ def main() -> int:
                                          init_amp_cos=(0.0,), init_amp_sin=(1e-5,)),
                      F64_N, None)
     compare_steppers(main_cfg)
+    compare_steppers(bf16_cfg)
+    err.update(compare_streams(2**PROBE_LOG2 + 13))
     torch.cuda.synchronize()
 
-    launches, _ = main_path(main_cfg)
+    launches, gamma32 = main_path(main_cfg)
+    bf16_launches, gamma16 = main_path(bf16_cfg)
+    say(f"[4 main path] gamma f32 {gamma32:.5f}, bf16_weights {gamma16:.5f}, "
+        f"theory {BOT_OMEGA.imag:.5f}")
+    launches.update({k: v for k, v in bf16_launches.items() if "bf16" in k})
+    stream_launches, rows = probes_path()
+    launches.update(stream_launches)
 
     per_call = time_kernels(main_cfg)
+    per_call.update(time_kernels(bf16_cfg))
+    per_call["stream_rw"] = rows["ss2 pattern 4r+3w aliased"].ms
+    per_call["stream_bulk"] = rows["bulk 8 KB x 4 aliased"].ms
+    per_call["stream_rw_plain"] = per_call["stream_bulk_plain"] = time_stream_plain()
     time_steppers(main_cfg, smi)
-    time_steppers(bump_on_tail_default(nparticle_max=BENCH_N, nx=BENCH_NX,
-                                       verbosity=0), smi)
+    headline = bump_on_tail_default(nparticle_max=BENCH_N, nx=BENCH_NX, verbosity=0)
+    time_steppers(headline, smi)
+    time_steppers(dataclasses.replace(headline, bf16_weights=True), smi)
 
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],
-                "max_abs_err": err32[k.name], "ms": per_call[k.name],
-                "plain_ms": per_call[f"{k.name}_plain"]} for k in sk.KERNELS]
+                "max_abs_err": err[k.name], "ms": per_call[k.name],
+                "plain_ms": per_call[f"{k.name}_plain"]} for k in sk.KERNELS + sp.KERNELS]
+    check(all(k["launches"] > 0 for k in kernels), "every kernel launched on its main path")
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

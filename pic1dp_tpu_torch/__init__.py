@@ -3,8 +3,9 @@
 A port of pic1dp_tpu (the JAX/Pallas package beside it, which stays the
 reference) to PyTorch on an NVIDIA Hopper GPU: the same delta-f
 Vlasov-Poisson particle-in-cell step, with the TPU's fused substep kernels
-rewritten by hand in CUDA C++ (csrc/substep_kernels.cu).  It imports torch and
-never jax or pic1dp_tpu.
+rewritten by hand in CUDA C++ (csrc/substep_kernels.cu), and the TPU's
+stream-ceiling probes likewise (csrc/stream_probes.cu, run by the probes/
+entry points).  It imports torch and never jax or pic1dp_tpu.
 
 Public API:
     Config     — runtime configuration (a copy of pic1dp_tpu.config)

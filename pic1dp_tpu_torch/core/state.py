@@ -15,6 +15,7 @@ distribution.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 
 import numpy as np
 import torch
@@ -75,19 +76,40 @@ class SimState:
     def from_numpy(cls, arrays, device: torch.device | str) -> "SimState":
         """A state from host arrays: a mapping of the field names, or any
         object with those attributes (a pic1dp_tpu SimState included); each
-        field goes through np.array, so the source is copied, not shared."""
+        field goes through np.array, so the source is copied, not shared.
+        An ml_dtypes bfloat16 array (p under bf16_weights) becomes a
+        torch.bfloat16 tensor with the same bits."""
         get = arrays.__getitem__ if isinstance(arrays, dict) else \
             (lambda f: getattr(arrays, f))
-        return cls(**{f: torch.from_numpy(np.array(get(f))).to(device)
-                      for f in FIELDS})
+        return cls(**{f: _tensor(np.array(get(f))).to(device) for f in FIELDS})
 
     def to_numpy(self) -> dict[str, np.ndarray]:
-        """Host copies of every field, keyed by name."""
-        return {f: getattr(self, f).detach().cpu().numpy() for f in FIELDS}
+        """Host copies of every field, keyed by name.  A bfloat16 tensor
+        comes back as an ml_dtypes bfloat16 array with the same bits where
+        ml_dtypes is installed, else as its exact float32 upcast."""
+        return {f: _array(getattr(self, f).detach().cpu()) for f in FIELDS}
 
     def clone(self) -> "SimState":
         """A deep copy (the CUDA step updates x, v and w in place)."""
         return SimState(**{f: getattr(self, f).clone() for f in FIELDS})
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    # numpy has no bfloat16 of its own: ml_dtypes' type (JAX's) is named
+    # "bfloat16" and torch.from_numpy refuses it, so carry its bits
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    if importlib.util.find_spec("ml_dtypes") is None:
+        return t.float().numpy()
+    import ml_dtypes
+
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 
 
 def balanced_live_mask(nparticle_max: int, nparticle_init: int,

@@ -11,11 +11,16 @@ with the full dt using the midpoint fields and velocities
 gather E, push, and deposit the mode projections; between them the mode
 solve is two multiplies on the device, so a step never waits for the host.
 
-Not ported yet: the EXPLICIT grid path, linear and full-f runs, bf16
-weights, and push_pair with the particle optimization it serves.
+Under bf16_weights p is stored as bfloat16 and the substeps stream w1 as
+bfloat16; x, v, w and the fields stay float32.
+
+Not ported yet: the EXPLICIT grid path, linear and full-f runs, and
+push_pair with the particle optimization it serves.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -42,11 +47,22 @@ class Stepper:
         missing = [what for what, cond in (
             ("the EXPLICIT grid path", cfg.shape != ParticleShape.MATRIX_FREE),
             ("linear runs", cfg.linear),
-            ("full-f runs", not cfg.deltaf),
-            ("bf16_weights", cfg.bf16_weights)) if cond]
+            ("full-f runs", not cfg.deltaf)) if cond]
         if missing:
             raise NotImplementedError(
                 f"not ported to pic1dp_tpu_torch yet: {', '.join(missing)}")
+        if cfg.bf16_weights and cfg.nspecies > 1 and any(
+                abs(s.v0) > 2.0 * (s.temperature / s.mass) ** 0.5
+                for s in cfg.species):
+            # measured limitation of the reference (pic1dp_tpu/core/step.py
+            # :104-121, docs/performance.md round 5), kept word for word
+            warnings.warn(
+                "bf16_weights with multiple strongly shifted species "
+                "(|v0| > 2 vth) has a measured post-saturation divergence "
+                "(bf16 w1-stream rounding amplifies the vortex-merging "
+                "transient; docs/performance.md round 5). Use f32, the "
+                "equivalent single-species composite equilibrium, or stop "
+                "before deep saturation.", RuntimeWarning, stacklevel=3)
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = torch_dtype(cfg.dtype)

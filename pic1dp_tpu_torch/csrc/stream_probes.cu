@@ -1,0 +1,350 @@
+// Stream-only probe kernels for Hopper (sm_90a), with a plain C interface
+// loaded through ctypes (pic1dp_tpu_torch/ops/stream_probes.py).
+//
+// They replace the TPU probe kernels that measure the streaming ceiling of
+// the substep kernels' access patterns: stream_only in bench/kernel_probe.py
+// (:140, body :143-158) and default_pipeline / manual_pipeline in
+// bench/probe_pipeline.py (:78 and :104, body :70-76).  All three compute the
+// same function of NR float streams:
+//
+//   acc   = in_0 + in_1 + ... + in_{NR-1}        (left to right, in float)
+//   out_j = acc * (1 + 0.25 j)                    for j < NW
+//   sum   = the sum of acc over every element     (the TPU's (8,128) tile)
+//
+// where each output either overwrites a named input (the TPU kernels'
+// input_output_aliases) or goes to a fresh buffer; the wrapper passes the
+// output pointers accordingly.
+//
+// What bounds them: nothing but memory traffic, (NR + NW) * 4 bytes per
+// element against a few adds; their rate is the attainable ceiling for the
+// pattern on this card.  Two designs, the two choices a substep kernel has:
+//
+//   stream_rw    direct loads.  A grid-stride loop in which each thread
+//                loads one float4 of every input, sums it in registers and
+//                stores one float4 of every output; a masked scalar tail
+//                takes n % 4.  On the TPU, stream_only and default_pipeline
+//                are the same kernel under the default grid pipeline, so
+//                here they are one template.
+//   stream_bulk  a manual pipeline (the counterpart of pltpu.emit_pipeline).
+//                A persistent grid; each block owns a ring of `stages`
+//                shared-memory slots, each holding one tile of every input.
+//                One thread fills a slot with one cp.async.bulk (1D bulk
+//                copy, no tensor map) per input, completing on the slot's
+//                mbarrier with expect_tx; all threads wait on the barrier,
+//                compute from shared memory and store float4 to global.  A
+//                slot is refilled `stages` tiles ahead once every thread has
+//                left it (__syncthreads, then fence.proxy.async before the
+//                async proxy writes it again).  Elements past the last whole
+//                tile are taken with plain loads.
+//
+// The element sum: Hopper blocks run in no order, so each block reduces its
+// threads' sums (in double, each element added as its exact double value)
+// with shuffles and shared memory in a fixed tree and writes one partial;
+// the wrapper sums the partials.  No float atomics.
+//
+// In place: an output aliasing an input is written only at the elements the
+// same thread (stream_rw) or block (stream_bulk, after the tile arrived in
+// shared memory) has already read, so the pointers are not __restrict__.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxIn = 6;
+constexpr int kMaxOut = 4;
+constexpr int kMaxStages = 16;
+constexpr int kBarBytes = 8 * kMaxStages;  // the mbarriers, ahead of the ring
+
+namespace {
+
+struct Streams {
+  const float* in[kMaxIn];
+  float* out[kMaxOut];
+};
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 scale4(float4 a, float c) {
+  return make_float4(a.x * c, a.y * c, a.z * c, a.w * c);
+}
+
+__device__ __forceinline__ double hsum(float4 a) {
+  return static_cast<double>(a.x) + static_cast<double>(a.y) +
+         static_cast<double>(a.z) + static_cast<double>(a.w);
+}
+
+// 1 + 0.25 j, exact in float
+__device__ __forceinline__ float factor(int j) { return 1.0f + 0.25f * j; }
+
+// One element by plain loads (the tails).
+template <int NR, int NW>
+__device__ __forceinline__ double one_element(const Streams& s, long long i) {
+  float a = s.in[0][i];
+#pragma unroll
+  for (int r = 1; r < NR; ++r) a += s.in[r][i];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) s.out[j][i] = a * factor(j);
+  return static_cast<double>(a);
+}
+
+// Deterministic block sum, written as this block's partial.  Every thread of
+// the block must call it.
+__device__ __forceinline__ void block_sum_store(double v, double* partials) {
+  __shared__ double red[kWarps];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t = 0.0;
+    for (int w = 0; w < kWarps; ++w) t += red[w];
+    partials[blockIdx.x] = t;
+  }
+}
+
+template <int NR, int NW>
+__global__ void __launch_bounds__(kThreads)
+stream_rw_kernel(const Streams s, long long n, double* __restrict__ partials) {
+  double sum = 0.0;
+  const long long n4 = n / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (long long i = first; i < n4; i += stride) {
+    float4 a = reinterpret_cast<const float4*>(s.in[0])[i];
+#pragma unroll
+    for (int r = 1; r < NR; ++r) a = add4(a, reinterpret_cast<const float4*>(s.in[r])[i]);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) reinterpret_cast<float4*>(s.out[j])[i] = scale4(a, factor(j));
+    sum += hsum(a);
+  }
+  for (long long i = 4 * n4 + first; i < n; i += stride) sum += one_element<NR, NW>(s, i);
+  block_sum_store(sum, partials);
+}
+
+// ---- mbarrier and bulk-copy primitives (PTX ISA 8.0, sm_90) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also announces `bytes` of transactions for this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      "  .reg .pred p;\n"
+      "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "  selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// global -> shared 1D bulk copy completing on `bar`; 16-byte aligned
+// addresses, a size that is a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// order this thread's earlier shared-memory accesses (made visible to it by
+// __syncthreads) before later async-proxy writes to the same memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Fill ring slot `slot` with tile `tile_index` of every input.
+template <int NR>
+__device__ __forceinline__ void load_tile(const Streams& s, float* ring, uint64_t* bar,
+                                          int slot, int tile, long long tile_index) {
+  const uint32_t bytes = static_cast<uint32_t>(tile) * sizeof(float);
+  mbar_arrive_expect_tx(&bar[slot], NR * bytes);
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    bulk_load(ring + (static_cast<long long>(slot) * NR + r) * tile,
+              s.in[r] + tile_index * tile, bytes, &bar[slot]);
+}
+
+template <int NR, int NW>
+__global__ void __launch_bounds__(kThreads)
+stream_bulk_kernel(const Streams s, long long n, int tile, int stages,
+                   double* __restrict__ partials) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + kBarBytes);
+  const long long ntiles = n / tile;
+  // this block's tiles: blockIdx.x, blockIdx.x + gridDim.x, ...
+  const long long mine =
+      blockIdx.x < ntiles ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(&bar[st], 1);
+    fence_mbarrier_init();
+    for (long long k = 0; k < stages && k < mine; ++k)
+      load_tile<NR>(s, ring, bar, static_cast<int>(k), tile, blockIdx.x + k * gridDim.x);
+  }
+  __syncthreads();
+  double sum = 0.0;
+  for (long long k = 0; k < mine; ++k) {
+    const int slot = static_cast<int>(k % stages);
+    const uint32_t parity = static_cast<uint32_t>((k / stages) & 1);
+    while (!mbar_try_wait(&bar[slot], parity)) {
+    }
+    const float4* t = reinterpret_cast<const float4*>(
+        ring + static_cast<long long>(slot) * NR * tile);
+    const long long base = (blockIdx.x + k * gridDim.x) * static_cast<long long>(tile);
+    const int tile4 = tile / 4;
+    for (int e = threadIdx.x; e < tile4; e += kThreads) {
+      float4 a = t[e];
+#pragma unroll
+      for (int r = 1; r < NR; ++r) a = add4(a, t[r * tile4 + e]);
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        reinterpret_cast<float4*>(s.out[j] + base)[e] = scale4(a, factor(j));
+      sum += hsum(a);
+    }
+    __syncthreads();  // every thread has left this slot
+    if (threadIdx.x == 0 && k + stages < mine) {
+      fence_proxy_async();
+      load_tile<NR>(s, ring, bar, slot, tile, blockIdx.x + (k + stages) * gridDim.x);
+    }
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = ntiles * tile + static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride)
+    sum += one_element<NR, NW>(s, i);
+  block_sum_store(sum, partials);
+}
+
+size_t bulk_smem_bytes(int nr, int tile, int stages) {
+  return kBarBytes + static_cast<size_t>(stages) * nr * tile * sizeof(float);
+}
+
+template <int NR, int NW>
+cudaError_t launch_rw(const Streams& s, long long n, double* partials, int grid,
+                      cudaStream_t st) {
+  stream_rw_kernel<NR, NW><<<grid, kThreads, 0, st>>>(s, n, partials);
+  return cudaGetLastError();
+}
+
+template <int NR, int NW>
+cudaError_t bulk_blocks_per_sm(int tile, int stages, int* per_sm) {
+  const size_t smem = bulk_smem_bytes(NR, tile, stages);
+  cudaError_t e = cudaFuncSetAttribute(stream_bulk_kernel<NR, NW>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, stream_bulk_kernel<NR, NW>,
+                                                       kThreads, smem);
+}
+
+template <int NR, int NW>
+cudaError_t launch_bulk(const Streams& s, long long n, int tile, int stages,
+                        double* partials, int grid, cudaStream_t st) {
+  const size_t smem = bulk_smem_bytes(NR, tile, stages);
+  cudaError_t e = cudaFuncSetAttribute(stream_bulk_kernel<NR, NW>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  stream_bulk_kernel<NR, NW><<<grid, kThreads, smem, st>>>(s, n, tile, stages, partials);
+  return cudaGetLastError();
+}
+
+// The (reads, writes) patterns built: the TPU probes' 4r+1w, 4r+3w, 3r+1w and
+// 4r+4w, and the port's own substep patterns 4r+2w and 6r+3w.
+#define PIC1DP_PATTERNS(X) X(3, 1) X(4, 1) X(4, 2) X(4, 3) X(4, 4) X(6, 3)
+
+bool make_streams(int nr, int nw, const void* const* ins, void* const* outs,
+                  Streams* s) {
+  if (nr < 1 || nr > kMaxIn || nw < 1 || nw > kMaxOut) return false;
+  for (int r = 0; r < kMaxIn; ++r) {
+    s->in[r] = r < nr ? static_cast<const float*>(ins[r]) : nullptr;
+    if (r < nr && reinterpret_cast<uintptr_t>(ins[r]) % 16) return false;
+  }
+  for (int j = 0; j < kMaxOut; ++j) {
+    s->out[j] = j < nw ? static_cast<float*>(outs[j]) : nullptr;
+    if (j < nw && reinterpret_cast<uintptr_t>(outs[j]) % 16) return false;
+  }
+  return true;
+}
+
+bool bulk_shape_ok(int tile, int stages) {
+  return tile >= 4 && tile % 4 == 0 && stages >= 1 && stages <= kMaxStages;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* pic1dp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int pic1dp_stream_rw(int nr, int nw, const void* const* ins, void* const* outs,
+                     long long n, double* partials, int grid, void* stream) {
+  Streams s;
+  if (grid <= 0 || n < 0 || !make_streams(nr, nw, ins, outs, &s))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PIC1DP_CASE(R, W) \
+  if (nr == R && nw == W) return launch_rw<R, W>(s, n, partials, grid, st);
+  PIC1DP_PATTERNS(PIC1DP_CASE)
+#undef PIC1DP_CASE
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of stream_bulk that fit on one SM for this tile (floats per input
+// and slot) and stage count; 0 when one block does not fit.
+int pic1dp_stream_bulk_blocks_per_sm(int nr, int nw, int tile, int stages,
+                                     int* per_sm) {
+  *per_sm = 0;
+  if (!bulk_shape_ok(tile, stages)) return cudaErrorInvalidValue;
+#define PIC1DP_CASE(R, W) \
+  if (nr == R && nw == W) return bulk_blocks_per_sm<R, W>(tile, stages, per_sm);
+  PIC1DP_PATTERNS(PIC1DP_CASE)
+#undef PIC1DP_CASE
+  return cudaErrorInvalidValue;
+}
+
+int pic1dp_stream_bulk(int nr, int nw, const void* const* ins, void* const* outs,
+                       long long n, int tile, int stages, double* partials, int grid,
+                       void* stream) {
+  Streams s;
+  if (grid <= 0 || n < 0 || !bulk_shape_ok(tile, stages) ||
+      !make_streams(nr, nw, ins, outs, &s))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PIC1DP_CASE(R, W) \
+  if (nr == R && nw == W) return launch_bulk<R, W>(s, n, tile, stages, partials, grid, st);
+  PIC1DP_PATTERNS(PIC1DP_CASE)
+#undef PIC1DP_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -2,16 +2,21 @@
 
 Port of the TPU kernel of pic1dp_tpu/ops/pallas_kernels.py
 (make_substep_call, wrapped by FusedStepper.substep1/2) in its stream_v1
-layout with separate full-precision streams:
+layout with separate streams:
 
     substep 1:  read x0, v0, p, w0            write w1, v1
     substep 2:  read x0, v0, p, w0, w1, v1    write x2, v2, w2 over x0, v0, w0
 
 each also returning the (2, nmode) mode projections of charge * w at the
-pushed positions.  For each substep this module holds
+pushed positions.  Every stream is at the config's dtype, except under
+bf16_weights: there p and w1 are bfloat16 (cfg.p_dtype), upcast for the
+arithmetic, and w1 is rounded to bfloat16 by round-to-nearest-even after
+substep 1 has deposited it unrounded (pallas_kernels.py:555, :565-567,
+:586, :610).  For each substep this module holds
 
   * the CUDA kernel (csrc/substep_kernels.cu, built by nvcc at first use and
-    bound through ctypes) and its launch counter, SUBSTEP1 / SUBSTEP2;
+    bound through ctypes) and its launch counters: SUBSTEP1 / SUBSTEP2 for
+    the f32 and f64 builds, SUBSTEP1_BF16 / SUBSTEP2_BF16 for bf16_weights;
   * the plain PyTorch version, FusedSubsteps.substep1_plain / substep2_plain,
     the same function written with the port's mode_trig / efield_at /
     project_modes and distributions.minus_dlnf0_dv, on any device;
@@ -27,7 +32,6 @@ Substep 2 updates x, v and w in place in both versions, as the kernel does
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import math
 
 import torch
@@ -37,27 +41,24 @@ from pic1dp_tpu_torch.config import Config, Equilibrium
 from pic1dp_tpu_torch.ops.interp import wrap_x
 from pic1dp_tpu_torch.ops.spectral import efield_at, mode_trig, project_modes
 from pic1dp_tpu_torch.utils import nvcc
+from pic1dp_tpu_torch.utils.nvcc import CudaKernel
 
 MAX_MODES = 16          # kMaxModes in csrc/substep_kernels.cu
-_SOURCE = "substep_kernels"
+SOURCE = "substep_kernels"
+_SRC = f"pic1dp_tpu_torch/csrc/{SOURCE}.cu"
 
+SUBSTEP1 = CudaKernel("substep1", _SRC, "pic1dp_tpu/ops/pallas_kernels.py:558")
+SUBSTEP2 = CudaKernel("substep2", _SRC, "pic1dp_tpu/ops/pallas_kernels.py:592")
+SUBSTEP1_BF16 = CudaKernel("substep1_bf16", _SRC, "pic1dp_tpu/ops/pallas_kernels.py:586")
+SUBSTEP2_BF16 = CudaKernel("substep2_bf16", _SRC, "pic1dp_tpu/ops/pallas_kernels.py:610")
+KERNELS = (SUBSTEP1, SUBSTEP2, SUBSTEP1_BF16, SUBSTEP2_BF16)
 
-@dataclasses.dataclass
-class CudaKernel:
-    """A hand-written kernel, the TPU kernel it replaces, and the number of
-    times its wrapper has launched it."""
-
-    name: str
-    source: str
-    replaces: str
-    launches: int = 0
-
-
-SUBSTEP1 = CudaKernel("substep1", "pic1dp_tpu_torch/csrc/substep_kernels.cu",
-                      "pic1dp_tpu/ops/pallas_kernels.py:558")
-SUBSTEP2 = CudaKernel("substep2", "pic1dp_tpu_torch/csrc/substep_kernels.cu",
-                      "pic1dp_tpu/ops/pallas_kernels.py:592")
-KERNELS = (SUBSTEP1, SUBSTEP2)
+# (arithmetic dtype, storage dtype of p and w1) -> C suffix and counters
+_BUILDS = {
+    (torch.float32, torch.float32): ("f32", SUBSTEP1, SUBSTEP2),
+    (torch.float64, torch.float64): ("f64", SUBSTEP1, SUBSTEP2),
+    (torch.float32, torch.bfloat16): ("f32_bf16", SUBSTEP1_BF16, SUBSTEP2_BF16),
+}
 
 
 class SubstepParams(ctypes.Structure):
@@ -87,8 +88,6 @@ def kernel_params(cfg: Config) -> SubstepParams:
         why.append("more than one species")
     if cfg.linear or not cfg.deltaf:
         why.append("linear or full-f (the kernels are nonlinear delta-f)")
-    if cfg.bf16_weights:
-        why.append("bf16_weights")
     if cfg.dtype not in ("float32", "float64"):
         why.append(f"dtype {cfg.dtype}")
     if cfg.equilibrium not in (Equilibrium.BUMP_ON_TAIL, Equilibrium.MAXWELLIAN):
@@ -139,7 +138,7 @@ def library() -> nvcc.Library:
     """The built kernel library with its C signatures declared."""
     global _lib
     if _lib is None:
-        built = nvcc.load(_SOURCE)
+        built = nvcc.load(SOURCE)
         lib = built.lib
         if lib.pic1dp_params_size() != ctypes.sizeof(SubstepParams):
             raise RuntimeError("SubstepParams does not match HostParams in "
@@ -148,7 +147,7 @@ def library() -> nvcc.Library:
             raise RuntimeError("MAX_MODES does not match kMaxModes")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         prm = ctypes.POINTER(SubstepParams)
-        for dt in ("f32", "f64"):
+        for dt, _, _ in _BUILDS.values():
             getattr(lib, f"pic1dp_substep1_{dt}").argtypes = [prm] + [ptr] * 9 + [i32, ptr]
             getattr(lib, f"pic1dp_substep2_{dt}").argtypes = [prm] + [ptr] * 9 + [i32, ptr]
         lib.pic1dp_grid_angle_f32.argtypes = [ptr, i32, i64, ptr, ptr, ptr]
@@ -158,23 +157,10 @@ def library() -> nvcc.Library:
     return _lib
 
 
-_grid_cache: dict[int, int] = {}
-
-
 def launch_grid(device: torch.device) -> int:
     """The fixed grid: 4 blocks per SM.  A fixed grid fixes the order of the
     projection sum, so it is the same from run to run."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _grid_cache:
-        _grid_cache[index] = 4 * torch.cuda.get_device_properties(index).multi_processor_count
-    return _grid_cache[index]
-
-
-def _check_launch(rc: int, kernel: CudaKernel) -> None:
-    if rc != 0:
-        msg = library().lib.pic1dp_error_string(rc).decode()
-        raise RuntimeError(f"{kernel.name} kernel launch failed: {msg} ({rc})")
-    kernel.launches += 1
+    return 4 * nvcc.sm_count(device)
 
 
 def grid_angle_f32(k: torch.Tensor, nx: int):
@@ -202,6 +188,12 @@ class FusedSubsteps:
         self.cfg = cfg
         self.sp = sp
         self.q_over_m = sp.charge / sp.mass
+        # what each kernel takes, per stream: p and w1 at cfg.p_dtype, the
+        # other streams and the modes at cfg.dtype
+        dtype, narrow = getattr(torch, cfg.dtype), getattr(torch, cfg.p_dtype)
+        self._dtypes = {1: (dtype, dtype, narrow, dtype, dtype, dtype),
+                        2: (dtype, dtype, narrow, dtype, narrow, dtype, dtype, dtype)}
+        self._build = _BUILDS.get((dtype, narrow))
         try:
             self._params, self._unsupported = kernel_params(cfg), None
         except NotImplementedError as exc:
@@ -214,8 +206,10 @@ class FusedSubsteps:
         """The reference's update order from the step-start values x0, v0,
         w0 with the fields at the current substep: x, then w, then v
         (src/pic1dp_interaction.F90:238-339; JAX Stepper._push_math for
-        nonlinear delta-f)."""
+        nonlinear delta-f).  p and w_at may be stored narrower (bfloat16);
+        they are upcast to the arithmetic dtype first."""
         cfg = self.cfg
+        p, w_at = p.to(w0.dtype), w_at.to(w0.dtype)
         x_new = wrap_x(x0 + dt_eff * v_at, cfg.lx)
         kern = dist.minus_dlnf0_dv(cfg.equilibrium, self.sp, v_at)
         w_new = w0 + dt_eff * ((p - w_at) * e) * kern * self.q_over_m
@@ -228,15 +222,18 @@ class FusedSubsteps:
                              w * self.sp.charge)
 
     def substep1_plain(self, x, v, p, w, mode_re, mode_im):
-        """(x0, v0, p, w0) + step-start modes -> (w1, v1, (p_c, p_s))."""
+        """(x0, v0, p, w0) + step-start modes -> (w1, v1, (p_c, p_s)).  w1
+        is returned at p's storage dtype (rounded to nearest even under
+        bf16_weights); the projections deposit it unrounded."""
         cfg = self.cfg
         e0 = efield_at(mode_trig(x, cfg.lx, cfg.nx, cfg.modes), mode_re, mode_im)
         x1, v1, w1 = self._push(x, v, p, w, v, w, e0, 0.5 * cfg.dt)
-        return w1, v1, self._project(x1, w1)
+        return w1.to(p.dtype), v1, self._project(x1, w1)
 
     def substep2_plain(self, x, v, p, w, w1, v1, mode_re1, mode_im1):
         """(x0, v0, p, w0, w1, v1) + midpoint modes -> (x2, v2, w2,
-        (p_c, p_s)); x2, v2, w2 are x, v, w updated in place."""
+        (p_c, p_s)); x2, v2, w2 are x, v, w updated in place.  p and w1 are
+        at p's storage dtype."""
         cfg = self.cfg
         x1 = wrap_x(x + 0.5 * cfg.dt * v, cfg.lx)
         e1 = efield_at(mode_trig(x1, cfg.lx, cfg.nx, cfg.modes), mode_re1, mode_im1)
@@ -252,27 +249,28 @@ class FusedSubsteps:
     def substep1(self, x, v, p, w, mode_re, mode_im):
         if x.device.type == "cpu":
             return self.substep1_plain(x, v, p, w, mode_re, mode_im)
-        prm, lib = self._prepare((x, v, p, w), (mode_re, mode_im))
-        w1, v1 = torch.empty_like(w), torch.empty_like(v)
+        prm, lib, (suffix, kernel, _) = self._prepare(1, (x, v, p, w), (mode_re, mode_im))
+        w1, v1 = torch.empty_like(w, dtype=p.dtype), torch.empty_like(v)
         partials = self._partials(x)
-        fn = lib.pic1dp_substep1_f32 if x.dtype == torch.float32 else lib.pic1dp_substep1_f64
-        rc = fn(ctypes.byref(prm), *(t.data_ptr() for t in (
-            x, v, p, w, mode_re, mode_im, w1, v1, partials)),
+        rc = getattr(lib, f"pic1dp_substep1_{suffix}")(
+            ctypes.byref(prm), *(t.data_ptr() for t in (
+                x, v, p, w, mode_re, mode_im, w1, v1, partials)),
             partials.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
-        _check_launch(rc, SUBSTEP1)
+        kernel.launched(rc, lib)
         proj = partials.sum(0)
         return w1, v1, (proj[0], proj[1])
 
     def substep2(self, x, v, p, w, w1, v1, mode_re1, mode_im1):
         if x.device.type == "cpu":
             return self.substep2_plain(x, v, p, w, w1, v1, mode_re1, mode_im1)
-        prm, lib = self._prepare((x, v, p, w, w1, v1), (mode_re1, mode_im1))
+        prm, lib, (suffix, _, kernel) = self._prepare(2, (x, v, p, w, w1, v1),
+                                                      (mode_re1, mode_im1))
         partials = self._partials(x)
-        fn = lib.pic1dp_substep2_f32 if x.dtype == torch.float32 else lib.pic1dp_substep2_f64
-        rc = fn(ctypes.byref(prm), *(t.data_ptr() for t in (
-            x, v, p, w, w1, v1, mode_re1, mode_im1, partials)),
+        rc = getattr(lib, f"pic1dp_substep2_{suffix}")(
+            ctypes.byref(prm), *(t.data_ptr() for t in (
+                x, v, p, w, w1, v1, mode_re1, mode_im1, partials)),
             partials.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
-        _check_launch(rc, SUBSTEP2)
+        kernel.launched(rc, lib)
         proj = partials.sum(0)
         return x, v, w, (proj[0], proj[1])
 
@@ -280,24 +278,25 @@ class FusedSubsteps:
         return torch.empty((launch_grid(x.device), 2, self.cfg.nmode),
                            dtype=x.dtype, device=x.device)
 
-    def _prepare(self, streams, modes):
-        """Check what the kernel is given; return its constants and library."""
+    def _prepare(self, substep: int, streams, modes):
+        """Check what the kernel is given; return its constants, library and
+        build (C suffix and launch counters)."""
         x = streams[0]
         if self._unsupported is not None:
             raise NotImplementedError(str(self._unsupported))
-        if x.device.type != "cuda":
-            raise ValueError(f"no substep kernel for device {x.device}")
-        for t in streams + modes:
-            if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
-                raise ValueError("substep kernel inputs must be contiguous tensors "
-                                 f"of one dtype on one device, got {t.dtype} on "
-                                 f"{t.device} (contiguous: {t.is_contiguous()})")
-        want = (self.cfg.nspecies, x.shape[-1])
-        if any(tuple(t.shape) != want for t in streams):
-            raise ValueError(f"particle streams must all be {want}")
+        for t, d in zip(streams + modes, self._dtypes[substep]):
+            if t.device != x.device or t.dtype != d or not t.is_contiguous():
+                raise ValueError(
+                    f"substep kernel streams are contiguous, on one device, with "
+                    f"x, v, w, v1 and the modes at {self.cfg.dtype} and p, w1 at "
+                    f"{self.cfg.p_dtype}; got {t.dtype} on {t.device} "
+                    f"(contiguous: {t.is_contiguous()})")
+        shape = (self.cfg.nspecies, x.shape[-1])
+        if any(tuple(t.shape) != shape for t in streams):
+            raise ValueError(f"particle streams must all be {shape}")
         if any(tuple(t.shape) != (self.cfg.nmode,) for t in modes):
             raise ValueError(f"mode components must be ({self.cfg.nmode},)")
-        if x.dtype != getattr(torch, self.cfg.dtype):
-            raise ValueError(f"streams are {x.dtype}, the config says {self.cfg.dtype}")
+        if x.device.type != "cuda":
+            raise ValueError(f"no substep kernel for device {x.device}")
         self._params.n = x.numel()
-        return self._params, library().lib
+        return self._params, library().lib, self._build

@@ -5,6 +5,7 @@ overrides, on an explicit device:
 
     python -m pic1dp_tpu_torch.run                           # default bump-on-tail
     python -m pic1dp_tpu_torch.run -s time_max=100 -o run1   # overrides, output dir
+    python -m pic1dp_tpu_torch.run -s bf16_weights=True      # p and w1 stored as bf16
     python -m pic1dp_tpu_torch.run -p landau --device cpu    # preset, on the CPU
     python -m pic1dp_tpu_torch.run --write-config cfg.json   # dump config and exit
 """

@@ -1,10 +1,11 @@
 """Build a CUDA source of the package with nvcc and load it with ctypes.
 
 A source `pic1dp_tpu_torch/csrc/<name>.cu` exports a plain C interface (no
-PyTorch headers, so it builds in seconds).  It is compiled at first use into
-`pic1dp_tpu_torch/_build/<name>-<hash>.so`, where the hash covers the source
-and the flags: an edit rebuilds, and an unchanged source loads the library
-already built.  Nothing is compiled when a module is imported.
+PyTorch headers, so it builds in seconds), including `const char*
+pic1dp_error_string(int)` for its launch errors.  It is compiled at first
+use into `pic1dp_tpu_torch/_build/<name>-<hash>.so`, where the hash covers
+the source and the flags: an edit rebuilds, and an unchanged source loads the
+library already built.  Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -49,27 +52,77 @@ def find_nvcc() -> str:
                        "CUDA kernels of pic1dp_tpu_torch are built from source")
 
 
-def load(name: str) -> Library:
-    """Build (if needed) and load csrc/<name>.cu; one load per process."""
-    if name in _loaded:
-        return _loaded[name]
+def _paths(name: str) -> tuple[Path, Path]:
     src = PACKAGE_DIR / "csrc" / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    seconds, log = 0.0, ""
-    if not path.exists():
+    return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_all(names) -> list[Library]:
+    """Build (where needed) and load csrc/<name>.cu for each name; one load
+    per process.  The sources that need a build are compiled together, one
+    nvcc process each, all started at once."""
+    jobs = {}
+    for name in dict.fromkeys(names):
+        if name in _loaded:
+            continue
+        src, path = _paths(name)
+        if path.exists():
+            _loaded[name] = Library(ctypes.CDLL(str(path)), path, 0.0, "")
+            continue
         BUILD_DIR.mkdir(exist_ok=True)
         # build under a private name, then rename: a concurrent process sees
         # either no library or a whole one
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs[name] = (src, path, tmp, proc, time.perf_counter())
+    failed = []
+    for name, (src, path, tmp, proc, start) in jobs.items():
+        log, _ = proc.communicate()
         seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n{log}")
+            failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{log}")
+            continue
         os.replace(tmp, path)
-    _loaded[name] = Library(ctypes.CDLL(str(path)), path, seconds, log)
-    return _loaded[name]
+        _loaded[name] = Library(ctypes.CDLL(str(path)), path, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [_loaded[name] for name in names]
+
+
+def load(name: str) -> Library:
+    """Build (if needed) and load csrc/<name>.cu; one load per process."""
+    return load_all([name])[0]
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (queried once per device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
+@dataclasses.dataclass
+class CudaKernel:
+    """A hand-written kernel, the TPU kernel it replaces, and the number of
+    times its wrapper has launched it."""
+
+    name: str
+    source: str
+    replaces: str
+    launches: int = 0
+
+    def launched(self, rc: int, lib: ctypes.CDLL) -> None:
+        """Count a launch whose C entry point returned rc (a cudaError_t);
+        raise instead if the launch failed."""
+        if rc != 0:
+            msg = lib.pic1dp_error_string(rc).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({rc})")
+        self.launches += 1
