@@ -2,24 +2,29 @@
 
 Drives pic1dp_tpu_torch's main paths — the default bump-on-tail run at its
 full width of 6.4M markers, in f32 and with bf16_weights, through the
-hand-written CUDA substep kernels, and the two probes through the stream
+hand-written CUDA substep kernels, and the five probes through the stream
 kernels — and checks them.  It imports neither jax nor pic1dp_tpu, catches
 nothing, and exits non-zero at the first failed check.  Phases, each printed:
 
   1. environment: torch, CUDA, triton and nvcc versions, the card
-  2. build: nvcc builds every kernel source of pic1dp_tpu_torch/csrc, one
-     process per source, all at once
+  2. build: nvcc builds every kernel source of pic1dp_tpu_torch/csrc (each
+     hashed with the headers beside it), one process per source, all at once
   3. each kernel against its plain PyTorch version on the same inputs:
      the substeps in f32 and bf16_weights at full width and in f64 with
-     three modes, five Stepper steps in f32 and bf16, and both stream
-     kernels on every built pattern
+     three modes, five Stepper steps in f32 and bf16, both stream kernels on
+     every built pattern, both unit kernels for every unit and K in
+     {0, 1, 4} at eps = 1 and 1e-12, and the carry kernel over 3 steps in
+     every layout
   4. the main paths, each with its launch counts set to 0 just before and
      read just after: Simulation.run to t = 100 in f32 and in bf16_weights
      (launch counts, the pic1dp.out size and read-back, the growth rate
-     against theory), then the kernel and pipeline probes at 2^26
-  5. timing: ms per call of each substep kernel and its plain version, and
-     ms/step of the kernel and the plain Stepper at the main path's shape
-     and at bench.py's headline shape (2^26 markers, nx 1024)
+     against theory), then the kernel, pipeline, compute, overlap and
+     pingpong probes at 2^26, each with the stream kernels' counts set to 0
+     just before it
+  5. timing: ms per call of each substep, unit and carry kernel and its
+     plain version, and ms/step of the kernel and the plain Stepper at the
+     main path's shape and at bench.py's headline shape (2^26 markers,
+     nx 1024)
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object on the kernels, and {"ok": true, "device": ...}.
@@ -55,6 +60,8 @@ F64_TOL = 1e-12                      # relative to each field's max
 # stream kernels: outputs bitwise equal to the plain version; the element
 # sum (float64 in both, summed in another order) within this relative bound
 STREAM_SUM_TOL = 1e-6
+UNIT_KS = (0, 1, 4)                  # K compared for every unit
+CARRY_STEPS = 3
 PROBE_LOG2 = 26                      # 256 MB per stream: HBM, not the 50 MB L2
 TIMING_STEPS, WARMUP_STEPS = 50, 5
 SEED = 20261016
@@ -316,6 +323,107 @@ def compare_streams(n: int) -> dict:
     return worst
 
 
+def _unit_streams(n: int, seed: int, cancel: bool):
+    """The unit kernels' inputs: x in [0, lx) and three streams in [0, 1),
+    or with `cancel` x, -x, 0, 0, whose acc is exactly 0 so that every
+    output at eps = 1 is the units' sum itself."""
+    from pic1dp_tpu_torch.probes.compute_probe import unit_inputs
+
+    ins = unit_inputs(n, torch.device("cuda"), seed)
+    if cancel:
+        ins[1].copy_(-ins[0])
+        ins[2].zero_()
+        ins[3].zero_()
+    return ins
+
+
+def compare_units(n: int) -> dict:
+    """Both unit kernels against stream_units_plain on fresh copies of the
+    same inputs, for every unit and K in UNIT_KS (an odd n, so the masked
+    tails run): at eps = 1 with acc = 0 the units' sum within
+    units_tolerance; at eps = 1e-12 every output within one float32 ulp of
+    the plain value (the kernel may contract to FMA) and bitwise at K = 0,
+    the element sum within STREAM_SUM_TOL."""
+    from pic1dp_tpu_torch.ops import stream_probes as sp
+
+    worst = {"stream_units": 0.0, "stream_bulk_units": 0.0}
+    case = 0
+    for kernel in (sp.stream_units, sp.stream_bulk_units):
+        name = kernel.__name__
+        for unit in sp.UNITS:
+            for k in UNIT_KS:
+                case += 1
+                base = _unit_streams(n, case, cancel=True)
+                a, b = [t.clone() for t in base], [t.clone() for t in base]
+                (ek, *_), _ = kernel(a, sp.ALIAS, unit, k, eps=1.0)
+                (ep, *_), _ = sp.stream_units_plain(b, sp.ALIAS, unit, k, eps=1.0)
+                err = (ek.double() - ep.double()).abs()
+                tol = sp.units_tolerance(unit, k, ep).double()
+                over = float((err / tol.clamp_min(1e-30)).max())
+                torch.cuda.synchronize()
+                base = _unit_streams(n, case, cancel=False)
+                a, b = [t.clone() for t in base], [t.clone() for t in base]
+                outs_k, sum_k = kernel(a, sp.ALIAS, unit, k)
+                outs_p, sum_p = sp.stream_units_plain(b, sp.ALIAS, unit, k)
+                torch.cuda.synchronize()
+                ulp = max(_ulps(x, y) for x, y in zip(outs_k, outs_p))
+                same = all(torch.equal(x, y) for x, y in zip(outs_k + a, outs_p + b))
+                rel = abs(float(sum_k) - float(sum_p)) / abs(float(sum_p))
+                say(f"[3 compare] {name} {unit} x{k} n={n}: eps=1 units' sum max abs err "
+                    f"{float(err.max()):.3e} ({over:.2f} of its bound, max bound "
+                    f"{float(tol.max()):.3e}); eps=1e-12 outputs within {ulp:g} f32 ulp, "
+                    f"bitwise {same}; sum rel err {rel:.3e} (limit {STREAM_SUM_TOL:g})")
+                check(over <= 1.0, f"{name} {unit} x{k} units' sum within units_tolerance")
+                check(ulp <= 1.0 and (same or k > 0),
+                      f"{name} {unit} x{k} outputs within one ulp, bitwise at K = 0")
+                check(rel <= STREAM_SUM_TOL, f"{name} {unit} x{k} sum within {STREAM_SUM_TOL}")
+                worst[name] = max(worst[name], float(err.max()),
+                                  max(abs_err(x, y) for x, y in zip(outs_k, outs_p)))
+                del base, a, b, outs_k, outs_p, ek, ep, err, tol
+    return worst
+
+
+def _ulps(a, b) -> float:
+    """Largest |a - b| in float32 ulps of b."""
+    spacing = torch.nextafter(b.abs(), torch.full_like(b, float("inf"))) - b.abs()
+    return float(((a.double() - b.double()).abs() / spacing.double()).max())
+
+
+def compare_carry(n: int) -> dict:
+    """The carry kernel against stream_carry_plain over CARRY_STEPS steps of
+    every layout's loop from the same inputs: every carry buffer (and pp2's
+    spare set) bitwise equal, h flipped to 1, each step's sum within
+    STREAM_SUM_TOL.  pingpong runs at n (its halves not 16-byte aligned:
+    the plain-load path) and at n rounded down to a multiple of 4 (the
+    float4 path)."""
+    from pic1dp_tpu_torch.ops import stream_probes as sp
+    from pic1dp_tpu_torch.probes import fresh_streams, pingpong_probe as pp
+
+    worst = 0.0
+    cases = [(lay, n) for lay in pp.LAYOUTS] + [("pingpong", n - n % 4)]
+    for c, (layout, m) in enumerate(cases):
+        base = fresh_streams(4, m, torch.device("cuda"), seed=400 + c)
+        ck = pp.carry(layout, [t.clone() for t in base])
+        cp = pp.carry(layout, [t.clone() for t in base])
+        rels = []
+        for _ in range(CARRY_STEPS):
+            sk_, sp_ = pp.step(ck, sp.stream_carry), pp.step(cp, sp.stream_carry_plain)
+            rels.append(abs(float(sk_) - float(sp_)) / abs(float(sp_)))
+        torch.cuda.synchronize()
+        bufs_k = ck.bufs + (ck.spare or [])
+        bufs_p = cp.bufs + (cp.spare or [])
+        same = all(torch.equal(x, y) for x, y in zip(bufs_k, bufs_p))
+        h_ok = layout != "pingpong" or int(ck.h) == int(cp.h) == CARRY_STEPS % 2
+        say(f"[3 compare] stream_carry {layout} n={m}, {CARRY_STEPS} steps: {len(bufs_k)} "
+            f"carry buffers bitwise equal {same}; h ok {h_ok}; sum rel err "
+            f"{max(rels):.3e} (limit {STREAM_SUM_TOL:g})")
+        check(same and h_ok, f"stream_carry {layout} bitwise equal to stream_carry_plain")
+        check(max(rels) <= STREAM_SUM_TOL, f"stream_carry {layout} sums within tolerance")
+        worst = max(worst, max(abs_err(x, y) for x, y in zip(bufs_k, bufs_p)))
+        del base, ck, cp, bufs_k, bufs_p
+    return {"stream_carry": worst}
+
+
 def main_path(cfg) -> tuple[dict, float]:
     """Simulation.run to time_max with every substep kernel's count set to 0
     just before and read just after; returns the counts and gamma."""
@@ -376,22 +484,35 @@ def main_path(cfg) -> tuple[dict, float]:
 
 
 def probes_path() -> tuple[dict, dict]:
-    """The kernel and pipeline probes at 2^PROBE_LOG2 through their entry
-    points, with the stream kernels' counts set to 0 just before and read
-    just after; returns the counts and the probes' rows."""
+    """The five probes at 2^PROBE_LOG2 through their entry points, each
+    path with the stream kernels' counts set to 0 just before it and read
+    just after; returns each kernel's launches on the path it belongs to,
+    and the probes' rows."""
     from pic1dp_tpu_torch.ops import stream_probes as sp
-    from pic1dp_tpu_torch.probes import kernel_probe, pipeline_probe
+    from pic1dp_tpu_torch.probes import (compute_probe, kernel_probe, overlap_probe,
+                                         pingpong_probe, pipeline_probe)
 
-    for k in sp.KERNELS:
-        k.launches = 0
+    paths = (((kernel_probe, pipeline_probe), (sp.STREAM_RW, sp.STREAM_BULK)),
+             ((compute_probe,), (sp.STREAM_UNITS,)),
+             ((overlap_probe,), (sp.STREAM_UNITS, sp.STREAM_BULK_UNITS)),
+             ((pingpong_probe,), (sp.STREAM_CARRY,)))
+    launches = {k.name: 0 for k in sp.KERNELS}
     rows = {}
-    for probe in (kernel_probe, pipeline_probe):
-        say(f"[4 probes] python -m {probe.__name__} {PROBE_LOG2}")
-        rows.update(probe.main([str(PROBE_LOG2)]))
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in sp.KERNELS}
-    say(f"[4 probes] launches {launches}")
-    check(all(v > 0 for v in launches.values()), "both stream kernels launched")
+    for probes, kernels in paths:
+        for k in sp.KERNELS:
+            k.launches = 0
+        for probe in probes:
+            say(f"[4 probes] python -m {probe.__name__} {PROBE_LOG2}")
+            rows.update({f"{probe.__name__.rsplit('.', 1)[1]}: {lbl}": r
+                         for lbl, r in probe.main([str(PROBE_LOG2)]).items()})
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in sp.KERNELS}
+        say(f"[4 probes] launches {counts}")
+        check(all(counts[k.name] > 0 for k in kernels),
+              f"{[k.name for k in kernels]} launched on the path of "
+              f"{[p.__name__ for p in probes]}")
+        for k in kernels:
+            launches[k.name] += counts[k.name]
     return launches, rows
 
 
@@ -489,6 +610,34 @@ def time_stream_plain() -> float:
     return ms
 
 
+def time_probe_kernels() -> dict:
+    """ms per call of the unit and carry kernels and of their plain
+    versions at 2^PROBE_LOG2, in the probes' configurations: trig x4 on
+    direct loads (4 blocks/SM) and on the 8 KB x 4 ring, the in-place carry
+    (these launches come after the probes' counts were read)."""
+    from pic1dp_tpu_torch.ops import stream_probes as sp
+    from pic1dp_tpu_torch.probes import fresh_streams
+    from pic1dp_tpu_torch.probes.compute_probe import unit_inputs
+
+    n, dev = 2**PROBE_LOG2, torch.device("cuda")
+    cases = (("stream_units", lambda i: sp.stream_units(i, sp.ALIAS, "trig", 4)),
+             ("stream_bulk_units", lambda i: sp.stream_bulk_units(i, sp.ALIAS, "trig", 4)),
+             ("stream_units_plain", lambda i: sp.stream_units_plain(i, sp.ALIAS, "trig", 4)),
+             ("stream_carry", lambda i: sp.stream_carry(i, sp.ALIAS)),
+             ("stream_carry_plain", lambda i: sp.stream_carry_plain(i, sp.ALIAS)))
+    out = {}
+    for c, (name, fn) in enumerate(cases):
+        ins = (unit_inputs(n, dev, 500 + c) if "units" in name
+               else fresh_streams(4, n, dev, 500 + c))
+        fn(ins)
+        out[name] = _events_ms(lambda: fn(ins), 10)
+        del ins
+    out["stream_bulk_units_plain"] = out["stream_units_plain"]
+    say(f"[5 timing] per call at n=2^{PROBE_LOG2} (trig x4; carry in place): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
@@ -516,6 +665,8 @@ def main() -> int:
     compare_steppers(main_cfg)
     compare_steppers(bf16_cfg)
     err.update(compare_streams(2**PROBE_LOG2 + 13))
+    err.update(compare_units(2**PROBE_LOG2 + 13))
+    err.update(compare_carry(2**PROBE_LOG2 + 13))
     torch.cuda.synchronize()
 
     launches, gamma32 = main_path(main_cfg)
@@ -528,9 +679,10 @@ def main() -> int:
 
     per_call = time_kernels(main_cfg)
     per_call.update(time_kernels(bf16_cfg))
-    per_call["stream_rw"] = rows["ss2 pattern 4r+3w aliased"].ms
-    per_call["stream_bulk"] = rows["bulk 8 KB x 4 aliased"].ms
+    per_call["stream_rw"] = rows["kernel_probe: ss2 pattern 4r+3w aliased"].ms
+    per_call["stream_bulk"] = rows["pipeline_probe: bulk 8 KB x 4 aliased"].ms
     per_call["stream_rw_plain"] = per_call["stream_bulk_plain"] = time_stream_plain()
+    per_call.update(time_probe_kernels())
     time_steppers(main_cfg, smi)
     headline = bump_on_tail_default(nparticle_max=BENCH_N, nx=BENCH_NX, verbosity=0)
     time_steppers(headline, smi)

@@ -45,9 +45,42 @@
 // In place: an output aliasing an input is written only at the elements the
 // same thread (stream_rw) or block (stream_bulk, after the tile arrived in
 // shared memory) has already read, so the pointers are not __restrict__.
+//
+// Compute units (stream_units, stream_bulk_units).  The TPU's make_call
+// (bench/probe_compute.py:94), default_call and manual_call
+// (bench/probe_overlap.py:72, :100) add to the 4r+3w body K copies of one
+// unit applied to in_0:
+//
+//   out_j = acc * (1 + 0.25 j) + eps * extra,   extra = sum_{c<K} unit(in_0, c)
+//
+// with the units taken from the production kernels: here from
+// substep_math.cuh, the substep kernels' own device functions.
+//
+//   trig  hat_trig for mode 1 (grid-angle sincospif after the integer
+//         reduction, %, divide, hat fold) at x + 1e-6 c: C + S
+//   poly  bare sincospif of the turn x / lx + 1e-6 c (mod 1): cos + sin
+//   exp   minus_dlnf0_dv, the two-Gaussian ratio drive, at v + 1e-6 c
+//   wrap  wrap of x + c
+//
+// Unit and K are template parameters, so the copies unroll as the TPU's
+// Python loop does.  eps is a runtime argument: the compiler cannot drop a
+// unit whose result reaches memory only through eps * extra, and a check can
+// run at eps = 1 to see what the units compute.  Unit kNone is the plain
+// stream body above (no eps term), instantiated as before.
+//
+// Carry layouts (stream_carry).  The TPU's flat_call and pingpong_call
+// (bench/probe_pingpong.py:128, :167) run the 4r+3w body inside a scan under
+// several carry layouts.  On the card a layout is only a choice of buffers:
+// the wrapper picks the output pointers (in place, fresh, or the other of two
+// buffer sets), and with a device pointer h each stream is a (2, n) buffer
+// read at half *h and written at half 1 - *h, *h loaded by every block (the
+// counterpart of scalar prefetch), so the caller flips h on the device with
+// no host sync between steps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "substep_math.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -79,14 +112,79 @@ __device__ __forceinline__ double hsum(float4 a) {
 // 1 + 0.25 j, exact in float
 __device__ __forceinline__ float factor(int j) { return 1.0f + 0.25f * j; }
 
+enum Unit : int { kNone = 0, kTrig = 1, kPoly = 2, kExp = 3, kWrap = 4 };
+
+// What the units read: the substep constants and the scale of their sum.
+struct UnitArgs {
+  Params<float> p;
+  float eps;
+};
+
+// Copy c of unit U at x.  c is a constant after unrolling, so each copy's
+// salt is folded, as the TPU probe's float(j) is.
+template <int U>
+__device__ __forceinline__ float unit(const Params<float>& p, float x, int c) {
+  if constexpr (U == kTrig) {
+    float C[1], S[1];
+    hat_trig(p, x + static_cast<float>(1e-6 * c), C, S);
+    return C[0] + S[0];
+  } else if constexpr (U == kPoly) {
+    // the turn with two roundings, as its plain version has it (a fused
+    // multiply-add would move the turn by an ulp and the angle by 2 pi ulps)
+    float t = __fadd_rn(__fmul_rn(x, p.inv_lx), static_cast<float>(1e-6 * c));
+    t = t - floorf(t);
+    float sn, cs;
+    sincospi_t(2.0f * t, &sn, &cs);
+    return cs + sn;
+  } else if constexpr (U == kExp) {
+    return minus_dlnf0_dv(p, x + static_cast<float>(1e-6 * c));
+  } else {
+    return wrap(p, x + static_cast<float>(c));
+  }
+}
+
+template <int U, int K>
+__device__ __forceinline__ float units(const Params<float>& p, float x) {
+  float extra = 0.0f;
+#pragma unroll
+  for (int c = 0; c < K; ++c) extra += unit<U>(p, x, c);
+  return extra;
+}
+
+template <int U, int K>
+__device__ __forceinline__ float4 units4(const Params<float>& p, float4 x) {
+  return make_float4(units<U, K>(p, x.x), units<U, K>(p, x.y), units<U, K>(p, x.z),
+                     units<U, K>(p, x.w));
+}
+
+// Output j of four elements from their acc and their units' sum.
+template <int U>
+__device__ __forceinline__ float4 emit4(float4 a, int j, float eps, float4 e) {
+  if constexpr (U == kNone) {
+    return scale4(a, factor(j));
+  } else {
+    const float f = factor(j);
+    return make_float4(a.x * f + eps * e.x, a.y * f + eps * e.y, a.z * f + eps * e.z,
+                       a.w * f + eps * e.w);
+  }
+}
+
 // One element by plain loads (the tails).
-template <int NR, int NW>
-__device__ __forceinline__ double one_element(const Streams& s, long long i) {
-  float a = s.in[0][i];
+template <int NR, int NW, int U, int K>
+__device__ __forceinline__ double one_element(const Streams& s, long long i,
+                                              const UnitArgs& u) {
+  const float x = s.in[0][i];
+  float a = x;
 #pragma unroll
   for (int r = 1; r < NR; ++r) a += s.in[r][i];
+  if constexpr (U == kNone) {
 #pragma unroll
-  for (int j = 0; j < NW; ++j) s.out[j][i] = a * factor(j);
+    for (int j = 0; j < NW; ++j) s.out[j][i] = a * factor(j);
+  } else {
+    const float e = units<U, K>(u.p, x);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) s.out[j][i] = a * factor(j) + u.eps * e;
+  }
   return static_cast<double>(a);
 }
 
@@ -105,23 +203,56 @@ __device__ __forceinline__ void block_sum_store(double v, double* partials) {
   }
 }
 
-template <int NR, int NW>
-__global__ void __launch_bounds__(kThreads)
-stream_rw_kernel(const Streams s, long long n, double* __restrict__ partials) {
+// The direct-load body: float4 loads over the first 4 * n4 elements, plain
+// loads over the rest; returns this thread's sum of acc.
+template <int NR, int NW, int U, int K>
+__device__ __forceinline__ double rw_body(const Streams& s, long long n, long long n4,
+                                          const UnitArgs& u) {
   double sum = 0.0;
-  const long long n4 = n / 4;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   for (long long i = first; i < n4; i += stride) {
-    float4 a = reinterpret_cast<const float4*>(s.in[0])[i];
+    const float4 x = reinterpret_cast<const float4*>(s.in[0])[i];
+    float4 a = x;
 #pragma unroll
     for (int r = 1; r < NR; ++r) a = add4(a, reinterpret_cast<const float4*>(s.in[r])[i]);
+    float4 e = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (U != kNone) e = units4<U, K>(u.p, x);
 #pragma unroll
-    for (int j = 0; j < NW; ++j) reinterpret_cast<float4*>(s.out[j])[i] = scale4(a, factor(j));
+    for (int j = 0; j < NW; ++j)
+      reinterpret_cast<float4*>(s.out[j])[i] = emit4<U>(a, j, u.eps, e);
     sum += hsum(a);
   }
-  for (long long i = 4 * n4 + first; i < n; i += stride) sum += one_element<NR, NW>(s, i);
-  block_sum_store(sum, partials);
+  for (long long i = 4 * n4 + first; i < n; i += stride)
+    sum += one_element<NR, NW, U, K>(s, i, u);
+  return sum;
+}
+
+template <int NR, int NW, int U, int K>
+__global__ void __launch_bounds__(kThreads)
+stream_rw_kernel(const Streams s, long long n, const UnitArgs u,
+                 double* __restrict__ partials) {
+  block_sum_store(rw_body<NR, NW, U, K>(s, n, n / 4, u), partials);
+}
+
+// The carry probe: the plain 4r+3w body on the buffers the wrapper chose.
+// With h, every stream is a (2, half) buffer: in_r is read at half *h and
+// out_j written at half 1 - *h of the same allocation (disjoint addresses,
+// so no __restrict__); halves that are not 16-byte aligned take plain loads.
+__global__ void __launch_bounds__(kThreads)
+stream_carry_kernel(const Streams s, long long n, long long half,
+                    const int* __restrict__ h, double* __restrict__ partials) {
+  Streams q = s;
+  long long n4 = n / 4;
+  if (h != nullptr) {
+    const long long hv = *h;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) q.in[r] = s.in[r] + hv * half;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) q.out[j] = s.out[j] + (1 - hv) * half;
+    if (half % 4) n4 = 0;
+  }
+  block_sum_store(rw_body<4, 3, kNone, 0>(q, n, n4, UnitArgs{}), partials);
 }
 
 // ---- mbarrier and bulk-copy primitives (PTX ISA 8.0, sm_90) ----
@@ -191,9 +322,9 @@ __device__ __forceinline__ void load_tile(const Streams& s, float* ring, uint64_
               s.in[r] + tile_index * tile, bytes, &bar[slot]);
 }
 
-template <int NR, int NW>
+template <int NR, int NW, int U, int K>
 __global__ void __launch_bounds__(kThreads)
-stream_bulk_kernel(const Streams s, long long n, int tile, int stages,
+stream_bulk_kernel(const Streams s, long long n, int tile, int stages, const UnitArgs u,
                    double* __restrict__ partials) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
@@ -223,9 +354,11 @@ stream_bulk_kernel(const Streams s, long long n, int tile, int stages,
       float4 a = t[e];
 #pragma unroll
       for (int r = 1; r < NR; ++r) a = add4(a, t[r * tile4 + e]);
+      float4 ex = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if constexpr (U != kNone) ex = units4<U, K>(u.p, t[e]);
 #pragma unroll
       for (int j = 0; j < NW; ++j)
-        reinterpret_cast<float4*>(s.out[j] + base)[e] = scale4(a, factor(j));
+        reinterpret_cast<float4*>(s.out[j] + base)[e] = emit4<U>(a, j, u.eps, ex);
       sum += hsum(a);
     }
     __syncthreads();  // every thread has left this slot
@@ -238,7 +371,7 @@ stream_bulk_kernel(const Streams s, long long n, int tile, int stages,
   for (long long i = ntiles * tile + static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += stride)
-    sum += one_element<NR, NW>(s, i);
+    sum += one_element<NR, NW, U, K>(s, i, u);
   block_sum_store(sum, partials);
 }
 
@@ -246,39 +379,47 @@ size_t bulk_smem_bytes(int nr, int tile, int stages) {
   return kBarBytes + static_cast<size_t>(stages) * nr * tile * sizeof(float);
 }
 
-template <int NR, int NW>
-cudaError_t launch_rw(const Streams& s, long long n, double* partials, int grid,
-                      cudaStream_t st) {
-  stream_rw_kernel<NR, NW><<<grid, kThreads, 0, st>>>(s, n, partials);
+template <int NR, int NW, int U = kNone, int K = 0>
+cudaError_t launch_rw(const Streams& s, long long n, const UnitArgs& u, double* partials,
+                      int grid, cudaStream_t st) {
+  stream_rw_kernel<NR, NW, U, K><<<grid, kThreads, 0, st>>>(s, n, u, partials);
   return cudaGetLastError();
 }
 
-template <int NR, int NW>
+template <int NR, int NW, int U = kNone, int K = 0>
 cudaError_t bulk_blocks_per_sm(int tile, int stages, int* per_sm) {
   const size_t smem = bulk_smem_bytes(NR, tile, stages);
-  cudaError_t e = cudaFuncSetAttribute(stream_bulk_kernel<NR, NW>,
+  cudaError_t e = cudaFuncSetAttribute(stream_bulk_kernel<NR, NW, U, K>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, stream_bulk_kernel<NR, NW>,
-                                                       kThreads, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, stream_bulk_kernel<NR, NW, U, K>, kThreads, smem);
 }
 
-template <int NR, int NW>
+template <int NR, int NW, int U = kNone, int K = 0>
 cudaError_t launch_bulk(const Streams& s, long long n, int tile, int stages,
-                        double* partials, int grid, cudaStream_t st) {
+                        const UnitArgs& u, double* partials, int grid, cudaStream_t st) {
   const size_t smem = bulk_smem_bytes(NR, tile, stages);
-  cudaError_t e = cudaFuncSetAttribute(stream_bulk_kernel<NR, NW>,
+  cudaError_t e = cudaFuncSetAttribute(stream_bulk_kernel<NR, NW, U, K>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  stream_bulk_kernel<NR, NW><<<grid, kThreads, smem, st>>>(s, n, tile, stages, partials);
+  stream_bulk_kernel<NR, NW, U, K><<<grid, kThreads, smem, st>>>(s, n, tile, stages, u,
+                                                                 partials);
   return cudaGetLastError();
 }
 
 // The (reads, writes) patterns built: the TPU probes' 4r+1w, 4r+3w, 3r+1w and
 // 4r+4w, and the port's own substep patterns 4r+2w and 6r+3w.
 #define PIC1DP_PATTERNS(X) X(3, 1) X(4, 1) X(4, 2) X(4, 3) X(4, 4) X(6, 3)
+
+// The (unit, K) pairs built, on the 4r+3w pattern only: the TPU probes'
+// K in {0, 1, 2, 4} for each unit.
+#define PIC1DP_UNIT_KS(X, U) X(U, 0) X(U, 1) X(U, 2) X(U, 4)
+#define PIC1DP_UNITS(X) \
+  PIC1DP_UNIT_KS(X, kTrig) PIC1DP_UNIT_KS(X, kPoly) PIC1DP_UNIT_KS(X, kExp) \
+  PIC1DP_UNIT_KS(X, kWrap)
 
 bool make_streams(int nr, int nw, const void* const* ins, void* const* outs,
                   Streams* s) {
@@ -306,6 +447,8 @@ const char* pic1dp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+int pic1dp_params_size() { return static_cast<int>(sizeof(HostParams)); }
+
 int pic1dp_stream_rw(int nr, int nw, const void* const* ins, void* const* outs,
                      long long n, double* partials, int grid, void* stream) {
   Streams s;
@@ -313,7 +456,7 @@ int pic1dp_stream_rw(int nr, int nw, const void* const* ins, void* const* outs,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PIC1DP_CASE(R, W) \
-  if (nr == R && nw == W) return launch_rw<R, W>(s, n, partials, grid, st);
+  if (nr == R && nw == W) return launch_rw<R, W>(s, n, UnitArgs{}, partials, grid, st);
   PIC1DP_PATTERNS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;
@@ -340,11 +483,70 @@ int pic1dp_stream_bulk(int nr, int nw, const void* const* ins, void* const* outs
       !make_streams(nr, nw, ins, outs, &s))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PIC1DP_CASE(R, W) \
-  if (nr == R && nw == W) return launch_bulk<R, W>(s, n, tile, stages, partials, grid, st);
+#define PIC1DP_CASE(R, W)                                                        \
+  if (nr == R && nw == W)                                                        \
+    return launch_bulk<R, W>(s, n, tile, stages, UnitArgs{}, partials, grid, st);
   PIC1DP_PATTERNS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;
+}
+
+// stream_rw on 4 reads and 3 writes with K copies of a compute unit (1 trig,
+// 2 poly, 3 exp, 4 wrap) scaled by eps; h holds the units' constants.
+int pic1dp_stream_units(int unit, int k, const void* const* ins, void* const* outs,
+                        long long n, const HostParams* h, float eps, double* partials,
+                        int grid, void* stream) {
+  Streams s;
+  if (grid <= 0 || n < 0 || !make_streams(4, 3, ins, outs, &s)) return cudaErrorInvalidValue;
+  const UnitArgs u{to_params<float>(*h), eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PIC1DP_CASE(U, K) \
+  if (unit == U && k == K) return launch_rw<4, 3, U, K>(s, n, u, partials, grid, st);
+  PIC1DP_UNITS(PIC1DP_CASE)
+#undef PIC1DP_CASE
+  return cudaErrorInvalidValue;
+}
+
+int pic1dp_stream_bulk_units_blocks_per_sm(int unit, int k, int tile, int stages,
+                                           int* per_sm) {
+  *per_sm = 0;
+  if (!bulk_shape_ok(tile, stages)) return cudaErrorInvalidValue;
+#define PIC1DP_CASE(U, K) \
+  if (unit == U && k == K) return bulk_blocks_per_sm<4, 3, U, K>(tile, stages, per_sm);
+  PIC1DP_UNITS(PIC1DP_CASE)
+#undef PIC1DP_CASE
+  return cudaErrorInvalidValue;
+}
+
+// stream_bulk on 4 reads and 3 writes with K copies of a compute unit.
+int pic1dp_stream_bulk_units(int unit, int k, const void* const* ins, void* const* outs,
+                             long long n, const HostParams* h, float eps, int tile,
+                             int stages, double* partials, int grid, void* stream) {
+  Streams s;
+  if (grid <= 0 || n < 0 || !bulk_shape_ok(tile, stages) ||
+      !make_streams(4, 3, ins, outs, &s))
+    return cudaErrorInvalidValue;
+  const UnitArgs u{to_params<float>(*h), eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PIC1DP_CASE(U, K)                                                         \
+  if (unit == U && k == K)                                                        \
+    return launch_bulk<4, 3, U, K>(s, n, tile, stages, u, partials, grid, st);
+  PIC1DP_UNITS(PIC1DP_CASE)
+#undef PIC1DP_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The carry probe on 4 reads and 3 writes.  h is null (flat buffers of n) or
+// a device int32 half index (buffers of 2 x half, n <= half).
+int pic1dp_stream_carry(const void* const* ins, void* const* outs, long long n,
+                        long long half, const int* h, double* partials, int grid,
+                        void* stream) {
+  Streams s;
+  if (grid <= 0 || n < 0 || half < n || !make_streams(4, 3, ins, outs, &s))
+    return cudaErrorInvalidValue;
+  stream_carry_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, n, half, h, partials);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,12 +1,16 @@
-"""Measurement probes of the port's kernels (ports of bench/kernel_probe.py
-and bench/probe_pipeline.py), run as
+"""Measurement probes of the port's kernels (ports of bench/kernel_probe.py,
+bench/probe_pipeline.py, bench/probe_compute.py, bench/probe_overlap.py and
+bench/probe_pingpong.py), run as
 
     python -m pic1dp_tpu_torch.probes.kernel_probe   [n_log2=26] [--device cuda|cpu]
     python -m pic1dp_tpu_torch.probes.pipeline_probe [n_log2=26] [--device cuda|cpu]
+    python -m pic1dp_tpu_torch.probes.compute_probe  [n_log2=26] [--device cuda|cpu]
+    python -m pic1dp_tpu_torch.probes.overlap_probe  [n_log2=26] [--device cuda|cpu]
+    python -m pic1dp_tpu_torch.probes.pingpong_probe [n_log2=26] [--device cuda|cpu]
 
 On cuda they time the kernels with CUDA events after a warm-up; on cpu they
 run the plain versions at the size given, with the host clock, which is no
-device time.  Helpers shared by both live here.
+device time.  Helpers shared by all of them live here.
 """
 
 from __future__ import annotations
@@ -89,6 +93,34 @@ def time_ms(fn, device: torch.device, reps: int = REPS, warmup: int = 2) -> floa
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def graph_ms(fn, device: torch.device, reps: int = REPS) -> float:
+    """ms per call of fn without the host's launch gaps: `reps` calls
+    captured in one CUDA graph and replayed, timed with CUDA events after
+    a warm-up replay (for short calls, which time_ms would time at the
+    host's launch rate).  fn must not grow its data: the replays repeat it.
+    On cpu the host clock, as time_ms."""
+    if device.type != "cuda":
+        return time_ms(fn, device, reps)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def fresh_streams(k: int, n: int, device: torch.device, seed: int) -> list[torch.Tensor]:

@@ -4,8 +4,9 @@ A source `pic1dp_tpu_torch/csrc/<name>.cu` exports a plain C interface (no
 PyTorch headers, so it builds in seconds), including `const char*
 pic1dp_error_string(int)` for its launch errors.  It is compiled at first
 use into `pic1dp_tpu_torch/_build/<name>-<hash>.so`, where the hash covers
-the source and the flags: an edit rebuilds, and an unchanged source loads the
-library already built.  Nothing is compiled when a module is imported.
+the source, every header (`*.cuh`) beside it and the flags: an edit to any of
+them rebuilds, and unchanged files load the library already built.  Nothing
+is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -52,10 +53,19 @@ def find_nvcc() -> str:
                        "CUDA kernels of pic1dp_tpu_torch are built from source")
 
 
+def build_hash(src: Path) -> str:
+    """Hash of what a build of `src` depends on: its bytes, the name and
+    bytes of every header in its directory, and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def _paths(name: str) -> tuple[Path, Path]:
     src = PACKAGE_DIR / "csrc" / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return src, BUILD_DIR / f"{name}-{build_hash(src)}.so"
 
 
 def load_all(names) -> list[Library]:
