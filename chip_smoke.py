@@ -612,17 +612,18 @@ def time_stream_plain() -> float:
 
 def time_probe_kernels() -> dict:
     """ms per call of the unit and carry kernels and of their plain
-    versions at 2^PROBE_LOG2, in the probes' configurations: trig x4 on
-    direct loads (4 blocks/SM) and on the 8 KB x 4 ring, the in-place carry
-    (these launches come after the probes' counts were read)."""
+    versions at 2^PROBE_LOG2, in the probes' configurations: trig x4 with
+    fresh outputs on direct loads (4 blocks/SM) and on the 8 KB x 4 ring,
+    the in-place carry (these launches come after the probes' counts were
+    read)."""
     from pic1dp_tpu_torch.ops import stream_probes as sp
     from pic1dp_tpu_torch.probes import fresh_streams
     from pic1dp_tpu_torch.probes.compute_probe import unit_inputs
 
     n, dev = 2**PROBE_LOG2, torch.device("cuda")
-    cases = (("stream_units", lambda i: sp.stream_units(i, sp.ALIAS, "trig", 4)),
-             ("stream_bulk_units", lambda i: sp.stream_bulk_units(i, sp.ALIAS, "trig", 4)),
-             ("stream_units_plain", lambda i: sp.stream_units_plain(i, sp.ALIAS, "trig", 4)),
+    cases = (("stream_units", lambda i: sp.stream_units(i, {}, "trig", 4)),
+             ("stream_bulk_units", lambda i: sp.stream_bulk_units(i, {}, "trig", 4)),
+             ("stream_units_plain", lambda i: sp.stream_units_plain(i, {}, "trig", 4)),
              ("stream_carry", lambda i: sp.stream_carry(i, sp.ALIAS)),
              ("stream_carry_plain", lambda i: sp.stream_carry_plain(i, sp.ALIAS)))
     out = {}
@@ -633,7 +634,8 @@ def time_probe_kernels() -> dict:
         out[name] = _events_ms(lambda: fn(ins), 10)
         del ins
     out["stream_bulk_units_plain"] = out["stream_units_plain"]
-    say(f"[5 timing] per call at n=2^{PROBE_LOG2} (trig x4; carry in place): "
+    say(f"[5 timing] per call at n=2^{PROBE_LOG2} (trig x4, fresh outputs; carry in "
+        f"place): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
     return out
 

@@ -65,8 +65,8 @@
 // Unit and K are template parameters, so the copies unroll as the TPU's
 // Python loop does.  eps is a runtime argument: the compiler cannot drop a
 // unit whose result reaches memory only through eps * extra, and a check can
-// run at eps = 1 to see what the units compute.  Unit kNone is the plain
-// stream body above (no eps term), instantiated as before.
+// run at eps = 1 to see what the units compute.  K = 0 of every unit is the
+// plain stream body above (unit kNone, extra = 0), instantiated as before.
 //
 // Carry layouts (stream_carry).  The TPU's flat_call and pingpong_call
 // (bench/probe_pingpong.py:128, :167) run the 4r+3w body inside a scan under
@@ -414,12 +414,13 @@ cudaError_t launch_bulk(const Streams& s, long long n, int tile, int stages,
 // 4r+4w, and the port's own substep patterns 4r+2w and 6r+3w.
 #define PIC1DP_PATTERNS(X) X(3, 1) X(4, 1) X(4, 2) X(4, 3) X(4, 4) X(6, 3)
 
-// The (unit, K) pairs built, on the 4r+3w pattern only: the TPU probes'
-// K in {0, 1, 2, 4} for each unit.
-#define PIC1DP_UNIT_KS(X, U) X(U, 0) X(U, 1) X(U, 2) X(U, 4)
-#define PIC1DP_UNITS(X) \
-  PIC1DP_UNIT_KS(X, kTrig) PIC1DP_UNIT_KS(X, kPoly) PIC1DP_UNIT_KS(X, kExp) \
-  PIC1DP_UNIT_KS(X, kWrap)
+// The (unit, K) pairs built for K > 0, on the 4r+3w pattern only: the TPU
+// probes' K in {1, 2, 4} on direct loads, and the K in {1, 4} the callers of
+// the ring use.  K = 0 of any unit launches the kNone kernel.
+#define PIC1DP_FOR_UNITS(X, K) X(kTrig, K) X(kPoly, K) X(kExp, K) X(kWrap, K)
+#define PIC1DP_RW_UNITS(X) \
+  PIC1DP_FOR_UNITS(X, 1) PIC1DP_FOR_UNITS(X, 2) PIC1DP_FOR_UNITS(X, 4)
+#define PIC1DP_BULK_UNITS(X) PIC1DP_FOR_UNITS(X, 1) PIC1DP_FOR_UNITS(X, 4)
 
 bool make_streams(int nr, int nw, const void* const* ins, void* const* outs,
                   Streams* s) {
@@ -498,11 +499,13 @@ int pic1dp_stream_units(int unit, int k, const void* const* ins, void* const* ou
                         int grid, void* stream) {
   Streams s;
   if (grid <= 0 || n < 0 || !make_streams(4, 3, ins, outs, &s)) return cudaErrorInvalidValue;
+  if (unit < kTrig || unit > kWrap) return cudaErrorInvalidValue;
   const UnitArgs u{to_params<float>(*h), eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == 0) return launch_rw<4, 3>(s, n, u, partials, grid, st);
 #define PIC1DP_CASE(U, K) \
   if (unit == U && k == K) return launch_rw<4, 3, U, K>(s, n, u, partials, grid, st);
-  PIC1DP_UNITS(PIC1DP_CASE)
+  PIC1DP_RW_UNITS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;
 }
@@ -510,10 +513,12 @@ int pic1dp_stream_units(int unit, int k, const void* const* ins, void* const* ou
 int pic1dp_stream_bulk_units_blocks_per_sm(int unit, int k, int tile, int stages,
                                            int* per_sm) {
   *per_sm = 0;
-  if (!bulk_shape_ok(tile, stages)) return cudaErrorInvalidValue;
+  if (!bulk_shape_ok(tile, stages) || unit < kTrig || unit > kWrap)
+    return cudaErrorInvalidValue;
+  if (k == 0) return bulk_blocks_per_sm<4, 3>(tile, stages, per_sm);
 #define PIC1DP_CASE(U, K) \
   if (unit == U && k == K) return bulk_blocks_per_sm<4, 3, U, K>(tile, stages, per_sm);
-  PIC1DP_UNITS(PIC1DP_CASE)
+  PIC1DP_BULK_UNITS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;
 }
@@ -523,15 +528,16 @@ int pic1dp_stream_bulk_units(int unit, int k, const void* const* ins, void* cons
                              long long n, const HostParams* h, float eps, int tile,
                              int stages, double* partials, int grid, void* stream) {
   Streams s;
-  if (grid <= 0 || n < 0 || !bulk_shape_ok(tile, stages) ||
-      !make_streams(4, 3, ins, outs, &s))
+  if (grid <= 0 || n < 0 || !bulk_shape_ok(tile, stages) || unit < kTrig ||
+      unit > kWrap || !make_streams(4, 3, ins, outs, &s))
     return cudaErrorInvalidValue;
   const UnitArgs u{to_params<float>(*h), eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == 0) return launch_bulk<4, 3>(s, n, tile, stages, u, partials, grid, st);
 #define PIC1DP_CASE(U, K)                                                         \
   if (unit == U && k == K)                                                        \
     return launch_bulk<4, 3, U, K>(s, n, tile, stages, u, partials, grid, st);
-  PIC1DP_UNITS(PIC1DP_CASE)
+  PIC1DP_BULK_UNITS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;
 }

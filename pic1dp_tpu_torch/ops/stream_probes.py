@@ -72,9 +72,13 @@ MAX_STAGES = 16
 # the unit and carry kernels' pattern: the substep-2 stream roles
 N_READ, N_WRITE = 4, 3
 ALIAS = {0: 0, 1: 1, 3: 2}
-# compute units (enum Unit in csrc/stream_probes.cu) and the K built for each
+# compute units (enum Unit in csrc/stream_probes.cu) and the K built for
+# each on direct loads and on the ring (PIC1DP_RW_UNITS, PIC1DP_BULK_UNITS)
 UNITS = {"trig": 1, "poly": 2, "exp": 3, "wrap": 4}
 UNIT_KS = (0, 1, 2, 4)
+BULK_UNIT_KS = (0, 1, 4)
+# the carry kernel's grid
+CARRY_BLOCKS_PER_SM = 4
 EPS = 1e-12                          # the TPU probes' scale of extra
 ULP1 = float(np.spacing(np.float32(1.0)))   # one float32 ulp at 1
 # the TPU probes' box and grid (bench/probe_compute.py:62), and the ratio
@@ -220,7 +224,7 @@ def stream_units(ins, alias: dict[int, int], unit: str, k: int, eps: float = EPS
     loads, a grid-stride loop of blocks_per_sm blocks per SM)."""
     if ins[0].device.type == "cpu":
         return stream_units_plain(ins, alias, unit, k, eps)
-    _check_units(ins, unit, k)
+    _check_units(ins, unit, k, UNIT_KS)
     lib = library().lib
     grid = blocks_per_sm * nvcc.sm_count(ins[0].device)
     outs = outputs(ins, N_WRITE, alias)
@@ -237,7 +241,7 @@ def stream_bulk_units(ins, alias: dict[int, int], unit: str, k: int, eps: float 
     """stream_bulk on 4 reads and 3 writes with k copies of a unit."""
     if ins[0].device.type == "cpu":
         return stream_units_plain(ins, alias, unit, k, eps)
-    _check_units(ins, unit, k)
+    _check_units(ins, unit, k, BULK_UNIT_KS)
     grid = bulk_units_blocks_per_sm(unit, k, tile_bytes, stages) * nvcc.sm_count(ins[0].device)
     lib = library().lib
     outs = outputs(ins, N_WRITE, alias)
@@ -267,9 +271,10 @@ def stream_carry_plain(ins, alias: dict[int, int], dest=None, h=None):
     return outs, acc.sum(dtype=torch.float64)
 
 
-def stream_carry(ins, alias: dict[int, int], dest=None, h=None, blocks_per_sm: int = 4):
-    """One step of the carry probe on 4 reads and 3 writes: the plain stream
-    body with each output in its aliased input, in dest[j] or fresh.  With
+def stream_carry(ins, alias: dict[int, int], dest=None, h=None):
+    """One step of the carry probe on 4 reads and 3 writes (direct loads,
+    CARRY_BLOCKS_PER_SM blocks per SM): the plain stream body with each
+    output in its aliased input, in dest[j] or fresh.  With
     h, an int32 (1,) tensor on the device, every stream is a (2, n) buffer
     read at half h and written at half 1 - h; the caller flips h."""
     if ins[0].device.type == "cpu":
@@ -287,7 +292,7 @@ def stream_carry(ins, alias: dict[int, int], dest=None, h=None, blocks_per_sm: i
                              "tensor h on their device")
         n = half = x.shape[1]
     lib = library().lib
-    grid = blocks_per_sm * nvcc.sm_count(x.device)
+    grid = CARRY_BLOCKS_PER_SM * nvcc.sm_count(x.device)
     partials = torch.empty(grid, dtype=torch.float64, device=x.device)
     rc = lib.pic1dp_stream_carry(_ptrs(ins, N_READ), _ptrs(outs, N_WRITE), n, half,
                                  None if h is None else h.data_ptr(), partials.data_ptr(),
@@ -419,11 +424,11 @@ def _check(ins, n_write: int, outs=()) -> None:
         raise ValueError(f"no stream kernel for device {x.device}")
 
 
-def _check_units(ins, unit: str, k: int) -> None:
-    """A built (unit, K) on 4 streams, then what _check asks."""
-    if unit not in UNITS or k not in UNIT_KS:
+def _check_units(ins, unit: str, k: int, ks: tuple[int, ...]) -> None:
+    """A built (unit, K), K in ks, on 4 streams, then what _check asks."""
+    if unit not in UNITS or k not in ks:
         raise NotImplementedError(f"no unit kernel for unit {unit!r} x {k} (built: units "
-                                  f"{sorted(UNITS)}, K in {UNIT_KS})")
+                                  f"{sorted(UNITS)}, K in {ks})")
     _check_fixed(ins, "unit")
     _check(ins, N_WRITE)
 

@@ -24,9 +24,9 @@ import time
 import torch
 
 HBM_TBS = 3.35          # H100 SXM HBM3, NVIDIA's data sheet
-# timed calls per line, after 2 warm-up calls; an aliased pattern multiplies
-# its data by at most 5.5 per call, which stays finite over 22 calls
-REPS = 20
+# timed calls per line, after WARMUP warm-up calls; an aliased pattern
+# multiplies its data by at most 5.5 per call, which stays finite over 22 calls
+REPS, WARMUP = 20, 2
 
 
 @dataclasses.dataclass
@@ -75,34 +75,34 @@ def describe(device: torch.device, n: int) -> str:
             f"n=2^{n.bit_length() - 1}")
 
 
-def time_ms(fn, device: torch.device, reps: int = REPS, warmup: int = 2) -> float:
-    """ms per call of fn: CUDA events around `reps` calls after `warmup`
-    calls on cuda, the host clock on cpu."""
-    for _ in range(warmup):
+def time_ms(fn, device: torch.device) -> float:
+    """ms per call of fn: CUDA events around REPS calls after WARMUP calls
+    on cuda, the host clock on cpu."""
+    for _ in range(WARMUP):
         fn()
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
+        for _ in range(REPS):
             fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / reps
+        return start.elapsed_time(end) / REPS
     t0 = time.perf_counter()
-    for _ in range(reps):
+    for _ in range(REPS):
         fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
+    return (time.perf_counter() - t0) * 1e3 / REPS
 
 
-def graph_ms(fn, device: torch.device, reps: int = REPS) -> float:
-    """ms per call of fn without the host's launch gaps: `reps` calls
+def graph_ms(fn, device: torch.device) -> float:
+    """ms per call of fn without the host's launch gaps: REPS calls
     captured in one CUDA graph and replayed, timed with CUDA events after
     a warm-up replay (for short calls, which time_ms would time at the
     host's launch rate).  fn must not grow its data: the replays repeat it.
     On cpu the host clock, as time_ms."""
     if device.type != "cuda":
-        return time_ms(fn, device, reps)
+        return time_ms(fn, device)
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -111,7 +111,7 @@ def graph_ms(fn, device: torch.device, reps: int = REPS) -> float:
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(reps):
+        for _ in range(REPS):
             fn()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
@@ -120,7 +120,7 @@ def graph_ms(fn, device: torch.device, reps: int = REPS) -> float:
     graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / REPS
 
 
 def fresh_streams(k: int, n: int, device: torch.device, seed: int) -> list[torch.Tensor]:

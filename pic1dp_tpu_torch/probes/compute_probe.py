@@ -1,10 +1,10 @@
 """Marginal cost of each compute unit of the substep kernels inside the
 substep-2 stream.
 
-Port of bench/probe_compute.py.  It times the 4-read + 3-write in-place
-aliased stream (ops/stream_probes.stream_units, direct float4 loads, 4
-blocks/SM) with K copies of one unit added per element, the units being the
-substep kernels' own device functions (csrc/substep_math.cuh):
+Port of bench/probe_compute.py.  It times the 4-read + 3-write stream
+(ops/stream_probes.stream_units, direct float4 loads, 4 blocks/SM) with K
+copies of one unit added per element, the units being the substep kernels'
+own device functions (csrc/substep_math.cuh):
 
   trig  hat_trig for one mode: the grid-angle sincospif after the integer
         reduction, the %, the divide and the hat fold; each substep runs it
@@ -13,11 +13,15 @@ substep kernels' own device functions (csrc/substep_math.cuh):
   exp   minus_dlnf0_dv, the bump-on-tail two-Gaussian ratio drive;
   wrap  the periodic position wrap;
 
-and prints the marginal ms per unit, (t_K - t_0) / K.  A unit's marginal
-in HBM is what it costs beyond what the traffic hides, so it also prints
-each unit's compute: the same marginal with the streams in L2 (2^20
-elements, 28 MB, fresh outputs) and the launches replayed from one CUDA
-graph, scaled to n.  The last line sets f32 substep 1's overhang (kernel ms
+and prints the marginal ms per unit, (t_K - t_0) / K.  The TPU probe writes
+in place (aliased {0:0, 1:1, 3:2}); here the outputs are fresh, since in
+place the positions stream x grows with every call and leaves [0, lx),
+while on the card a fresh output streams at the in-place rate (see
+pingpong_probe).  So every timed call reads x in [0, lx).  A unit's
+marginal in HBM is what it costs beyond what the traffic hides, so it also
+prints each unit's compute: the same marginal with the streams in L2 (2^20
+elements, 28 MB) and the launches replayed from one CUDA graph, scaled to
+n.  The last line sets f32 substep 1's overhang (kernel ms
 minus its bytes at the ceiling rate of its own pattern, as kernel_probe
 prints it) against what its units (two trig, one exp, one wrap) cost in
 this probe.
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from pic1dp_tpu_torch.ops.stream_probes import ALIAS, LX, N_READ, N_WRITE, stream_units
+from pic1dp_tpu_torch.ops.stream_probes import LX, N_READ, N_WRITE, stream_units
 from pic1dp_tpu_torch.probes import (Row, describe, device_from_arg, fresh_streams,
                                      graph_ms, kernel_probe, line, parser, time_ms)
 
@@ -51,19 +55,19 @@ def unit_inputs(n: int, device: torch.device, seed: int) -> list[torch.Tensor]:
 
 def unit_row(label: str, unit: str, k: int, n: int, device: torch.device, seed: int,
              kernel=stream_units, **kw) -> Row:
-    """A unit kernel in place on fresh inputs (the aliased streams grow, so
-    every row starts anew)."""
+    """A unit kernel with fresh outputs: every timed call reads the same
+    inputs."""
     ins = unit_inputs(n, device, seed)
-    ms = time_ms(lambda: kernel(ins, ALIAS, unit, k, **kw), device)
+    ms = time_ms(lambda: kernel(ins, {}, unit, k, **kw), device)
     return Row(label, ms, (N_READ + N_WRITE) * 4 * n)
 
 
 def compute_ms(unit: str, k: int, n: int, device: torch.device, seed: int,
                kernel=stream_units, **kw) -> float:
     """ms of compute of k copies of a unit at n elements: t_k - t_0 with
-    the streams in L2 and fresh outputs (nothing grows under replay; the
-    difference cancels each call's fixed cost), timed from a CUDA graph
-    and scaled from 2^L2_LOG2 elements to n."""
+    the streams in L2 and fresh outputs (the difference cancels each
+    call's fixed cost), timed from a CUDA graph and scaled from 2^L2_LOG2
+    elements to n."""
     m = min(n, 2**L2_LOG2)
     ins = unit_inputs(m, device, seed)
     t0, tk = (graph_ms(lambda: kernel(ins, {}, unit, kk, **kw), device) for kk in (0, k))
@@ -80,7 +84,7 @@ def overhang(n: int, device: torch.device) -> tuple[Row, Row, float]:
 
 def run(n: int, device: torch.device, say=print) -> dict[str, Row]:
     say(describe(device, n))
-    say(f"-- {N_READ}r+{N_WRITE}w aliased {ALIAS} + K units per element (stream_units, "
+    say(f"-- {N_READ}r+{N_WRITE}w, fresh outputs, + K units per element (stream_units, "
         f"4 blocks/SM) --")
     rows = {BASELINE: unit_row(BASELINE, "trig", 0, n, device, seed=0)}
     base = rows[BASELINE].ms

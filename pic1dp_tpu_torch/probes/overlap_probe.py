@@ -6,7 +6,8 @@ aliased stream with K = 0 and 4 trig units per element under the TPU's
 default grid pipeline and under emit_pipeline, at block rows 128/256/512.
 On Hopper the two pipelines are direct float4 loads (stream_units) at 2, 4
 and 8 blocks per SM, standing for the three row counts, and the
-cp.async.bulk ring (stream_bulk_units) at 4, 8 and 16 KB tiles.
+cp.async.bulk ring (stream_bulk_units) at 4, 8 and 16 KB tiles; the
+outputs are fresh, as in compute_probe, so x stays in [0, lx).
 
 For each row it prints trig x0 (the stream alone), trig x4, and the compute
 of the four trig units: trig x4 minus trig x0 with the streams in L2 (2^20
@@ -22,9 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from pic1dp_tpu_torch.ops.stream_probes import (ALIAS, N_READ, N_WRITE,
-                                                bulk_units_blocks_per_sm, stream_bulk_units,
-                                                stream_units)
+from pic1dp_tpu_torch.ops.stream_probes import (N_READ, N_WRITE, bulk_units_blocks_per_sm,
+                                                stream_bulk_units, stream_units)
 from pic1dp_tpu_torch.probes import Row, describe, device_from_arg, line, parser
 from pic1dp_tpu_torch.probes.compute_probe import L2_LOG2, compute_ms, unit_row
 
@@ -53,7 +53,7 @@ def verdict(stream: float, trig4: float, compute: float) -> str:
 def run(n: int, device: torch.device, say=print) -> dict[str, Row]:
     say(describe(device, n))
     n_l2 = min(n, 2 ** L2_LOG2)
-    say(f"-- {N_READ}r+{N_WRITE}w aliased {ALIAS}, trig x0 and x{K_TRIG}; compute = "
+    say(f"-- {N_READ}r+{N_WRITE}w, fresh outputs, trig x0 and x{K_TRIG}; compute = "
         f"trig x{K_TRIG} - trig x0 at n=2^{n_l2.bit_length() - 1} from L2 (CUDA graph), "
         f"scaled to n --")
     rows: dict[str, Row] = {}

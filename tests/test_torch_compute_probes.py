@@ -261,10 +261,15 @@ def test_cuda_path_checks_its_inputs():
             kernel(meta(4), sp.ALIAS, "sin", 1)
         with pytest.raises(NotImplementedError, match="4 reads"):
             kernel(meta(5), {}, "trig", 1)
+        for k in (0, 4):
+            with pytest.raises(ValueError, match="no stream kernel for device meta"):
+                kernel(meta(4), sp.ALIAS, "wrap", k)
+    with pytest.raises(ValueError, match="no stream kernel for device meta"):
+        sp.stream_units(meta(4), sp.ALIAS, "exp", 2)
+    with pytest.raises(NotImplementedError, match=r"x 2 .*K in \(0, 1, 4\)"):
+        sp.stream_bulk_units(meta(4), sp.ALIAS, "exp", 2)
     with pytest.raises(NotImplementedError, match="carry kernels take 4 reads"):
         sp.stream_carry(meta(6), {})
-        with pytest.raises(ValueError, match="no stream kernel for device meta"):
-            kernel(meta(4), sp.ALIAS, "wrap", 4)
     with pytest.raises(ValueError, match="no stream kernel for device meta"):
         sp.stream_carry(meta(4), {}, dest=meta(3))
     h = torch.zeros(1, dtype=torch.int32, device="meta")
@@ -277,6 +282,7 @@ def test_cuda_path_checks_its_inputs():
     assert [k.launches for k in sp.KERNELS] == [0] * len(sp.KERNELS)
     assert set(compute_probe.UNIT_ORDER) == set(sp.UNITS)
     assert set(compute_probe.KS) | {0, overlap_probe.K_TRIG} <= set(sp.UNIT_KS)
+    assert {0, overlap_probe.K_TRIG} <= set(sp.BULK_UNIT_KS)
 
 
 # ---- (d) the probes on the CPU ----
