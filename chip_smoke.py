@@ -2,29 +2,37 @@
 
 Drives pic1dp_tpu_torch's main paths — the default bump-on-tail run at its
 full width of 6.4M markers, in f32 and with bf16_weights, through the
-hand-written CUDA substep kernels, and the five probes through the stream
-kernels — and checks them.  It imports neither jax nor pic1dp_tpu, catches
-nothing, and exits non-zero at the first failed check.  Phases, each printed:
+hand-written CUDA substep kernels; the reference's verification cases
+(Landau damping nonlinear and linear, two-stream in delta-f and full-f, two
+species, ion-acoustic) through the substep kernels of their layouts; and
+the five probes through the stream kernels — and checks them.  It imports
+neither jax nor pic1dp_tpu, catches nothing, and exits non-zero at the
+first failed check.  Phases, each printed:
 
   1. environment: torch, CUDA, triton and nvcc versions, the card
   2. build: nvcc builds every kernel source of pic1dp_tpu_torch/csrc (each
      hashed with the headers beside it), one process per source, all at once
   3. each kernel against its plain PyTorch version on the same inputs:
-     the substeps in f32 and bf16_weights at full width and in f64 with
-     three modes, five Stepper steps in f32 and bf16, both stream kernels on
-     every built pattern, both unit kernels for every unit and K in
-     {0, 1, 4} at eps = 1 and 1e-12, and the carry kernel over 3 steps in
-     every layout
+     the main substeps in f32 and bf16_weights at full width and in f64
+     with three modes; each layout's substeps at the shape of its
+     verification case in f32 (and bf16_weights where it has a bf16 build),
+     and every variant of the reference's _pallas_cases in f64; five Stepper
+     steps in f32 and bf16; k steps replayed from a CUDA graph against k
+     eager steps, bit for bit; both stream kernels on every built pattern, both unit
+     kernels for every unit and K in {0, 1, 4} at eps = 1 and 1e-12, and the
+     carry kernel over 3 steps in every layout
   4. the main paths, each with its launch counts set to 0 just before and
      read just after: Simulation.run to t = 100 in f32 and in bf16_weights
      (launch counts, the pic1dp.out size and read-back, the growth rate
-     against theory), then the kernel, pipeline, compute, overlap and
+     against theory), each verification case through Simulation.run against
+     its dispersion root, each run under torch.profiler, whose substep
+     kernels by name must equal the counters, then the kernel, pipeline, compute, overlap and
      pingpong probes at 2^26, each with the stream kernels' counts set to 0
      just before it
   5. timing: ms per call of each substep, unit and carry kernel and its
-     plain version, and ms/step of the kernel and the plain Stepper at the
-     main path's shape and at bench.py's headline shape (2^26 markers,
-     nx 1024)
+     plain version, and ms/step of the plain, the eager kernel and the CUDA
+     graph Stepper at the main path's shape and at bench.py's headline
+     shape (2^26 markers, nx 1024)
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object on the kernels, and {"ok": true, "device": ...}.
@@ -36,6 +44,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,7 +73,84 @@ UNIT_KS = (0, 1, 4)                  # K compared for every unit
 CARRY_STEPS = 3
 PROBE_LOG2 = 26                      # 256 MB per stream: HBM, not the 50 MB L2
 TIMING_STEPS, WARMUP_STEPS = 50, 5
+GRAPH_CHECK_STEPS = 5
+PROFILER_TRIES = 3                   # profiled runs of a case at most
 SEED = 20261016
+# the card's rates for bound_ms: NVIDIA's H100 SXM data sheet
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+
+
+# ---- the reference's verification cases, at the widths of its examples
+# and tests (examples/landau_damping.py:21-22, examples/two_stream.py:30-37,
+# PHYSICS_r05.json two_stream_k0.2_fullf, tests/test_physics.py:130-146,
+# examples/ion_acoustic.py:47-58) ----
+
+def landau_cfg(linear: bool = False, bf16: bool = False):
+    from pic1dp_tpu_torch.config import landau_damping
+
+    return dataclasses.replace(
+        landau_damping(nx=64, nparticle=102_400, k=0.5, amp=1e-4, time_max=20.0,
+                       output_interval=0.1, verbosity=0),
+        linear=linear, bf16_weights=bf16)
+
+
+def two_stream_cfg(deltaf: bool = True):
+    from pic1dp_tpu_torch.config import two_stream
+
+    if deltaf:
+        return two_stream(nparticle=1_000_448, time_max=80.0, output_interval=0.5,
+                          verbosity=0)
+    return two_stream(nparticle=2**24, deltaf=False, time_max=30.0, verbosity=0)
+
+
+def two_species_cfg(bf16: bool = False):
+    from pic1dp_tpu_torch.config import Config, Equilibrium, SpeciesConfig
+
+    sp = dict(charge=-1.0, mass=1.0, temperature=1.0, density=0.5)
+    return Config(lx=2.0 * np.pi / 0.2, equilibrium=Equilibrium.MAXWELLIAN,
+                  species=(SpeciesConfig(v0=3.0, **sp), SpeciesConfig(v0=-3.0, **sp)),
+                  nx=256, nparticle_max=2**20, time_max=26.0, output_interval=0.5,
+                  bf16_weights=bf16, verbosity=0).validate()
+
+
+def ion_acoustic_cfg():
+    from pic1dp_tpu_torch.config import Config, Equilibrium, MarkerLoading, SpeciesConfig
+
+    return Config(
+        linear=False, deltaf=True, lx=2.0 * np.pi / 0.5, equilibrium=Equilibrium.MAXWELLIAN,
+        species=(SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=1.0, v0=0.0),
+                 SpeciesConfig(charge=1.0, mass=25.0, temperature=0.05, density=1.0,
+                               v0=0.0)),
+        nx=64, nparticle_max=2**22, time_max=320.0, dt=0.05, marker=MarkerLoading.PHYSICAL,
+        v_max=8.0, modes=(1,), init_modes=(1,), init_amp_cos=(0.0,), init_amp_sin=(3e-4,),
+        output_interval=1.0, verbosity=0).validate()
+
+
+def pallas_cases(n: int):
+    """Every variant of tests/test_spectral_path.py's _pallas_cases, with n
+    markers per species, in float64."""
+    from pic1dp_tpu_torch import config as c
+
+    lan = dict(nx=64, nparticle=n, dtype="float64", verbosity=0)
+    yield "bot_nonlinear_deltaf", c.bump_on_tail_default(nx=192, nparticle_max=n,
+                                                         dtype="float64", verbosity=0)
+    yield "landau_linear", dataclasses.replace(c.landau_damping(**lan), linear=True)
+    yield "landau_fullf", dataclasses.replace(c.landau_damping(amp=1e-2, **lan), deltaf=False)
+    yield "two_stream2", c.two_stream(**lan)
+    yield "multimode", dataclasses.replace(
+        c.landau_damping(**lan), modes=(1, 2, 3), init_modes=(1, 2),
+        init_amp_cos=(1e-5, 0.0), init_amp_sin=(1e-4, 5e-5))
+    yield "two_species_maxwellian", dataclasses.replace(
+        c.two_stream(**lan), equilibrium=c.Equilibrium.MAXWELLIAN,
+        species=(c.SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=0.6, v0=2.5),
+                 c.SpeciesConfig(charge=-0.5, mass=2.0, temperature=0.5, density=0.4,
+                                 v0=-3.0)))
+    yield "two_species_bump_mixed", dataclasses.replace(
+        c.bump_on_tail_default(nx=64, nparticle_max=n, dtype="float64", verbosity=0),
+        species=(c.SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, temperature2=0.25,
+                                 density=0.9, v0=4.0),
+                 c.SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.5, temperature2=0.25,
+                                 density=1.0, v0=0.0)))
 
 
 def say(*parts) -> None:
@@ -141,6 +227,9 @@ def environment() -> str:
 
 
 def build() -> None:
+    """Build every source at once and print the ptxas lines of the main
+    path's substep kernels (the one-species nonlinear instantiations), and
+    for the other kernels their count, most registers and any spill."""
     from pic1dp_tpu_torch.ops import stream_probes as sp
     from pic1dp_tpu_torch.ops import substep_kernels as sk
     from pic1dp_tpu_torch.utils import nvcc
@@ -148,13 +237,63 @@ def build() -> None:
     start = time.perf_counter()
     for built in nvcc.load_all([sk.SOURCE, sp.SOURCE]):
         say(f"[2 build] {built.path.name}: nvcc {built.build_seconds:.1f} s")
-        for line in built.log.splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
-                say(f"[2 build] {line.strip()}")
+        entries = []             # (entry function, its ptxas lines)
+        for ln in built.log.splitlines():
+            ln = ln.strip()
+            if "Compiling entry" in ln:
+                entries.append((ln, []))
+            elif entries and ("Used" in ln or "spill" in ln):
+                entries[-1][1].append(ln)
+        rest = []
+        for entry, lines in entries:
+            if _substep_entry(entry) in ("main", "grid_angle"):
+                for line in (entry, *lines):
+                    say(f"[2 build] {line}")
+            else:
+                rest.extend(lines)
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in rest if "Used " in ln]
+        spills = [ln for ln in rest if "spill" in ln and not ln.startswith("0 bytes")]
+        say(f"[2 build] {built.path.name}: {len(regs)} other kernels, at most "
+            f"{max(regs, default=0)} registers; lines with spills: {len(spills)}")
+        for line in spills:
+            say(f"[2 build] {line}")
     sk.library()
     sp.library()
-    say(f"[2 build] both libraries built in parallel and loaded in "
+    say(f"[2 build] all libraries built in parallel and loaded in "
         f"{time.perf_counter() - start:.1f} s")
+
+
+def _substep_entry(name: str) -> str | None:
+    """What a ptxas entry name is: "main" for a substep kernel of the main
+    path (nonlinear, kSpecies false), "grid_angle", "substep" for another
+    substep kernel, None for another source's kernel."""
+    if "grid_angle_kernel" in name:
+        return "grid_angle"
+    m = re.search(r"substep[12]_kernelI\w*?Li\d+ELi(\d+)ELb([01])E", name)
+    if m is None:
+        return None
+    return "main" if m.group(1) == "0" and m.group(2) == "0" else "substep"
+
+
+def substep_counter(kernel_name: str) -> str | None:
+    """The launch counter of a substep kernel from its device name as the
+    profiler reports it, demangled ("substep1_kernel<float, __nv_bfloat16,
+    __nv_bfloat16, 1, 1, true>") or mangled ("substep1_kernelIf13__nv_...
+    Li1ELi1ELb1E"): substep, layout (template argument L) and bf16 storage;
+    None for any other kernel."""
+    layouts = {"0": "", "1": "_linear", "2": "_fullf"}
+    m = re.search(r"substep([12])_kernel<([^<>]*)>", kernel_name)
+    if m:
+        args = [a.strip() for a in m.group(2).split(",")]
+        sub, types, lay = m.group(1), args[1], args[4]
+    else:
+        m = re.search(r"substep([12])_kernelI(\w*?)Li\d+ELi(\d+)ELb[01]E", kernel_name)
+        if m is None:
+            check(re.search(r"substep[12]_kernel", kernel_name) is None,
+                  f"kernel name not understood: {kernel_name}")
+            return None
+        sub, types, lay = m.groups()
+    return f"substep{sub}{layouts[lay]}{'_bf16' if 'bfloat16' in types else ''}"
 
 
 def _inputs(cfg, n: int, device: str):
@@ -181,40 +320,62 @@ def _inputs(cfg, n: int, device: str):
     return x, v, p, w, modes, sp
 
 
-def compare_substeps(cfg, n: int, tol: dict | None) -> dict:
-    """Both kernels and both plain versions on the same inputs; returns each
-    kernel's largest absolute error; raises past the tolerance (tol None:
-    F64_TOL relative to each field's max).  Under bf16_weights substep 1's
-    w1 is held to one bfloat16 ulp per element: the kernel's float w1 may
-    differ from torch's by an ulp (FMA contraction), which flips the
-    rounding of a few markers."""
+def _loaded_inputs(cfg):
+    """A state from the port's loader for cfg on the card, (ns, n), and mode
+    components of a saturated amplitude."""
+    from pic1dp_tpu_torch import distributions as dist
+    from pic1dp_tpu_torch.core.loading import load_particles
+
+    dtype = getattr(torch, cfg.dtype)
+    st = load_particles(cfg, "cuda")
+    rng = np.random.default_rng(SEED)
+    modes = [torch.from_numpy(rng.uniform(-0.05, 0.05, cfg.nmode)).to("cuda", dtype)
+             for _ in range(4)]
+    return st.x, st.v, st.p, st.w, modes, dist.SpeciesParams.from_config(cfg, dtype, "cuda")
+
+
+def compare_substeps(cfg, n: int, tol: dict | None, inputs=None) -> dict:
+    """Both kernels and both plain versions on the same inputs (default
+    _inputs, one species of n markers); returns each kernel's largest
+    absolute error; raises past the tolerance (tol None: F64_TOL relative to
+    each field's max).  Under bf16_weights substep 1's w1 is held to one
+    bfloat16 ulp per element: the kernel's float w1 may differ from torch's
+    by an ulp (FMA contraction), which flips the rounding of a few markers.
+    Streams a layout does not write are compared where they come back."""
     from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 
-    x, v, p, w, (mre0, mim0, mre1, mim1), sp = _inputs(cfg, n, "cuda")
+    x, v, p, w, (mre0, mim0, mre1, mim1), sp = inputs or _inputs(cfg, n, "cuda")
     subs = FusedSubsteps(cfg, sp)
     kw1, kv1, kproj1 = subs.substep1(x, v, p, w, mre0, mim0)
     pw1, pv1, pproj1 = subs.substep1_plain(x, v, p, w, mre0, mim0)
     streams = [t.clone() for t in (x, v, w)]
-    kx2, kv2, kw2, kproj2 = subs.substep2(*streams[:2], p, streams[2], kw1, kv1, mre1, mim1)
+    kx2, kv2, kw2, kproj2 = subs.substep2(*streams[:2], p, streams[2], kw1, kv1, mre1, mim1,
+                                          mre0, mim0)
     streams = [t.clone() for t in (x, v, w)]
     px2, pv2, pw2, pproj2 = subs.substep2_plain(*streams[:2], p, streams[2],
-                                               kw1, kv1, mre1, mim1)
+                                               kw1, kv1, mre1, mim1, mre0, mim0)
     torch.cuda.synchronize()
     bf16 = cfg.bf16_weights
-    pairs = {"substep1": dict(w=(kw1, pw1), v=(kv1, pv1), proj=(
+    names = [k.name for k in subs.counters]
+    pairs = {names[0]: dict(w=(kw1, pw1), v=(kv1, pv1), proj=(
                  torch.stack(kproj1), torch.stack(pproj1))),
-             "substep2": dict(x=(kx2, px2), v=(kv2, pv2), w=(kw2, pw2), proj=(
+             names[1]: dict(x=(kx2, px2), v=(kv2, pv2), w=(kw2, pw2), proj=(
                  torch.stack(kproj2), torch.stack(pproj2)))}
-    check(kw1.dtype == pw1.dtype == p.dtype and kv1.dtype == kx2.dtype == x.dtype,
-          f"substep output dtypes (w1 {kw1.dtype}, v1 {kv1.dtype}, x2 {kx2.dtype})")
+    check((kw1 is None or kw1.dtype == pw1.dtype == p.dtype)
+          and (kv1 is None or kv1.dtype == x.dtype) and kx2.dtype == x.dtype,
+          f"substep output dtypes (w1 {getattr(kw1, 'dtype', None)}, "
+          f"v1 {getattr(kv1, 'dtype', None)}, x2 {kx2.dtype})")
     worst = {}
     for name, fields in pairs.items():
         errs = []
         for field, (a, b) in fields.items():
+            check((a is None) == (b is None), f"{name} {field} written by both or neither")
+            if a is None:
+                continue
             check(bool(torch.isfinite(a).all()), f"{name} {field} finite")
-            if bf16 and name == "substep1" and field == "w":
+            if bf16 and name.startswith("substep1") and field == "w":
                 u = bf16_ulps(a, b, tol["w"])
-                say(f"[3 compare] bf16 n={n} substep1 w1: {u['differ']} of {a.numel()} "
+                say(f"[3 compare] bf16 n={n} {name} w1: {u['differ']} of {a.numel()} "
                     f"markers differ, {u['beyond']} by more than one bf16 ulp; worst "
                     f"{u['ulps']:g} ulp at |w1| {u['worst_mag']:.3e} ({u['worst_rel']:.3e} "
                     f"of max); max abs err {u['rel']:.3e} of max; every marker within "
@@ -231,7 +392,29 @@ def compare_substeps(cfg, n: int, tol: dict | None) -> dict:
                 f"max abs err {ab:.3e}, rel to max {rel:.3e} (limit {limit:g})")
             check(measured <= limit, f"{name} {field} {cfg.dtype} within {limit}")
             errs.append(ab)
-        worst[name + ("_bf16" if bf16 else "")] = max(errs)
+        worst[name] = max(errs)
+    return worst
+
+
+def compare_layouts() -> dict:
+    """Each layout's kernels against their plain versions at the shapes of
+    the verification cases in f32 (bf16_weights where the layout has a bf16
+    build), and every _pallas_cases variant in f64 at 1e-12."""
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+
+    worst = {}
+    for cfg in (landau_cfg(linear=True), landau_cfg(linear=True, bf16=True), two_stream_cfg(),
+                two_stream_cfg(deltaf=False), two_species_cfg(), two_species_cfg(bf16=True),
+                ion_acoustic_cfg()):
+        say(f"[3 compare] layout {sk.layout(cfg)}, {cfg.nspecies} species, "
+            f"{cfg.equilibrium.value}, {'bf16_weights' if cfg.bf16_weights else cfg.dtype}")
+        for name, err in compare_substeps(cfg, cfg.nparticle_max, F32_TOL,
+                                          _loaded_inputs(cfg)).items():
+            worst[name] = max(worst.get(name, 0.0), err)
+        torch.cuda.synchronize()
+    for label, cfg in pallas_cases(F64_N):
+        say(f"[3 compare] f64 {label}: {sk.layout(cfg)} kernels")
+        compare_substeps(cfg, F64_N, None, _loaded_inputs(cfg))
     return worst
 
 
@@ -279,6 +462,37 @@ def compare_steppers(cfg) -> None:
         + ", ".join(f"{k} {v:.3e} (limit {F32_TOL[k]:g})" for k, v in errs.items()))
     for k, v in errs.items():
         check(v <= F32_TOL[k], f"Stepper {k} within {F32_TOL[k]}")
+
+
+def compare_graph(cfg) -> None:
+    """GRAPH_CHECK_STEPS steps replayed from a CUDA graph against as many
+    eager steps from the same state: every field bit for bit (the graph
+    holds the same kernels on the same buffers, and no sum uses float
+    atomics).  The counters gain one launch of each of the layout's two
+    kernels per replayed step."""
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+
+    k = GRAPH_CHECK_STEPS
+    st = Stepper(cfg, "cuda")
+    a = st.multi_step(st.initial_field(load_particles(cfg, "cuda")), 1)   # eager, loads all
+    b = a.clone()
+    before = {kk.name: kk.launches for kk in sk.KERNELS}
+    a = st.multi_step(a, k)
+    added = {kk.name: kk.launches - before[kk.name] for kk in sk.KERNELS}
+    for _ in range(k):
+        b = st.step(b)
+    torch.cuda.synchronize()
+    fields = ("x", "v", "p", "w", "mode_re", "mode_im", "electric", "rho")
+    same = {f: torch.equal(getattr(a, f), getattr(b, f)) for f in fields}
+    used = {kk.name for kk in st.substeps.counters}
+    label = f"{sk.layout(cfg)} n={cfg.nspecies}x{cfg.nparticle_max}"
+    say(f"[3 compare] CUDA graph {label}: {k} replayed steps against {k} eager steps, "
+        f"bitwise equal {same}; counters gained {({n: d for n, d in added.items() if d})}")
+    check(all(same.values()), "graph replay bit for bit equal to eager steps")
+    check(all(d == (k if n in used else 0) for n, d in added.items()),
+          f"a replay of {k} steps counts {k} launches of each of {sorted(used)}")
 
 
 def stream_cases():
@@ -424,56 +638,93 @@ def compare_carry(n: int) -> dict:
     return {"stream_carry": worst}
 
 
-def main_path(cfg) -> tuple[dict, float]:
-    """Simulation.run to time_max with every substep kernel's count set to 0
-    just before and read just after; returns the counts and gamma."""
+def run_case(phase: str, label: str, cfg) -> tuple[list, dict]:
+    """Simulation.run of cfg on the card, through the CUDA graph, with every
+    substep kernel's count set to 0 just before and read just after: only
+    the config's own two kernels, once per step, in the counters and in a
+    torch.profiler trace of the whole run, which sees each kernel the card
+    ran by name (graph replays included; the run is made again, up to
+    PROFILER_TRIES times, while the profiler sees fewer); the step and
+    snapshot counts; pic1dp.out of the expected size, its last snapshot read
+    back; a finite final state of the configured shape and dtypes with x in
+    [0, lx).  Returns the snapshots and the counts."""
     from pic1dp_tpu_torch import Simulation
     from pic1dp_tpu_torch.io import petsc_binary as pb
     from pic1dp_tpu_torch.ops import substep_kernels as sk
 
-    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
-    used = ({sk.SUBSTEP1_BF16.name, sk.SUBSTEP2_BF16.name} if cfg.bf16_weights
-            else {sk.SUBSTEP1.name, sk.SUBSTEP2.name})
-    snaps = []
-    with tempfile.TemporaryDirectory() as out:
-        sim = Simulation(cfg, out_path=out, device="cuda")
-        for k in sk.KERNELS:
-            k.launches = 0
-        start = time.perf_counter()
-        sim.run(snapshot_callback=snaps.append)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-        launches = {k.name: k.launches for k in sk.KERNELS}
-        path = os.path.join(out, "pic1dp.out")
-        size = os.path.getsize(path)
-        nm, ns, nxo, nvo = cfg.nmode, cfg.nspecies, cfg.nx_opd, cfg.nv_opd
-        header = 4 * (6 + nm) + 8 * 2
-        snap = (8 * (2 + 3 * ns) + 2 * (8 + 8 * nm) + 2 * (8 + 8 * cfg.nx)
-                + ns * 8 * 3 * (nxo * nvo + nvo))
-        with open(path, "rb") as fh:
-            fh.seek(header + (len(snaps) - 1) * snap)
-            last = pb.read_real(fh, 2 + 3 * ns)
-    steps = sim.itime
-    say(f"[4 main path] {label} n={cfg.nparticle_max} nx={cfg.nx} t={sim.time:.3f} "
-        f"steps={steps} snapshots={len(snaps)} wall {wall:.2f} s; launches {launches}")
-    check(steps == round(cfg.time_max / cfg.dt), "step count")
-    check(all(v == (steps if k in used else 0) for k, v in launches.items()),
-          f"one launch of each of {sorted(used)} per step and no other")
-    check(len(snaps) == round(cfg.time_max / cfg.output_interval) + 1, "snapshot count")
+    nm, ns, nxo, nvo = cfg.nmode, cfg.nspecies, cfg.nx_opd, cfg.nv_opd
+    header = 4 * (6 + nm) + 8 * 2
+    snap = (8 * (2 + 3 * ns) + 2 * (8 + 8 * nm) + 2 * (8 + 8 * cfg.nx)
+            + ns * 8 * 3 * (nxo * nvo + nvo))
+    for attempt in range(1, PROFILER_TRIES + 1):
+        snaps = []
+        with tempfile.TemporaryDirectory() as out:
+            sim = Simulation(cfg, out_path=out, device="cuda")
+            for k in sk.KERNELS:
+                k.launches = 0
+            start = time.perf_counter()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                sim.run(snapshot_callback=snaps.append)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = {k.name: k.launches for k in sk.KERNELS}
+            seen, device_events = {}, 0
+            for ev in prof.key_averages():
+                device_events += ev.count
+                name = substep_counter(ev.key)
+                if name is not None:
+                    seen[name] = seen.get(name, 0) + ev.count
+            path = os.path.join(out, "pic1dp.out")
+            size = os.path.getsize(path)
+            with open(path, "rb") as fh:
+                fh.seek(header + (len(snaps) - 1) * snap)
+                last = pb.read_real(fh, 2 + 3 * ns)
+        used = {k.name for k in sim.stepper.substeps.counters}
+        steps = sim.itime
+        counted = {n: v for n, v in launches.items() if v}
+        say(f"[{phase}] {label}: {ns} x {cfg.nparticle_max} markers, nx={cfg.nx}, "
+            f"t={sim.time:.3f}, steps={steps}, snapshots={len(snaps)}, wall {wall:.2f} s; "
+            f"launches {counted}")
+        check(steps == round(cfg.time_max / cfg.dt), f"{label} step count")
+        check(all(v == (steps if n in used else 0) for n, v in launches.items()),
+              f"{label}: one launch of each of {sorted(used)} per step and no other")
+        say(f"[{phase}] {label}: the profiler saw substep kernels {seen} among "
+            f"{device_events} device events (run {attempt} of at most {PROFILER_TRIES})")
+        # the profiler now and then loses a batch of device records (PERF.md
+        # section 7) but never invents one: a kernel it sees beyond the
+        # counters fails at once, fewer runs the case again
+        check(all(v <= counted.get(n, 0) for n, v in seen.items()),
+              f"{label}: the profiler saw no substep kernel beyond the counters")
+        if seen == counted:
+            break
+    check(seen == counted,
+          f"{label}: the profiler's substep kernels equal the counters in one of "
+          f"{PROFILER_TRIES} runs")
+    check(len(snaps) == round(cfg.time_max / cfg.output_interval) + 1,
+          f"{label} snapshot count")
     check(size == header + len(snaps) * snap,
-          f"pic1dp.out size {size} == {header} + {len(snaps)} x {snap}")
+          f"{label} pic1dp.out size {size} == {header} + {len(snaps)} x {snap}")
     check(last[0] == snaps[-1]["time"] and last[1] == snaps[-1]["field_energy"],
-          "last snapshot read back from pic1dp.out")
-    s = sim.state
+          f"{label} last snapshot read back from pic1dp.out")
+    st = sim.state
     for f in ("x", "v", "p", "w"):
-        t = getattr(s, f)
-        check(tuple(t.shape) == (1, cfg.nparticle_max) and bool(torch.isfinite(t).all()),
-              f"final {f} finite with shape (1, {cfg.nparticle_max})")
-    check(s.p.dtype == getattr(torch, cfg.p_dtype), f"final p is {cfg.p_dtype}")
-    check(bool(((s.x >= 0) & (s.x < cfg.lx)).all()), "final x in [0, lx)")
+        t = getattr(st, f)
+        check(tuple(t.shape) == (ns, cfg.nparticle_max) and bool(torch.isfinite(t).all()),
+              f"{label} final {f} finite with shape ({ns}, {cfg.nparticle_max})")
+    check(st.p.dtype == getattr(torch, cfg.p_dtype), f"{label} final p is {cfg.p_dtype}")
+    check(bool(((st.x >= 0) & (st.x < cfg.lx)).all()), f"{label} final x in [0, lx)")
+    e = np.array([q["field_energy"] for q in snaps])
+    check(bool(np.isfinite(e).all() and (e > 0).all()), f"{label} field energies finite")
+    return snaps, launches
+
+
+def main_path(cfg) -> tuple[dict, float]:
+    """The default case to time_max (run_case); returns the counts and
+    gamma against the dispersion root."""
+    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+    snaps, launches = run_case("4 main path", label, cfg)
     t = np.array([q["time"] for q in snaps])
     e = np.array([q["field_energy"] for q in snaps])
-    check(bool(np.isfinite(e).all() and (e > 0).all()), "field energies finite")
     m = (t >= GAMMA_WINDOW[0]) & (t <= GAMMA_WINDOW[1])
     gamma = float(np.polyfit(t[m], np.log(e[m]), 1)[0] / 2.0)
     rel = abs(gamma - BOT_OMEGA.imag) / BOT_OMEGA.imag
@@ -481,6 +732,107 @@ def main_path(cfg) -> tuple[dict, float]:
         f"rel err {rel:.4f} (limit {GAMMA_REL_TOL}); int E^2 dx at t=100: {e[-1]:.4e}")
     check(rel <= GAMMA_REL_TOL, "growth rate within 5% of the dispersion root")
     return launches, gamma
+
+
+def _energy_gamma(t, e, lo: float, hi: float) -> float:
+    """Half the slope of ln int E^2 dx over [lo, hi] (tests/test_physics.py)."""
+    m = (t >= lo) & (t <= hi)
+    return float(np.polyfit(t[m], np.log(e[m]), 1)[0] / 2.0)
+
+
+def _peaks_gamma(t, e, lo: float, hi: float) -> float:
+    """The same through the local maxima of a damped oscillation."""
+    pk = [i for i in range(1, len(e) - 1)
+          if e[i] > e[i - 1] and e[i] > e[i + 1] and lo <= t[i] <= hi]
+    return float(np.polyfit(t[pk], np.log(e[pk]), 1)[0] / 2.0)
+
+
+def physics_path() -> dict:
+    """Each verification case against its dispersion root from the port's
+    copy of analysis/dispersion.py; returns the launches of each kernel on
+    the path of its own case."""
+    from pic1dp_tpu_torch.analysis.dispersion import (Dispersion, fit_mode_omega,
+                                                      species_for_config)
+
+    def root(cfg, k, guesses=None):
+        d = Dispersion(species_for_config(cfg), k)
+        if guesses:
+            d._guesses = guesses
+        return d.solve_omega()
+
+    def series(snaps, key):
+        return np.array([s[key] for s in snaps])
+
+    def row(label, value, want, limit):
+        rel = abs(value - want) / abs(want)
+        say(f"[4 physics] {label}: {value:.5f} against {want:.5f}, rel err {rel:.4f} "
+            f"(limit {limit})")
+        check(rel <= limit, f"{label} within {limit}")
+
+    launches = {}
+
+    def add(counts):
+        for n, v in counts.items():
+            launches[n] = launches.get(n, 0) + v
+
+    ts_guess = [0.01 + 0.3j, 0.02 + 0.5j, 0.05 + 0.4j]
+    landau_root = root(landau_cfg(), 0.5)
+    snaps, counts = run_case("4 physics", "Landau, nonlinear delta-f", landau_cfg())
+    add(counts)
+    t, e = series(snaps, "time"), series(snaps, "field_energy")
+    g_nl = _peaks_gamma(t, e, 1.0, 15.0)
+    row("Landau nonlinear gamma (energy peaks, t in [1, 15]) vs root", g_nl,
+        landau_root.imag, 0.05)
+    for bf16 in (False, True):
+        name = "Landau, linear" + (", bf16_weights" if bf16 else "")
+        snaps, counts = run_case("4 physics", name, landau_cfg(linear=True, bf16=bf16))
+        add(counts)
+        g_li = _peaks_gamma(series(snaps, "time"), series(snaps, "field_energy"), 1.0, 15.0)
+        row(f"{name} gamma vs the nonlinear run's", g_li, g_nl, 0.02)
+        row(f"{name} gamma vs root", g_li, landau_root.imag, 0.06)
+
+    cfg = two_stream_cfg()
+    ts_root = root(cfg, 0.2, ts_guess)
+    snaps, counts = run_case("4 physics", "two-stream, TWO_STREAM2", cfg)
+    add(counts)
+    t, e = series(snaps, "time"), series(snaps, "field_energy")
+    row("two-stream gamma (t in [15, 35]) vs root", _energy_gamma(t, e, 15.0, 35.0),
+        ts_root.imag, 0.08)
+    ipk = next((i for i in range(1, len(e) - 1)
+                if t[i] > 35.0 and e[i] >= e[i - 1] and e[i] > e[i + 1]), int(np.argmax(e)))
+    ke = np.array([float(np.sum(s["total"])) for s in snaps])
+    drift = float(np.max(np.abs(0.5 * ke + 0.5 * e - (0.5 * ke[0] + 0.5 * e[0]))) / ke[0])
+    say(f"[4 physics] two-stream saturation peak at t = {t[ipk]:.1f} (limit "
+        f"{cfg.time_max - 2.0}); total-energy drift {drift:.3e} of KE (limit 2e-3)")
+    check(t[ipk] < cfg.time_max - 2.0 and drift < 2e-3, "two-stream saturation and energy")
+
+    cfg = two_stream_cfg(deltaf=False)
+    snaps, counts = run_case("4 physics", "two-stream, full-f", cfg)
+    add(counts)
+    row("two-stream full-f gamma (t in [10, 25]) vs root",
+        _energy_gamma(series(snaps, "time"), series(snaps, "field_energy"), 10.0, 25.0),
+        ts_root.imag, 0.05)
+
+    for bf16 in (False, True):
+        name = "two species" + (", bf16_weights" if bf16 else "")
+        cfg = two_species_cfg(bf16)
+        snaps, counts = run_case("4 physics", name, cfg)
+        add(counts)
+        row(f"{name} gamma (t in [10, 25]) vs 0.28451",
+            _energy_gamma(series(snaps, "time"), series(snaps, "field_energy"), 10.0, 25.0),
+            0.28451, 0.09)
+
+    cfg = ion_acoustic_cfg()
+    ia_root = root(cfg, 0.5, [0.098 - 0.008j, 0.118 - 0.010j, 0.078 - 0.006j])
+    snaps, counts = run_case("4 physics", "ion-acoustic", cfg)
+    add(counts)
+    t = series(snaps, "time")
+    fit = fit_mode_omega(t, series(snaps, "mode_re")[:, 0], series(snaps, "mode_im")[:, 0],
+                         window=(60.0, 300.0))
+    row("ion-acoustic omega (fit_mode_omega over (60, 300)) vs root", fit.real,
+        abs(ia_root.real), 0.02)
+    row("ion-acoustic gamma vs root", fit.imag, ia_root.imag, 0.08)
+    return launches
 
 
 def probes_path() -> tuple[dict, dict]:
@@ -540,60 +892,106 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_steppers(cfg, smi: str) -> tuple[float, float]:
-    """ms/step of the kernel and the plain Stepper, in turns plain, kernel,
-    kernel, plain; returns the means."""
+def time_steppers(cfg, smi: str) -> dict:
+    """ms/step of the plain Stepper, of the kernel Stepper's eager steps and
+    of its CUDA graph replays, in turns plain, eager, graph, graph, eager,
+    plain; returns the means.  A graph turn captures its TIMING_STEPS-step
+    graph before the timed replay."""
     from pic1dp_tpu_torch.core.loading import load_particles
     from pic1dp_tpu_torch.core.step import Stepper
 
     kern, plain = Stepper(cfg, "cuda"), Stepper(cfg, "cuda", plain=True)
     state0 = kern.initial_field(load_particles(cfg, "cuda"))
     say(f"[5 timing] before: {device_state()}")
-    ms = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        st = kern if which == "kernel" else plain
+    ms = {"plain": [], "eager": [], "graph": []}
+    for which in ("plain", "eager", "graph", "graph", "eager", "plain"):
+        st = plain if which == "plain" else kern
         box = [st.multi_step(state0.clone(), WARMUP_STEPS)]
+        if which == "graph":
+            box[0] = st.graph_steps(box[0], TIMING_STEPS)   # captures the graph
         torch.cuda.synchronize()
 
         def one():
             box[0] = st.step(box[0])
 
-        ms[which].append(_events_ms(one, TIMING_STEPS))
+        if which == "graph":
+            ms[which].append(_events_ms(lambda: st.graph_steps(box[0], TIMING_STEPS), 1)
+                             / TIMING_STEPS)
+        else:
+            ms[which].append(_events_ms(one, TIMING_STEPS))
         check(bool(torch.isfinite(box[0].w).all()), f"{which} timing run finite")
         del box
     say(f"[5 timing] after: {device_state()}")
-    k, p = (float(np.mean(ms[w])) for w in ("kernel", "plain"))
+    mean = {w: float(np.mean(v)) for w, v in ms.items()}
     n = cfg.nspecies * cfg.nparticle_max
     label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
-    say(f"[5 timing] n={n} nx={cfg.nx} {label}: kernel {k:.4f} ms/step "
-        f"({ms['kernel'][0]:.4f}, {ms['kernel'][1]:.4f}) = {n / k * 1e3:.4e} pushes/s; "
-        f"plain {p:.4f} ms/step ({ms['plain'][0]:.4f}, {ms['plain'][1]:.4f}) = "
-        f"{n / p * 1e3:.4e} pushes/s; card {smi}")
-    return k, p
+    say(f"[5 timing] n={n} nx={cfg.nx} {label}: "
+        + "; ".join(f"{w} {mean[w]:.4f} ms/step ({v[0]:.4f}, {v[1]:.4f}) = "
+                    f"{n / mean[w] * 1e3:.4e} pushes/s" for w, v in ms.items())
+        + f"; card {smi}")
+    return mean
 
 
-def time_kernels(cfg) -> dict:
-    """ms per call of each substep kernel and of its plain version at the
-    main path's shape (these launches come after the main path's counts
-    were read)."""
+def stream_bytes(cfg, substep: int) -> int:
+    """Bytes per marker that a substep kernel must move in cfg's layout:
+    each stream it reads once and each it writes once (the mode scalars and
+    the per-block partials are a few KB per call and left out)."""
+    from pic1dp_tpu_torch.ops.substep_kernels import FULLF, LINEAR, NONLINEAR, layout
+
+    f = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    n = torch.empty((), dtype=getattr(torch, cfg.p_dtype)).element_size()
+    lay = layout(cfg)
+    reads = {NONLINEAR: {1: [f, f, n, f], 2: [f, f, n, f, n, f]},
+             LINEAR: {1: [f, f, n, f], 2: [f, f, n, f, n]},
+             FULLF: {1: [f, f, n], 2: [f, f, n]}}[lay][substep]
+    writes = {NONLINEAR: {1: [n, f], 2: [f, f, f]}, LINEAR: {1: [n], 2: [f, f]},
+              FULLF: {1: [], 2: [f, f]}}[lay][substep]
+    return sum(reads) + sum(writes)
+
+
+def substep_ops(cfg, substep: int) -> int:
+    """Operations per marker of a substep kernel: the flops and
+    transcendentals of the TPU kernel's cost estimate
+    (pallas_kernels.py:697-702)."""
+    return ((30 + 30 * cfg.nmode) + (2 * cfg.nmode + 1)) * substep
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least ms the card could take: bytes over HBM's rate or
+    operations over the f32 rate, whichever is larger, and which it is."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernels(cfg, inputs=None) -> tuple[dict, dict]:
+    """ms per call of each substep kernel of cfg and of its plain version
+    at cfg's shape, on the card's clock: calls captured in a CUDA graph and
+    replayed (probes.graph_ms), so that a small case is not timed at the
+    host's launch rate (these launches come after the main paths' counts
+    were read); and each kernel's bound at that shape."""
     from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+    from pic1dp_tpu_torch.probes import graph_ms
 
-    x, v, p, w, (mre0, mim0, mre1, mim1), sp = _inputs(cfg, cfg.nparticle_max, "cuda")
+    x, v, p, w, (mre0, mim0, mre1, mim1), sp = inputs or _inputs(
+        cfg, cfg.nparticle_max, "cuda")
     subs = FusedSubsteps(cfg, sp)
     w1, v1, _ = subs.substep1(x, v, p, w, mre0, mim0)
-    tag = "_bf16" if cfg.bf16_weights else ""
+    k1, k2 = (k.name for k in subs.counters)
     out = {}
-    for name, fn in ((f"substep1{tag}", lambda: subs.substep1(x, v, p, w, mre0, mim0)),
-                     (f"substep1{tag}_plain",
-                      lambda: subs.substep1_plain(x, v, p, w, mre0, mim0)),
-                     (f"substep2{tag}", lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1)),
-                     (f"substep2{tag}_plain",
-                      lambda: subs.substep2_plain(x, v, p, w, w1, v1, mre1, mim1))):
-        fn()
-        out[name] = _events_ms(fn, TIMING_STEPS)
-    say("[5 timing] per call at n={} nx={}: ".format(cfg.nparticle_max, cfg.nx)
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
-    return out
+    for name, fn in ((k1, lambda: subs.substep1(x, v, p, w, mre0, mim0)),
+                     (f"{k1}_plain", lambda: subs.substep1_plain(x, v, p, w, mre0, mim0)),
+                     (k2, lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1, mre0, mim0)),
+                     (f"{k2}_plain", lambda: subs.substep2_plain(x, v, p, w, w1, v1, mre1,
+                                                                 mim1, mre0, mim0))):
+        out[name] = graph_ms(fn, x.device)
+    n = x.numel()
+    bounds = {name: bound(n * stream_bytes(cfg, ss), n * substep_ops(cfg, ss))
+              for name, ss in ((k1, 1), (k2, 2))}
+    say(f"[5 timing] {cfg.equilibrium.value} {'bf16_weights' if cfg.bf16_weights else cfg.dtype}"
+        f" per call at {cfg.nspecies} x {cfg.nparticle_max} markers, nx {cfg.nx}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()) + "; bound "
+        + ", ".join(f"{k} {b:.4f} ms ({by}, {stream_bytes(cfg, ss)} B/marker), share "
+                    f"{b / out[k]:.1%}" for (k, (b, by)), ss in zip(bounds.items(), (1, 2))))
+    return out, bounds
 
 
 def time_stream_plain() -> float:
@@ -664,8 +1062,11 @@ def main() -> int:
     compare_substeps(dataclasses.replace(f64, modes=(1,), init_modes=(1,),
                                          init_amp_cos=(0.0,), init_amp_sin=(1e-5,)),
                      F64_N, None)
+    err.update(compare_layouts())
     compare_steppers(main_cfg)
     compare_steppers(bf16_cfg)
+    compare_graph(main_cfg)
+    compare_graph(two_species_cfg())
     err.update(compare_streams(2**PROBE_LOG2 + 13))
     err.update(compare_units(2**PROBE_LOG2 + 13))
     err.update(compare_carry(2**PROBE_LOG2 + 13))
@@ -676,11 +1077,35 @@ def main() -> int:
     say(f"[4 main path] gamma f32 {gamma32:.5f}, bf16_weights {gamma16:.5f}, "
         f"theory {BOT_OMEGA.imag:.5f}")
     launches.update({k: v for k, v in bf16_launches.items() if "bf16" in k})
+    for k, v in physics_path().items():   # the layouts' kernels: their cases' counts
+        if v and not launches.get(k):
+            launches[k] = v
     stream_launches, rows = probes_path()
     launches.update(stream_launches)
 
-    per_call = time_kernels(main_cfg)
-    per_call.update(time_kernels(bf16_cfg))
+    # each layout's kernels at the shape of each of its verification cases;
+    # the kernels line keeps the first shape a kernel was timed at (the main
+    # path's for the nonlinear kernels, Landau's for linear, 2^24 for full-f)
+    per_call, bounds = time_kernels(main_cfg)
+    for cfg, inputs in ((bf16_cfg, None),
+                        *((c, _loaded_inputs(c)) for c in (
+                            landau_cfg(linear=True), landau_cfg(linear=True, bf16=True),
+                            two_stream_cfg(), two_stream_cfg(deltaf=False),
+                            two_species_cfg(bf16=True), two_species_cfg(),
+                            ion_acoustic_cfg()))):
+        ms, b = time_kernels(cfg, inputs)
+        for name in ms:
+            per_call.setdefault(name, ms[name])
+            if name in b:
+                bounds.setdefault(name, b[name])
+        torch.cuda.synchronize()
+    # the stream, unit and carry kernels move 4 reads and 3 writes of 2^26
+    # f32 values; their operations per element: the sum's adds, and for trig
+    # x4 four trig units at the substep cost estimate's per-mode share
+    n = 2**PROBE_LOG2
+    for name, ops in (("stream_rw", 7), ("stream_bulk", 7), ("stream_units", 7 + 4 * 32),
+                      ("stream_bulk_units", 7 + 4 * 32), ("stream_carry", 7)):
+        bounds[name] = bound(7 * 4 * n, ops * n)
     per_call["stream_rw"] = rows["kernel_probe: ss2 pattern 4r+3w aliased"].ms
     per_call["stream_bulk"] = rows["pipeline_probe: bulk 8 KB x 4 aliased"].ms
     per_call["stream_rw_plain"] = per_call["stream_bulk_plain"] = time_stream_plain()
@@ -693,7 +1118,9 @@ def main() -> int:
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],
                 "max_abs_err": err[k.name], "ms": per_call[k.name],
-                "plain_ms": per_call[f"{k.name}_plain"]} for k in sk.KERNELS + sp.KERNELS]
+                "plain_ms": per_call[f"{k.name}_plain"], "bound_ms": bounds[k.name][0],
+                "bound_by": bounds[k.name][1], "library_ms": None}
+               for k in sk.KERNELS + sp.KERNELS]
     check(all(k["launches"] > 0 for k in kernels), "every kernel launched on its main path")
     say(smi)
     say(json.dumps({"kernels": kernels}))

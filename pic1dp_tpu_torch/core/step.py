@@ -1,5 +1,6 @@
 """The RK2 time step of the matrix-free spectral path (port of
-pic1dp_tpu/core/step.py, `Stepper._step_pallas_body`).
+pic1dp_tpu/core/step.py, `Stepper._step_pallas_body`, and of
+`make_multi_step` as a CUDA graph).
 
 Reference semantics (src/pic1dp.F90:78-109 main loop,
 src/pic1dp_interaction.F90 push/deposit, src/pic1dp_field.F90 solve): per
@@ -10,12 +11,17 @@ with the full dt using the midpoint fields and velocities
 (:238-339).  Each substep is one fused call (ops/substep_kernels.py):
 gather E, push, and deposit the mode projections; between them the mode
 solve is two multiplies on the device, so a step never waits for the host.
+Linear runs freeze v and full-f runs leave w alone and deposit p, as the
+reference does; every number of species and every equilibrium runs.
 
 Under bf16_weights p is stored as bfloat16 and the substeps stream w1 as
 bfloat16; x, v, w and the fields stay float32.
 
-Not ported yet: the EXPLICIT grid path, linear and full-f runs, and
-push_pair with the particle optimization it serves.
+On a CUDA device `multi_step` replays k steps from one CUDA graph, the
+port's counterpart of the reference's k steps in one `lax.scan`.
+
+Not ported yet: the EXPLICIT grid path, and push_pair with the particle
+optimization it serves.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from pic1dp_tpu_torch.config import Config, ParticleShape
 from pic1dp_tpu_torch.core import diagnostics
 from pic1dp_tpu_torch.core.state import SimState, torch_dtype
 from pic1dp_tpu_torch.ops import spectral as spectral_ops
+from pic1dp_tpu_torch.ops import substep_kernels
 from pic1dp_tpu_torch.ops.spectral import SpectralOperator
 from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 
@@ -42,15 +49,14 @@ class Stepper:
     A step updates the state's x, v and w in place.
     """
 
+    # steps per CUDA graph at most; a longer multi_step replays several
+    GRAPH_STEPS = 128
+
     def __init__(self, cfg: Config, device: torch.device | str, plain: bool = False):
         cfg.validate()
-        missing = [what for what, cond in (
-            ("the EXPLICIT grid path", cfg.shape != ParticleShape.MATRIX_FREE),
-            ("linear runs", cfg.linear),
-            ("full-f runs", not cfg.deltaf)) if cond]
-        if missing:
+        if cfg.shape != ParticleShape.MATRIX_FREE:
             raise NotImplementedError(
-                f"not ported to pic1dp_tpu_torch yet: {', '.join(missing)}")
+                "not ported to pic1dp_tpu_torch yet: the EXPLICIT grid path")
         if cfg.bf16_weights and cfg.nspecies > 1 and any(
                 abs(s.v0) > 2.0 * (s.temperature / s.mass) ** 0.5
                 for s in cfg.species):
@@ -76,6 +82,9 @@ class Stepper:
         else:
             self._substep1 = self.substeps.substep1
             self._substep2 = self.substeps.substep2
+        self._graphs: dict[int, _StepGraph] = {}
+        self._graph_buffers = None   # the state the graphs were captured over
+        self._warm = False
 
     def _solve(self, p_c, p_s):
         return spectral_ops.solve_modes_from_projections(
@@ -94,7 +103,8 @@ class Stepper:
         (reference src/pic1dp.F90:70-72)."""
         cfg = self.cfg
         trig = spectral_ops.mode_trig(state.x, cfg.lx, cfg.nx, cfg.modes)
-        val = torch.where(state.live, state.w, 0.0) * self.sp.charge
+        val = state.w if cfg.deltaf else state.p.to(self.dtype)
+        val = torch.where(state.live, val, 0.0) * self.sp.charge
         p_c, p_s = spectral_ops.project_modes(trig, val)
         return self._with_field(state, state.x, state.v, state.w, p_c, p_s)
 
@@ -104,13 +114,43 @@ class Stepper:
             state.x, state.v, state.p, state.w, state.mode_re, state.mode_im)
         mre1, mim1 = self._solve(pc1, ps1)
         x2, v2, w2, (pc2, ps2) = self._substep2(
-            state.x, state.v, state.p, state.w, w1, v1, mre1, mim1)
+            state.x, state.v, state.p, state.w, w1, v1, mre1, mim1,
+            state.mode_re, state.mode_im)
         return self._with_field(state, x2, v2, w2, pc2, ps2)
 
     def multi_step(self, state: SimState, k: int) -> SimState:
-        """k steps, queued without a host sync."""
-        for _ in range(k):
-            state = self.step(state)
+        """k steps, queued without a host sync.  On the CPU a loop of steps;
+        on a CUDA device the steps of graph_steps, after a first call of
+        eager steps that loads every kernel the graphs will hold."""
+        if state.x.device.type != "cuda" or not self._warm:
+            for _ in range(k):
+                state = self.step(state)
+            self._warm = state.x.device.type == "cuda"
+            return state
+        return self.graph_steps(state, k)
+
+    def graph_steps(self, state: SimState, k: int) -> SimState:
+        """k steps replayed from CUDA graphs of at most GRAPH_STEPS steps,
+        each captured once per step count over this state's buffers (the
+        port of make_multi_step, pic1dp_tpu/core/step.py:433-502).  A replay
+        is bit for bit the same k eager steps: the same kernels on the same
+        buffers, with no float atomics.  x, v and w are updated in place, and
+        each graph ends by copying the new modes, E and rho into the state's
+        own tensors, so the state returned is `state` itself.  Graphs
+        captured over another state's buffers are dropped, never replayed
+        over this one."""
+        if state.x.device.type != "cuda":
+            raise ValueError(f"CUDA graphs replay on a CUDA state, not {state.x.device}")
+        buffers = tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in (
+            state.x, state.v, state.p, state.w, state.mode_re, state.mode_im,
+            state.electric, state.rho))
+        if buffers != self._graph_buffers:
+            self._graphs, self._graph_buffers = {}, buffers
+        full, rest = divmod(k, self.GRAPH_STEPS)
+        for n in [self.GRAPH_STEPS] * full + [rest] * (rest > 0):
+            if n not in self._graphs:
+                self._graphs[n] = _StepGraph(self, state, n)
+            self._graphs[n].replay()
         return state
 
     def energies(self, state: SimState) -> diagnostics.Energies:
@@ -118,3 +158,29 @@ class Stepper:
 
     def ptcldist(self, state: SimState) -> diagnostics.PtclDist:
         return diagnostics.ptcldist(self.cfg, self.sp, state)
+
+
+class _StepGraph:
+    """n steps of a Stepper over one state's buffers, captured in a CUDA
+    graph.  The wrappers count their launches while the steps are captured,
+    when nothing runs; those counts are taken back at once and added again
+    at each replay, when the kernels do run."""
+
+    def __init__(self, stepper: Stepper, state: SimState, n: int):
+        kernels = substep_kernels.KERNELS
+        before = [k.launches for k in kernels]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            out = state
+            for _ in range(n):
+                out = stepper.step(out)
+            for field in ("mode_re", "mode_im", "electric", "rho"):
+                getattr(state, field).copy_(getattr(out, field))
+        self.launches = [k.launches - b for k, b in zip(kernels, before)]
+        for k, b in zip(kernels, before):
+            k.launches = b
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, d in zip(substep_kernels.KERNELS, self.launches):
+            k.launches += d

@@ -5,29 +5,36 @@
 //
 // Host constants arrive as HostParams (in double, mirrored field by field by
 // the ctypes.Structure SubstepParams in ops/substep_kernels.py) and reach a
-// kernel as Params<T>, converted by to_params<T>.
+// kernel as Params<T>, converted by to_params<T> (with species 0's
+// constants), and as SpeciesTable<T>, every species' constants, converted by
+// to_species<T> and read by the species-loop instantiations only.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 constexpr int kMaxModes = 16;
+constexpr int kMaxSpecies = 8;
 
 // Host constants, in double.  ops/substep_kernels.py mirrors this layout
 // field by field in the ctypes.Structure SubstepParams.
 struct HostParams {
-  long long n;       // markers in each stream
+  long long n;       // markers in each stream (per species)
   int nmode;
   int nx;
-  int kform;         // -f0'/f0 form: 0 (v - k_v0) * k_iv, 1 two-Gaussian ratio
   int modes[kMaxModes];
   double cdm1[kMaxModes];  // cos(2 pi m / nx) - 1
   double sd[kMaxModes];    // sin(2 pi m / nx)
   double lx, inv_lx, nx_over_lx;
   double dt_half, dt;
-  double dtqm_half, dtqm_full;  // dt_eff * q / m, evaluated on the host
-  double charge;
-  double k_v0, k_iv, k_ivb, k_half_iv, k_half_ivb, k_log_ratio;
+  // each species' constants: the -f0'/f0 form (see minus_dlnf0_dv) and its
+  // k_* constants, dt_eff * q / m evaluated on the host, the charge
+  int nspecies;
+  int sp_kform[kMaxSpecies];
+  double sp_dtqm_half[kMaxSpecies], sp_dtqm_full[kMaxSpecies], sp_charge[kMaxSpecies];
+  double sp_k_v0[kMaxSpecies], sp_k_iv[kMaxSpecies], sp_k_ivb[kMaxSpecies];
+  double sp_k_half_iv[kMaxSpecies], sp_k_half_ivb[kMaxSpecies];
+  double sp_k_log_ratio[kMaxSpecies];
 };
 
 namespace {
@@ -49,7 +56,7 @@ Params<T> to_params(const HostParams& h) {
   p.n = h.n;
   p.nmode = h.nmode;
   p.nx = h.nx;
-  p.kform = h.kform;
+  p.kform = h.sp_kform[0];
   for (int j = 0; j < kMaxModes; ++j) {
     p.modes[j] = h.modes[j];
     p.cdm1[j] = static_cast<T>(h.cdm1[j]);
@@ -60,16 +67,74 @@ Params<T> to_params(const HostParams& h) {
   p.nx_over_lx = static_cast<T>(h.nx_over_lx);
   p.dt_half = static_cast<T>(h.dt_half);
   p.dt = static_cast<T>(h.dt);
-  p.dtqm_half = static_cast<T>(h.dtqm_half);
-  p.dtqm_full = static_cast<T>(h.dtqm_full);
-  p.charge = static_cast<T>(h.charge);
-  p.k_v0 = static_cast<T>(h.k_v0);
-  p.k_iv = static_cast<T>(h.k_iv);
-  p.k_ivb = static_cast<T>(h.k_ivb);
-  p.k_half_iv = static_cast<T>(h.k_half_iv);
-  p.k_half_ivb = static_cast<T>(h.k_half_ivb);
-  p.k_log_ratio = static_cast<T>(h.k_log_ratio);
+  p.dtqm_half = static_cast<T>(h.sp_dtqm_half[0]);
+  p.dtqm_full = static_cast<T>(h.sp_dtqm_full[0]);
+  p.charge = static_cast<T>(h.sp_charge[0]);
+  p.k_v0 = static_cast<T>(h.sp_k_v0[0]);
+  p.k_iv = static_cast<T>(h.sp_k_iv[0]);
+  p.k_ivb = static_cast<T>(h.sp_k_ivb[0]);
+  p.k_half_iv = static_cast<T>(h.sp_k_half_iv[0]);
+  p.k_half_ivb = static_cast<T>(h.sp_k_half_ivb[0]);
+  p.k_log_ratio = static_cast<T>(h.sp_k_log_ratio[0]);
   return p;
+}
+
+// One species' constants at the kernel's type T.
+template <typename T>
+struct Species {
+  int kform;
+  T dtqm_half, dtqm_full, charge, k_v0, k_iv, k_ivb, k_half_iv, k_half_ivb, k_log_ratio;
+};
+
+template <typename T>
+struct SpeciesTable {
+  int ns;
+  Species<T> s[kMaxSpecies];
+};
+
+template <typename T>
+SpeciesTable<T> to_species(const HostParams& h) {
+  SpeciesTable<T> t;
+  t.ns = h.nspecies;
+  for (int s = 0; s < kMaxSpecies; ++s) {
+    t.s[s].kform = h.sp_kform[s];
+    t.s[s].dtqm_half = static_cast<T>(h.sp_dtqm_half[s]);
+    t.s[s].dtqm_full = static_cast<T>(h.sp_dtqm_full[s]);
+    t.s[s].charge = static_cast<T>(h.sp_charge[s]);
+    t.s[s].k_v0 = static_cast<T>(h.sp_k_v0[s]);
+    t.s[s].k_iv = static_cast<T>(h.sp_k_iv[s]);
+    t.s[s].k_ivb = static_cast<T>(h.sp_k_ivb[s]);
+    t.s[s].k_half_iv = static_cast<T>(h.sp_k_half_iv[s]);
+    t.s[s].k_half_ivb = static_cast<T>(h.sp_k_half_ivb[s]);
+    t.s[s].k_log_ratio = static_cast<T>(h.sp_k_log_ratio[s]);
+  }
+  return t;
+}
+
+// p with species s's constants in place of its own (the port of
+// pallas_kernels._make_sel).  s is the same for every thread; the entry is
+// picked by a chain of selects over constant indices, so the table stays in
+// the parameter bank instead of being copied to local memory for a
+// run-time index.
+template <typename T>
+__device__ __forceinline__ Params<T> with_species(const Params<T>& p,
+                                                  const SpeciesTable<T>& tab, int s) {
+  Species<T> c = tab.s[0];
+#pragma unroll
+  for (int j = 1; j < kMaxSpecies; ++j)
+    if (j == s) c = tab.s[j];
+  Params<T> q = p;
+  q.kform = c.kform;
+  q.dtqm_half = c.dtqm_half;
+  q.dtqm_full = c.dtqm_full;
+  q.charge = c.charge;
+  q.k_v0 = c.k_v0;
+  q.k_iv = c.k_iv;
+  q.k_ivb = c.k_ivb;
+  q.k_half_iv = c.k_half_iv;
+  q.k_half_ivb = c.k_half_ivb;
+  q.k_log_ratio = c.k_log_ratio;
+  return q;
 }
 
 __device__ __forceinline__ float floor_t(float x) { return floorf(x); }
@@ -135,12 +200,25 @@ __device__ __forceinline__ T wrap(const Params<T>& p, T x) {
   return y >= p.lx ? y - p.lx : (y < T(0) ? y + p.lx : y);
 }
 
-// -f0'/f0 at v (pallas_kernels._minus_dlnf0_dv_fast): a Maxwellian, or a
-// degenerate bump-on-tail, is linear in v; the two-Gaussian bump-on-tail is
-// the single-exponential ratio (v/T + r (v - v0)/T2) / (1 + r) with
-// r = beam/core, its exponent clamped to +-60.
-template <typename T>
+// -f0'/f0 at v (pallas_kernels._minus_dlnf0_dv_fast), by kform:
+//   0  a Maxwellian, or a degenerate bump-on-tail: (v - k_v0) * k_iv;
+//   1  the two-Gaussian bump-on-tail: the single-exponential ratio
+//      (v/T + r (v - v0)/T2) / (1 + r), r = beam/core, exponent clamped to
+//      +-60;
+//   2  TWO_STREAM1: v - 2/v;
+//   3  TWO_STREAM2: ((v + v0) + (v - v0) r) / T / (1 + r), r = exp(2 v v0/T)
+//      with k_ivb = 2 v0/T, exponent clamped to +-60.
+// Forms 2 and 3 are compiled in only with kAllForms (the species-loop
+// instantiations); the main path's kernels and the probes keep forms 0 and 1.
+template <typename T, bool kAllForms = false>
 __device__ __forceinline__ T minus_dlnf0_dv(const Params<T>& p, T v) {
+  if constexpr (kAllForms) {
+    if (p.kform == 2) return v - T(2) / v;
+    if (p.kform == 3) {
+      const T r = exp_t(clamp_t(v * p.k_ivb, T(-60), T(60)));
+      return ((v + p.k_v0) + (v - p.k_v0) * r) * p.k_iv / (T(1) + r);
+    }
+  }
   if (p.kform == 0) return (v - p.k_v0) * p.k_iv;
   const T dv = v - p.k_v0;
   const T arg = clamp_t(v * v * p.k_half_iv - dv * dv * p.k_half_ivb + p.k_log_ratio,

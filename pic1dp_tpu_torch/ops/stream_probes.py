@@ -126,9 +126,10 @@ def unit_params(n: int) -> SubstepParams:
     step = 2.0 * math.pi / NX
     prm.cdm1[0], prm.sd[0] = math.cos(step) - 1.0, math.sin(step)
     prm.lx, prm.inv_lx, prm.nx_over_lx = LX, 1.0 / LX, NX / LX
-    prm.kform = 1
-    prm.k_v0, prm.k_iv, prm.k_ivb = EXP_V0, EXP_IV, EXP_IVB
-    prm.k_half_iv, prm.k_half_ivb, prm.k_log_ratio = EXP_HALF_IV, EXP_HALF_IVB, EXP_LOG_RATIO
+    prm.nspecies, prm.sp_kform[0] = 1, 1
+    prm.sp_k_v0[0], prm.sp_k_iv[0], prm.sp_k_ivb[0] = EXP_V0, EXP_IV, EXP_IVB
+    prm.sp_k_half_iv[0], prm.sp_k_half_ivb[0] = EXP_HALF_IV, EXP_HALF_IVB
+    prm.sp_k_log_ratio[0] = EXP_LOG_RATIO
     return prm
 
 

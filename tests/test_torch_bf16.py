@@ -22,7 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port import assert_rel, host, to_jax, to_port
+from _torch_port import CASES, assert_bf16_close, assert_rel, host, to_jax, to_port
 
 from pic1dp_tpu import config as jcfg_mod
 from pic1dp_tpu.analysis.output_data import OutputData
@@ -50,16 +50,6 @@ def _pair(**over):
 
 def _loaded(jcfg, seed):
     return JaxStepper(jcfg).initial_field(jax_load(jcfg, jax.random.PRNGKey(seed)))
-
-
-def assert_bf16_close(got, want, eta: float, msg: str) -> None:
-    """|got - want| <= one bfloat16 ulp of max(|got|, |want|) + eta * max|want|."""
-    a = torch.as_tensor(np.asarray(host(got), np.float32))
-    b = torch.as_tensor(np.asarray(want, np.float32))
-    mag = torch.maximum(a.abs(), b.abs())
-    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
-    bad = (a - b).abs() > ulp + eta * float(b.abs().max())
-    assert not bool(bad.any()), f"{msg}: {int(bad.sum())} markers beyond one bf16 ulp + {eta}"
 
 
 def test_bf16_state_round_trip_is_bitwise():
@@ -136,6 +126,30 @@ def test_bf16_stepper_matches_jax_pallas():
     assert st_j.deposit_method == DepositMethod.PALLAS
     a = _loaded(jcfg, 11)
     stepper = Stepper(tcfg, "cpu")
+    b = to_port(a)
+    for _ in range(3):
+        a, b = st_j.step(a), stepper.step(b)
+    assert b.p.dtype == torch.bfloat16 and b.w.dtype == torch.float32
+    np.testing.assert_allclose(host(b.x), np.asarray(a.x), rtol=0, atol=5e-5)
+    np.testing.assert_allclose(host(b.v), np.asarray(a.v), rtol=0, atol=1e-5)
+    for field in ("w", "mode_re", "mode_im"):
+        assert_rel(getattr(b, field), getattr(a, field), 1e-4, field)
+    np.testing.assert_array_equal(host(b.p.view(torch.int16)), np.asarray(a.p).view(np.int16))
+
+
+@pytest.mark.parametrize("name", ["landau_linear", "two_species_maxwellian"])
+def test_bf16_layout_stepper_matches_jax_pallas(name):
+    """bf16_weights in the linear layout and with two species: 3 steps of
+    the port's Stepper against the JAX Pallas Stepper (interpret mode) from
+    one state, at the f32 tolerances, p kept bit for bit."""
+    def cfg(mod, **kw):
+        return dataclasses.replace(CASES[name](mod, "float32"), bf16_weights=True, **kw)
+
+    jcfg, tcfg = cfg(jcfg_mod, deposit_method=DepositMethod.PALLAS), cfg(tcfg_mod)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # the shifted-species warning
+        st_j, stepper = JaxStepper(jcfg), Stepper(tcfg, "cpu")
+    a = st_j.initial_field(jax_load(jcfg, jax.random.PRNGKey(13)))
     b = to_port(a)
     for _ in range(3):
         a, b = st_j.step(a), stepper.step(b)

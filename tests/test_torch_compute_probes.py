@@ -109,10 +109,11 @@ def test_poly_wrap_exp_units_match_jax(c):
 
 def test_unit_params_are_the_tpu_probe_constants():
     prm = sp.unit_params(10)
-    assert (prm.n, prm.nmode, prm.nx, prm.modes[0], prm.kform) == (10, 1, NX, 1, 1)
+    assert (prm.n, prm.nmode, prm.nx, prm.modes[0], prm.nspecies,
+            prm.sp_kform[0]) == (10, 1, NX, 1, 1, 1)
     assert prm.lx == 2.0 * np.pi / 0.36 and prm.nx_over_lx == NX / prm.lx
-    assert (prm.k_v0, prm.k_iv, prm.k_ivb, prm.k_half_iv, prm.k_half_ivb,
-            prm.k_log_ratio) == (4.5, 1.0, 4.0, 0.5, 2.0, -1.0)
+    assert (prm.sp_k_v0[0], prm.sp_k_iv[0], prm.sp_k_ivb[0], prm.sp_k_half_iv[0],
+            prm.sp_k_half_ivb[0], prm.sp_k_log_ratio[0]) == (4.5, 1.0, 4.0, 0.5, 2.0, -1.0)
 
 
 # ---- (b) numpy transcriptions of the kernel bodies and loop drivers ----

@@ -36,7 +36,8 @@ def test_port_imports_without_jax_in_a_fresh_process():
             "pic1dp_tpu_torch.ops.substep_kernels, pic1dp_tpu_torch.core.simulation, "
             "pic1dp_tpu_torch.ops.stream_probes, pic1dp_tpu_torch.probes.kernel_probe, "
             "pic1dp_tpu_torch.probes.pipeline_probe, pic1dp_tpu_torch.probes.compute_probe, "
-            "pic1dp_tpu_torch.probes.overlap_probe, pic1dp_tpu_torch.probes.pingpong_probe; "
+            "pic1dp_tpu_torch.probes.overlap_probe, pic1dp_tpu_torch.probes.pingpong_probe, "
+            "pic1dp_tpu_torch.analysis.dispersion; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pic1dp_tpu')); "
             "assert not bad, bad")

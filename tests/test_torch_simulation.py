@@ -3,6 +3,7 @@ Simulation with output on, in float64.  Snapshots, pic1dp.out and the
 progress lines must agree; the port's command line must run on the CPU."""
 
 import contextlib
+import dataclasses
 import io
 import os
 import subprocess
@@ -11,13 +12,15 @@ import sys
 import jax
 import numpy as np
 import pytest
-from _torch_port import assert_rel, to_port
+from _torch_port import CASES, assert_rel, to_port
 
+from pic1dp_tpu import config as jcfg_mod
 from pic1dp_tpu.analysis.output_data import OutputData
 from pic1dp_tpu.config import bump_on_tail_default as jax_bot
 from pic1dp_tpu.core.loading import load_particles as jax_load
 from pic1dp_tpu.core.simulation import Simulation as JaxSimulation
 from pic1dp_tpu_torch import Simulation
+from pic1dp_tpu_torch import config as tcfg_mod
 from pic1dp_tpu_torch.config import OptimizationConfig
 from pic1dp_tpu_torch.config import bump_on_tail_default as bot
 
@@ -89,6 +92,37 @@ def test_progress_lines_agree(runs):
     assert runs["torch"]["err"].splitlines()[0] == "pic1dp_tpu_torch version 0.1.0"
     assert tlines == jlines
     assert tphases == jphases
+
+
+@pytest.mark.parametrize("name", ["landau_fullf", "two_species_maxwellian"])
+def test_layout_runs_agree_with_jax(name, tmp_path):
+    """A full-f run and a two-species run through both packages' Simulation
+    from one loaded state, in float64: every snapshot and pic1dp.out agree."""
+    def cfg(mod):
+        return dataclasses.replace(CASES[name](mod, "float64"), time_max=1.0,
+                                   output_interval=0.25)
+
+    jcfg, tcfg = cfg(jcfg_mod), cfg(tcfg_mod)
+    raw = jax_load(jcfg, jax.random.PRNGKey(8))
+    snaps = {"jax": [], "torch": []}
+    jsim = JaxSimulation(jcfg, out_path=str(tmp_path / "jax"))
+    jsim.state = jsim.stepper.initial_field(raw)
+    jsim.run(snapshot_callback=snaps["jax"].append)
+    sim = Simulation(tcfg, out_path=str(tmp_path / "torch"), device="cpu")
+    sim.state = sim.stepper.initial_field(to_port(raw))
+    sim.run(snapshot_callback=snaps["torch"].append)
+    assert [s["time"] for s in snaps["torch"]] == [s["time"] for s in snaps["jax"]]
+    assert len(snaps["torch"]) == 5
+    for a, b in zip(snaps["torch"], snaps["jax"]):
+        np.testing.assert_allclose(a["field_energy"], b["field_energy"], rtol=1e-10)
+        for key in ("marker", "total", "pertb", "mode_re", "mode_im"):
+            assert_rel(a[key], b[key], 1e-12, f"{name} t={a['time']}:{key}")
+    a, b = OutputData(str(tmp_path / "torch")), OutputData(str(tmp_path / "jax"))
+    assert a.nspecies == b.nspecies == tcfg.nspecies
+    assert_rel(a.get_scalar_t(), b.get_scalar_t(), 1e-12, "scalars")
+    for s in range(tcfg.nspecies):
+        assert_rel(a.get_ptcldist_xv(4, s, 2), b.get_ptcldist_xv(4, s, 2), 1e-12,
+                   f"species {s} xv")
 
 
 def test_nonfinite_field_energy_raises():

@@ -1,6 +1,8 @@
 """The port's Stepper against the JAX Stepper: 5 steps from one state, in
 float64 at 1e-12 relative to max, against both the XLA spectral path and
-the Pallas path in interpret mode."""
+the Pallas path in interpret mode, for the default cases and every variant
+of tests/test_spectral_path.py's _pallas_cases (linear, full-f, two-stream,
+two species) and TWO_STREAM1."""
 
 import dataclasses
 
@@ -8,7 +10,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port import assert_rel, host, to_port
+from _torch_port import CASES, assert_rel, host, to_port
 
 from pic1dp_tpu import config as jcfg_mod
 from pic1dp_tpu.config import DepositMethod
@@ -24,13 +26,19 @@ _CASES = {
 }
 
 
+STEP_CASES = sorted(_CASES) + [n for n in CASES if n not in (
+    "bot_nonlinear_deltaf", "bot_density_1", "bot_density_0")]
+
+
 def _pair(name, dtype="float64"):
+    if name in CASES:
+        return CASES[name](jcfg_mod, dtype), CASES[name](tcfg_mod, dtype)
     preset, kw = _CASES[name]
     kw = dict(kw, dtype=dtype, verbosity=0)
     return getattr(jcfg_mod, preset)(**kw), getattr(tcfg_mod, preset)(**kw)
 
 
-@pytest.mark.parametrize("name", sorted(_CASES))
+@pytest.mark.parametrize("name", STEP_CASES)
 def test_stepper_matches_jax_paths(name):
     jcfg, tcfg = _pair(name)
     st_x = JaxStepper(jcfg)
@@ -87,13 +95,44 @@ def test_plain_stepper_on_cpu_is_the_default():
     assert [k.launches for k in sk.KERNELS] == [0] * len(sk.KERNELS)
 
 
+def test_fullf_initial_field_deposits_p():
+    """Full-f deposits charge * p, as JAX's _initial_field does
+    (pic1dp_tpu/core/step.py:210-213); a w deposit would be the delta-f
+    field."""
+    jcfg, tcfg = _pair("landau_fullf")
+    raw = jax_load(jcfg, jax.random.PRNGKey(6))
+    want = JaxStepper(jcfg).initial_field(raw)
+    got = Stepper(tcfg, "cpu").initial_field(to_port(raw))
+    for field in ("rho", "electric", "mode_re", "mode_im"):
+        assert_rel(getattr(got, field), getattr(want, field), 1e-12, field)
+    wrong = Stepper(dataclasses.replace(tcfg, deltaf=True), "cpu").initial_field(to_port(raw))
+    assert not torch.allclose(wrong.mode_im, got.mode_im)
+
+
+def test_graph_steps_refuse_a_cpu_state():
+    """CUDA graphs replay over CUDA buffers only; on the CPU multi_step is
+    the loop of steps (test_multi_step_bitwise_equals_steps)."""
+    jcfg, tcfg = _pair("landau")
+    stepper = Stepper(tcfg, "cpu")
+    state = stepper.initial_field(to_port(jax_load(jcfg, jax.random.PRNGKey(2))))
+    with pytest.raises(ValueError, match="CUDA graphs replay on a CUDA state"):
+        stepper.graph_steps(state, 2)
+    assert stepper._graphs == {}
+
+
 @pytest.mark.parametrize("change,what", [
     (dict(shape=tcfg_mod.ParticleShape.EXPLICIT), "EXPLICIT"),
-    (dict(linear=True), "linear"),
-    (dict(deltaf=False), "full-f"),
-    (dict(bf16_weights=True, linear=True), "linear"),   # bf16 runs, linear ones not
-], ids=["explicit", "linear", "fullf", "bf16"])
+], ids=["explicit"])
 def test_unported_paths_raise(change, what):
     cfg = dataclasses.replace(tcfg_mod.bump_on_tail_default(nparticle_max=1024), **change)
     with pytest.raises(NotImplementedError, match=what):
         Stepper(cfg, "cpu")
+
+
+def test_multirand_loader_not_ported():
+    from pic1dp_tpu_torch.core.loading import load_particles
+
+    cfg = dataclasses.replace(tcfg_mod.bump_on_tail_default(nparticle_max=1024),
+                              rng=tcfg_mod.RngConfig(backend="multirand"))
+    with pytest.raises(NotImplementedError, match="multirand"):
+        load_particles(cfg, "cpu")
