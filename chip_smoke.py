@@ -14,7 +14,8 @@ first failed check.  Phases, each printed:
      hashed with the headers beside it), one process per source, all at once
   3. each kernel against its plain PyTorch version on the same inputs:
      the main substeps in f32 and bf16_weights at full width and in f64
-     with three modes; each layout's substeps at the shape of its
+     with three modes; the angle table as the kernels read it, bit for
+     bit; each layout's substeps at the shape of its
      verification case in f32 (and bf16_weights where it has a bf16 build),
      and every variant of the reference's _pallas_cases in f64; five Stepper
      steps in f32 and bf16; k steps replayed from a CUDA graph against k
@@ -30,7 +31,8 @@ first failed check.  Phases, each printed:
      pingpong probes at 2^26, each with the stream kernels' counts set to 0
      just before it
   5. timing: ms per call of each substep, unit and carry kernel and its
-     plain version, and ms/step of the plain, the eager kernel and the CUDA
+     plain version (for each substep its bound, share, V, B and where the
+     angle table sat), and ms/step of the plain, the eager kernel and the CUDA
      graph Stepper at the main path's shape and at bench.py's headline
      shape (2^26 markers, nx 1024)
 
@@ -418,10 +420,36 @@ def compare_layouts() -> dict:
     return worst
 
 
+def angle_tables() -> None:
+    """The substep kernels' grid-angle table as they read it on the card
+    (substep_kernels.angle_gather: staged into shared memory where the
+    kernels stage it, else read in place) against the host's table, bit for
+    bit: the main case, the headline, three modes in f64, and tables too
+    large for shared memory in f32 and f64."""
+    from types import SimpleNamespace
+
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+
+    for nx, modes, dtype in ((192, (1,), torch.float32), (1024, (1,), torch.float32),
+                             (64, (1, 2, 3), torch.float64), (4096, (1, 3), torch.float32),
+                             (2048, (1, 2), torch.float64), (5632, (7,), torch.float32)):
+        cfg = SimpleNamespace(nx=nx, modes=modes)
+        host = sk.angle_table(cfg, dtype, "cpu")
+        table = sk.angle_table(cfg, dtype, "cuda")
+        idx = torch.arange(host.numel() // 2, dtype=torch.int32, device="cuda")
+        got = sk.angle_gather(table, idx).cpu()
+        same = torch.equal(got, host.reshape(-1, 2))
+        smem = sk.angle_smem_bytes(len(modes), nx, host.element_size())
+        say(f"[3 compare] angle table nx={nx} modes={modes} {dtype}: "
+            f"{'shared memory, ' + str(smem) + ' B' if smem else 'device memory'}; "
+            f"gathered on the card bitwise equal to the host table {same}")
+        check(same, f"angle table nx={nx} modes={modes} {dtype} read back bit for bit")
+
+
 def trig_accuracy() -> None:
-    """The kernels' grid-angle sin/cos against float64, for every
-    realizable angle 2 pi (m ix0 mod nx) / nx; bound of
-    tests/test_spectral_path.py:338-368 (2 f32 ulp at 1)."""
+    """The grid-angle sin/cos of hat_trig's chain (the probes' trig unit)
+    against float64, for every realizable angle 2 pi (m ix0 mod nx) / nx;
+    bound of tests/test_spectral_path.py:338-368 (2 f32 ulp at 1)."""
     from pic1dp_tpu_torch.ops.substep_kernels import grid_angle_f32
 
     worst = 0.0
@@ -934,8 +962,9 @@ def time_steppers(cfg, smi: str) -> dict:
 
 def stream_bytes(cfg, substep: int) -> int:
     """Bytes per marker that a substep kernel must move in cfg's layout:
-    each stream it reads once and each it writes once (the mode scalars and
-    the per-block partials are a few KB per call and left out)."""
+    each stream it reads once and each it writes once (the mode scalars,
+    the angle table and the per-block partials are a few KB per call and
+    left out)."""
     from pic1dp_tpu_torch.ops.substep_kernels import FULLF, LINEAR, NONLINEAR, layout
 
     f = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
@@ -968,13 +997,15 @@ def time_kernels(cfg, inputs=None) -> tuple[dict, dict]:
     at cfg's shape, on the card's clock: calls captured in a CUDA graph and
     replayed (probes.graph_ms), so that a small case is not timed at the
     host's launch rate (these launches come after the main paths' counts
-    were read); and each kernel's bound at that shape."""
-    from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+    were read); and each kernel's bound at that shape.  The line printed
+    gives the share of the bound, V, B, the grid and where the angle table
+    sat."""
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
     from pic1dp_tpu_torch.probes import graph_ms
 
     x, v, p, w, (mre0, mim0, mre1, mim1), sp = inputs or _inputs(
         cfg, cfg.nparticle_max, "cuda")
-    subs = FusedSubsteps(cfg, sp)
+    subs = sk.FusedSubsteps(cfg, sp)
     w1, v1, _ = subs.substep1(x, v, p, w, mre0, mim0)
     k1, k2 = (k.name for k in subs.counters)
     out = {}
@@ -987,10 +1018,17 @@ def time_kernels(cfg, inputs=None) -> tuple[dict, dict]:
     n = x.numel()
     bounds = {name: bound(n * stream_bytes(cfg, ss), n * substep_ops(cfg, ss))
               for name, ss in ((k1, 1), (k2, 2))}
+    vec = sk.vector_width(cfg.nmode, x.element_size())
+    grid = sk.launch_grid(n, vec, torch.cuda.get_device_properties(0).multi_processor_count,
+                          subs.blocks_per_sm)
+    smem = sk.angle_smem_bytes(cfg.nmode, cfg.nx, x.element_size())
     say(f"[5 timing] {cfg.equilibrium.value} {'bf16_weights' if cfg.bf16_weights else cfg.dtype}"
-        f" per call at {cfg.nspecies} x {cfg.nparticle_max} markers, nx {cfg.nx}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()) + "; bound "
+        f" per call at {cfg.nspecies} x {cfg.nparticle_max} markers, nx {cfg.nx}: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()) + "; bound "
         + ", ".join(f"{k} {b:.4f} ms ({by}, {stream_bytes(cfg, ss)} B/marker), share "
-                    f"{b / out[k]:.1%}" for (k, (b, by)), ss in zip(bounds.items(), (1, 2))))
+                    f"{b / out[k]:.1%}" for (k, (b, by)), ss in zip(bounds.items(), (1, 2)))
+        + f"; V {vec}, B {subs.blocks_per_sm}, grid {grid}, angle table in "
+        + (f"shared memory ({smem} B)" if smem else "device memory"))
     return out, bounds
 
 
@@ -1053,6 +1091,7 @@ def main() -> int:
     bf16_cfg = dataclasses.replace(main_cfg, bf16_weights=True)
     check(main_cfg.nparticle_max == FULL_N and main_cfg.nx == 192, "full width")
     trig_accuracy()
+    angle_tables()
     err = compare_substeps(main_cfg, FULL_N, F32_TOL)
     err.update(compare_substeps(bf16_cfg, FULL_N, F32_TOL))
     f64 = dataclasses.replace(main_cfg, dtype="float64", nparticle_max=F64_N,

@@ -1,7 +1,10 @@
 // The substep kernels' constants and per-marker device functions, shared by
 // csrc/substep_kernels.cu (the production kernels) and csrc/stream_probes.cu
-// (whose compute units time this very code, as the TPU probes import
-// _trig_block, _sincos_turns and _fast_wrap from pallas_kernels.py).
+// (whose compute units time wrap, minus_dlnf0_dv and the per-marker trig
+// chain hat_trig, as the TPU probes import _trig_block, _sincos_turns and
+// _fast_wrap from pallas_kernels.py).  The production kernels take their
+// grid angles from a table (hat_table); hat_trig, the chain they ran before,
+// stays for the probes and for the accuracy check of grid_angle_kernel.
 //
 // Host constants arrive as HostParams (in double, mirrored field by field by
 // the ctypes.Structure SubstepParams in ops/substep_kernels.py) and reach a
@@ -157,6 +160,8 @@ __device__ __forceinline__ void sincospi_t(double t, double* s, double* c) {
 // sin and cos of the grid angle 2 pi k / nx for an integer k in [0, nx).  k
 // is folded into (-nx/2, nx/2] first, so the one rounding of the argument
 // (the division) is at most half an ulp of a number of magnitude <= 1.
+// Part of hat_trig's chain (the probes, grid_angle_kernel), not of the
+// production kernels.
 template <typename T>
 __device__ __forceinline__ void grid_angle(int k, int nx, T* s, T* c) {
   const int kk = (2 * k > nx) ? k - nx : k;
@@ -168,7 +173,9 @@ __device__ __forceinline__ void grid_angle(int k, int nx, T* s, T* c) {
 //   S = (1 - f) sin(th0) + f sin(th0 + d) = s0 (1 + f (cos d - 1)) + c0 f sin d
 // with th0 = 2 pi (m ix0 mod nx) / nx reduced exactly in integers and
 // d = 2 pi m / nx (the hat fold of pallas_kernels._trig_block).  Entries at
-// and above nmode are 0.
+// and above nmode are 0.  This per-marker chain (%, divide, sincospi) is what
+// the substep kernels ran before the angle table; the compute probe still
+// times it.  The production kernels call hat_table.
 template <typename T, int NM>
 __device__ __forceinline__ void hat_trig(const Params<T>& p, T x, T (&C)[NM],
                                          T (&S)[NM]) {
@@ -187,6 +194,46 @@ __device__ __forceinline__ void hat_trig(const Params<T>& p, T x, T (&C)[NM],
       const T b = f * p.sd[j];
       C[j] = cs * a - sn * b;
       S[j] = sn * a + cs * b;
+    }
+  }
+}
+
+// One (cos, sin) entry of the grid-angle table: 8 bytes in float, 16 in
+// double, so a mode costs one 8- or 16-byte gather.
+template <typename T>
+struct PairOf;
+template <>
+struct PairOf<float> {
+  using type = float2;
+};
+template <>
+struct PairOf<double> {
+  using type = double2;
+};
+template <typename T>
+using Pair = typename PairOf<T>::type;
+
+// hat_trig with the grid angles gathered from a table: ang[j * nx + ix] is
+// (cos, sin) of 2 pi (m_j ix mod nx) / nx for kept mode j, built on the host
+// in float64 and rounded once to T (ops/substep_kernels.angle_table).  The
+// same cell index, clamp and hat fold as hat_trig; no %, divide or sincospi.
+template <typename T, int NM>
+__device__ __forceinline__ void hat_table(const Params<T>& p, const Pair<T>* ang, T x,
+                                          T (&C)[NM], T (&S)[NM]) {
+  const T s = x * p.nx_over_lx;
+  const T fl = floor_t(s);
+  const T f = s - fl;
+  const int ix0 = min(max(static_cast<int>(fl), 0), p.nx - 1);
+#pragma unroll
+  for (int j = 0; j < NM; ++j) {
+    C[j] = T(0);
+    S[j] = T(0);
+    if (j < p.nmode) {
+      const Pair<T> e = ang[j * p.nx + ix0];
+      const T a = T(1) + f * p.cdm1[j];
+      const T b = f * p.sd[j];
+      C[j] = e.x * a - e.y * b;
+      S[j] = e.y * a + e.x * b;
     }
   }
 }

@@ -28,7 +28,12 @@ holds
     MAX_SPECIES species and every equilibrium (the C side picks the main
     path's instantiation for one bump-on-tail or Maxwellian species in
     nonlinear delta-f, the species loop otherwise); one launch counter per
-    layout and build (KERNELS);
+    layout and build (KERNELS).  What they take beside the streams is made
+    here: the grid-angle table (angle_table, staged into shared memory when
+    it fits, angle_smem_bytes), the grid (launch_grid: vector_width markers
+    per thread and iteration, at most BLOCKS_PER_SM blocks per SM), and the
+    counter with which the last block finds out that it sums the partials
+    into the projections;
   * the plain PyTorch version, FusedSubsteps.substep1_plain / substep2_plain,
     the same function written with the port's mode_trig / efield_at /
     project_modes and distributions.minus_dlnf0_dv, on any device;
@@ -46,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from pic1dp_tpu_torch import distributions as dist
@@ -57,6 +63,13 @@ from pic1dp_tpu_torch.utils.nvcc import CudaKernel
 
 MAX_MODES = 16          # kMaxModes in csrc/substep_math.cuh
 MAX_SPECIES = 8         # kMaxSpecies in csrc/substep_math.cuh
+THREADS = 256           # kThreads in csrc/substep_kernels.cu
+# kAngleSmemMax in csrc/substep_kernels.cu: the 48 KB a launch gets without
+# an opt-in, less 4 KB kept for the kernels' static shared memory
+ANGLE_SMEM_MAX = 48 * 1024 - 4096
+# blocks per SM at most (launch_grid), chosen by the blocks-per-SM sweep of
+# probes/kernel_probe.py
+BLOCKS_PER_SM = 4
 SOURCE = "substep_kernels"
 _SRC = f"pic1dp_tpu_torch/csrc/{SOURCE}.cu"
 _TPU = "pic1dp_tpu/ops/pallas_kernels.py"
@@ -210,23 +223,88 @@ def library() -> ctypes.CDLL:
             raise RuntimeError("MAX_MODES does not match kMaxModes")
         if lib.pic1dp_max_species() != MAX_SPECIES:
             raise RuntimeError("MAX_SPECIES does not match kMaxSpecies")
+        if lib.pic1dp_angle_smem_max() != ANGLE_SMEM_MAX:
+            raise RuntimeError("ANGLE_SMEM_MAX does not match kAngleSmemMax")
+        if any(lib.pic1dp_vector_width(m, b) != vector_width(m, b)
+               for m in range(1, MAX_MODES + 1) for b in (4, 8)):
+            raise RuntimeError("vector_width does not match vec_width")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         prm = ctypes.POINTER(SubstepParams)
         for suffix in _SUFFIX.values():
-            getattr(lib, f"pic1dp_substep1_{suffix}").argtypes = [prm, i32] + [ptr] * 9 + [i32, ptr]
+            getattr(lib, f"pic1dp_substep1_{suffix}").argtypes = \
+                [prm, i32] + [ptr] * 12 + [i32, i32, ptr]
             getattr(lib, f"pic1dp_substep2_{suffix}").argtypes = \
-                [prm, i32] + [ptr] * 11 + [i32, ptr]
+                [prm, i32] + [ptr] * 14 + [i32, i32, ptr]
         lib.pic1dp_grid_angle_f32.argtypes = [ptr, i32, i64, ptr, ptr, ptr]
+        for suffix in ("f32", "f64"):
+            getattr(lib, f"pic1dp_angle_gather_{suffix}").argtypes = [ptr, i32, ptr, i64, ptr, ptr]
         lib.pic1dp_error_string.argtypes = [i32]
         lib.pic1dp_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def launch_grid(device: torch.device) -> int:
-    """The fixed grid: 4 blocks per SM.  A fixed grid fixes the order of the
-    projection sum, so it is the same from run to run."""
-    return 4 * nvcc.sm_count(device)
+def vector_width(nmode: int, itemsize: int) -> int:
+    """Markers per thread and iteration of the kernel that runs nmode kept
+    modes with arithmetic of `itemsize` bytes: one 16-byte load per stream
+    (4 in float, 2 in double) in the bins of at most 4 modes, 1 in the
+    16-mode bin, whose per-mode sums fill the registers (vec_width in
+    csrc/substep_kernels.cu)."""
+    return 1 if nmode > 4 else 16 // itemsize
+
+
+def launch_grid(markers: int, vec: int, sms: int, blocks_per_sm: int = BLOCKS_PER_SM) -> int:
+    """Blocks of a launch over `markers` markers (all species) at `vec`
+    markers per thread and iteration: enough for one iteration per thread,
+    at most blocks_per_sm per SM.  A pure function of its arguments, so a
+    shape gets one grid on one card, and the order of the projection sum,
+    which follows the grid, is the same from run to run."""
+    return max(1, min(blocks_per_sm * sms, -(-markers // (THREADS * vec))))
+
+
+def angle_table(cfg: Config, dtype: torch.dtype, device) -> torch.Tensor:
+    """The kernels' grid-angle table, (nmode, nx, 2): (cos, sin) of
+    2 pi (m_j ix mod nx) / nx for each kept mode m_j and cell ix, the angle
+    reduced in integers and evaluated in float64, then rounded once to
+    dtype.  Its storage is padded with zeros to a multiple of 16 bytes, so
+    that the kernels can copy it whole with one bulk copy."""
+    k = (np.asarray(cfg.modes, dtype=np.int64)[:, None] * np.arange(cfg.nx)) % cfg.nx
+    theta = 2.0 * np.pi * k / cfg.nx
+    table = np.stack([np.cos(theta), np.sin(theta)], axis=-1)
+    host = torch.from_numpy(table.astype({torch.float32: np.float32,
+                                          torch.float64: np.float64}[dtype]))
+    per16 = 16 // host.element_size()
+    flat = torch.zeros(-(-host.numel() // per16) * per16, dtype=dtype, device=device)
+    flat[:host.numel()] = host.reshape(-1).to(device)
+    return flat[:host.numel()].view(host.shape)
+
+
+def angle_smem_bytes(nmode: int, nx: int, itemsize: int) -> int:
+    """Bytes of the angle table a launch copies into shared memory: the
+    table padded to 16 bytes if that fits in ANGLE_SMEM_MAX, else 0 (the
+    kernels read it from device memory)."""
+    nbytes = -(-nmode * nx * 2 * itemsize // 16) * 16
+    return nbytes if nbytes <= ANGLE_SMEM_MAX else 0
+
+
+def angle_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Entries idx of a CUDA angle table (flat indices j * nx + ix) as the
+    substep kernels read them, staged into shared memory where they would
+    stage it: (len(idx), 2) (checks only)."""
+    if (table.device.type != "cuda" or idx.device != table.device
+            or idx.dtype != torch.int32 or not idx.is_contiguous()):
+        raise ValueError("angle_gather takes a CUDA table and contiguous int32 "
+                         "indices on its device")
+    out = torch.empty((idx.numel(), 2), dtype=table.dtype, device=table.device)
+    lib = library()
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[table.dtype]
+    smem = angle_smem_bytes(table.shape[0], table.shape[1], table.element_size())
+    rc = getattr(lib, f"pic1dp_angle_gather_{suffix}")(
+        table.data_ptr(), smem, idx.data_ptr(), idx.numel(), out.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(lib.pic1dp_error_string(rc).decode())
+    return out
 
 
 def grid_angle_f32(k: torch.Tensor, nx: int):
@@ -249,10 +327,13 @@ class FusedSubsteps:
     """Both substeps of one Config: kernels, plain versions and dispatch.
 
     `sp` holds the species parameters at the state's dtype and device, for
-    the plain versions.  Streams a layout does not write come back as None
-    from substep 1 and are ignored by substep 2 (full-f takes no w1 or v1,
-    linear no v1); substep 2 takes the step-start modes as well in full-f,
-    where it rebuilds v1 from them."""
+    the plain versions; the kernels' angle table and counters (one int per
+    substep, 0 between launches) are made once on the same device, outside
+    any CUDA graph capture, and a launch refuses streams on another device.
+    Streams a layout does not write come back as None from substep 1 and are
+    ignored by substep 2 (full-f takes no w1 or v1, linear no v1); substep 2
+    takes the step-start modes as well in full-f, where it rebuilds v1 from
+    them.  blocks_per_sm caps the grid (launch_grid)."""
 
     def __init__(self, cfg: Config, sp: dist.SpeciesParams):
         self.cfg = cfg
@@ -273,6 +354,14 @@ class FusedSubsteps:
         except NotImplementedError as exc:
             # raised again at the first CUDA launch; CPU runs need no kernel
             self._params, self._unsupported = None, exc
+        self.blocks_per_sm = BLOCKS_PER_SM
+        self.angles = self._done = None
+        if self._unsupported is None:
+            device = sp.charge.device
+            self.angles = angle_table(cfg, dtype, device)
+            self._done = torch.zeros(2, dtype=torch.int32, device=device)
+            self._vec = vector_width(cfg.nmode, self.angles.element_size())
+            self._angle_smem = angle_smem_bytes(cfg.nmode, cfg.nx, self.angles.element_size())
 
     # ---- plain versions ----
 
@@ -351,17 +440,17 @@ class FusedSubsteps:
     def substep1(self, x, v, p, w, mode_re, mode_im):
         if x.device.type == "cpu":
             return self.substep1_plain(x, v, p, w, mode_re, mode_im)
-        prm, lib = self._prepare(dict(x=x, v=v, p=p, w=w), (mode_re, mode_im))
+        prm, lib, grid = self._prepare(dict(x=x, v=v, p=p, w=w), (mode_re, mode_im))
         w1 = torch.empty_like(w, dtype=p.dtype) if self.has_w else None
         v1 = torch.empty_like(v) if self.layout == NONLINEAR else None
-        partials = self._partials(x)
+        sums = self._sums(x, grid)
         rc = getattr(lib, f"pic1dp_substep1_{self._suffix}")(
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
-            *_pointers(x, v, p, w, mode_re, mode_im, w1, v1, partials),
-            partials.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
+            *_pointers(x, v, p, w, mode_re, mode_im, w1, v1, sums, sums[grid], self._done[0],
+                       self.angles),
+            self._angle_smem, grid, torch.cuda.current_stream(x.device).cuda_stream)
         self.counters[0].launched(rc, lib)
-        proj = partials.sum(0)
-        return w1, v1, (proj[0], proj[1])
+        return w1, v1, (sums[grid, 0], sums[grid, 1])
 
     def substep2(self, x, v, p, w, w1, v1, mode_re1, mode_im1, mode_re0=None, mode_im0=None):
         if x.device.type == "cpu":
@@ -376,25 +465,35 @@ class FusedSubsteps:
         if self.layout == FULLF:
             self._need_step_start_modes(mode_re0, mode_im0)
             modes += (mode_re0, mode_im0)
-        prm, lib = self._prepare(streams, modes)
-        partials = self._partials(x)
+        prm, lib, grid = self._prepare(streams, modes)
+        sums = self._sums(x, grid)
         full = self.layout == FULLF
         rc = getattr(lib, f"pic1dp_substep2_{self._suffix}")(
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
             *_pointers(x, v, p, w, streams.get("w1"), streams.get("v1"), mode_re1, mode_im1,
-                       partials, mode_re0 if full else None, mode_im0 if full else None),
-            partials.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
+                       mode_re0 if full else None, mode_im0 if full else None,
+                       sums, sums[grid], self._done[1], self.angles),
+            self._angle_smem, grid, torch.cuda.current_stream(x.device).cuda_stream)
         self.counters[1].launched(rc, lib)
-        proj = partials.sum(0)
-        return x, v, w, (proj[0], proj[1])
+        return x, v, w, (sums[grid, 0], sums[grid, 1])
 
-    def _partials(self, x):
-        return torch.empty((launch_grid(x.device), 2, self.cfg.nmode),
-                           dtype=x.dtype, device=x.device)
+    def _sums(self, x, grid: int):
+        """One buffer of grid + 1 rows of (2, nmode): the blocks' partial
+        sums, then the projections the last block writes."""
+        return torch.empty((grid + 1, 2, self.cfg.nmode), dtype=x.dtype, device=x.device)
+
+    def check_scratch(self, device: torch.device) -> None:
+        """Refuse a launch on `device` unless the angle table and the
+        counters lie there."""
+        for name, t in (("angle table", self.angles), ("counters", self._done)):
+            if t.device != device:
+                raise ValueError(f"the substep kernels' {name} lies on {t.device}, the "
+                                 f"streams on {device}: build FusedSubsteps with species "
+                                 f"parameters on the streams' device")
 
     def _prepare(self, streams: dict, modes):
         """Check what the kernel is given; return its constants (n set to
-        the markers per species) and the library."""
+        the markers per species), the library and the grid."""
         x = streams["x"]
         if self._unsupported is not None:
             raise NotImplementedError(str(self._unsupported))
@@ -414,8 +513,10 @@ class FusedSubsteps:
             raise ValueError(f"mode components must be ({self.cfg.nmode},)")
         if x.device.type != "cuda":
             raise ValueError(f"no substep kernel for device {x.device}")
+        self.check_scratch(x.device)
         self._params.n = x.shape[-1]
-        return self._params, library()
+        grid = launch_grid(x.numel(), self._vec, nvcc.sm_count(x.device), self.blocks_per_sm)
+        return self._params, library(), grid
 
 
 def _pointers(*tensors):

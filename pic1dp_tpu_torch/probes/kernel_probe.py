@@ -11,7 +11,10 @@ Port of bench/kernel_probe.py.  It times
      substep patterns, 4r+2w (substep 1 writes w1 and v1 to fresh buffers)
      and 6r+3w with x, v, w overwritten;
   3. the compute overhang: kernel time minus the time its bytes take at the
-     ceiling rate of its pattern (:217-220).
+     ceiling rate of its pattern (:217-220);
+  4. on cuda, the substep kernels again with their grid capped at each of
+     SWEEP_BLOCKS_PER_SM blocks per SM (the sweep that chose
+     substep_kernels.BLOCKS_PER_SM).
 
 GB/s counts the streams' bytes only, (reads + writes) * bytes * n.  Timing
 is CUDA events after a warm-up (the TPU probe's scan-slope method existed
@@ -46,10 +49,13 @@ PORT_PATTERNS = (
 # bytes per marker of one call: substep 1 reads x v p w, writes w1 v1;
 # substep 2 reads x v p w w1 v1, writes x v w.  bf16_weights narrows p, w1.
 SUBSTEP_BYTES = {"f32": (24, 36), "bf16": (20, 32)}
+SWEEP_BLOCKS_PER_SM = (2, 4, 8, 16)
 
 
-def substep_rows(n: int, device: torch.device, bf16: bool) -> tuple[Row, Row]:
-    """ms per call of both substeps at n markers, nx 1024, one mode."""
+def substep_rows(n: int, device: torch.device, bf16: bool,
+                 blocks_per_sm: int | None = None) -> tuple[Row, Row]:
+    """ms per call of both substeps at n markers, nx 1024, one mode (with
+    the grid capped at blocks_per_sm blocks per SM where given)."""
     cfg = bump_on_tail_default(nx=1024, nparticle_max=n, dtype="float32",
                                bf16_weights=bf16, verbosity=0)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -61,12 +67,16 @@ def substep_rows(n: int, device: torch.device, bf16: bool) -> tuple[Row, Row]:
     mre = torch.tensor([1e-4], device=device)
     mim = torch.tensor([5e-5], device=device)
     subs = FusedSubsteps(cfg, dist.SpeciesParams.from_config(cfg, torch.float32, device))
+    if blocks_per_sm is not None:
+        subs.blocks_per_sm = blocks_per_sm
     w1, v1, _ = subs.substep1(x, v, p, w, mre, mim)
     t1 = time_ms(lambda: subs.substep1(x, v, p, w, mre, mim), device)
     t2 = time_ms(lambda: subs.substep2(x, v, p, w, w1, v1, mre, mim), device)
     name = "bf16" if bf16 else "f32"
+    tag = "" if blocks_per_sm is None else f" B={blocks_per_sm}"
     b1, b2 = SUBSTEP_BYTES[name]
-    return Row(f"{name} substep1", t1, b1 * n), Row(f"{name} substep2", t2, b2 * n)
+    return (Row(f"{name} substep1{tag}", t1, b1 * n),
+            Row(f"{name} substep2{tag}", t2, b2 * n))
 
 
 def stream_row(label: str, n_read: int, n_write: int, alias, n: int,
@@ -100,6 +110,14 @@ def run(n: int, device: torch.device, say=print) -> dict[str, Row]:
             k, c = rows[f"{name} substep{ss}"], rows[pattern]
             parts.append(f"ss{ss}: {k.ms - k.bytes / (c.gbs * 1e6):+.4f} ms")
         say(f"{name:<5} " + "   ".join(parts))
+    if device.type != "cuda":
+        return rows          # the plain versions have no grid
+    say("-- substep kernels with the grid capped at B blocks per SM --")
+    for bf16 in (False, True):
+        for b in SWEEP_BLOCKS_PER_SM:
+            for row in substep_rows(n, device, bf16, b):
+                rows[row.label] = row
+                say(line(row, device))
     return rows
 
 

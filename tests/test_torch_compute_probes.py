@@ -331,7 +331,7 @@ def test_build_hash_covers_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(REPO / "pic1dp_tpu_torch" / "csrc", csrc)
     src = csrc / "stream_probes.cu"
-    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["substep_math.cuh"]
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["bulk_copy.cuh", "substep_math.cuh"]
     first = nvcc.build_hash(src)
     assert first == nvcc.build_hash(REPO / "pic1dp_tpu_torch" / "csrc" / "stream_probes.cu")
     header = csrc / "substep_math.cuh"
@@ -342,5 +342,8 @@ def test_build_hash_covers_headers(tmp_path):
     assert changed != first
     assert nvcc.build_hash(csrc / "substep_kernels.cu") != nvcc.build_hash(
         REPO / "pic1dp_tpu_torch" / "csrc" / "substep_kernels.cu")
+    (csrc / "bulk_copy.cuh").write_text((csrc / "bulk_copy.cuh").read_text() + "\n")
+    edited = nvcc.build_hash(src)
+    assert edited not in (first, changed)
     (csrc / "extra.cuh").write_text("// another header\n")
-    assert nvcc.build_hash(src) not in (first, changed)
+    assert nvcc.build_hash(src) not in (first, changed, edited)

@@ -150,12 +150,13 @@ def test_plain_substeps_match_pallas_interpret(name, dtype):
                 dtype != "float64" and name in _PAIR_SCALE_F32)
 
 
-def _kernel_model(prm, layout, x, v, p, w, modes, substep, w1=None, v1=None):
+def _kernel_model(prm, table, layout, x, v, p, w, modes, substep, w1=None, v1=None):
     """The arithmetic of csrc/substep_kernels.cu in every layout, in numpy
-    float64 on (ns, n) arrays, driven by the SubstepParams the
-    wrapper passes: integer-reduced grid angles with the hat fold, the
-    reciprocal wrap, each species' host-folded -f0'/f0 and dt q/m.  `modes`
-    is (re, im) in substep 1, (re1, im1, re0, im0) in substep 2."""
+    float64 on (ns, n) arrays, driven by the SubstepParams and the angle
+    table (nmode, nx, 2) the wrapper passes: the (cos, sin) of each marker's
+    cell gathered from the table with the hat fold, the reciprocal wrap,
+    each species' host-folded -f0'/f0 and dt q/m.  `modes` is (re, im) in
+    substep 1, (re1, im1, re0, im0) in substep 2."""
     nm, nx = prm.nmode, prm.nx
     ns = x.shape[0]
 
@@ -172,9 +173,7 @@ def _kernel_model(prm, layout, x, v, p, w, modes, substep, w1=None, v1=None):
         ix0 = np.clip(fl.astype(np.int64), 0, nx - 1)
         out = []
         for j in range(nm):
-            k = (prm.modes[j] * ix0) % nx
-            t = 2.0 * np.where(2 * k > nx, k - nx, k) / nx
-            sn, cs = np.sin(np.pi * t), np.cos(np.pi * t)
+            cs, sn = table[j, ix0, 0], table[j, ix0, 1]
             a, b = 1.0 + f * prm.cdm1[j], f * prm.sd[j]
             out.append((cs * a - sn * b, sn * a + cs * b))
         return out
@@ -230,20 +229,22 @@ def _kernel_model(prm, layout, x, v, p, w, modes, substep, w1=None, v1=None):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_kernel_arithmetic_matches_plain(name):
-    """What the CUDA kernels compute, from the constants they are given,
-    equals the plain versions in float64 for each layout (the kernels' own
+    """What the CUDA kernels compute, from the constants and the angle
+    table they are given, equals the plain versions in float64 for each
+    layout (the kernels' own
     float64 build is held to the plain version on the card by
     chip_smoke.py)."""
     jcfg, tcfg = _configs(name, "float64")
     ts = to_port(_state(jcfg))
     subs = _substeps(tcfg)
     prm = sk.kernel_params(tcfg)
+    table = host(subs.angles)
     lay = sk.layout(tcfg)
     a = {k: host(getattr(ts, k)) for k in ("x", "v", "p", "w")}
     mre, mim = host(ts.mode_re), host(ts.mode_im)
 
     w1, v1, (pc1, ps1) = subs.substep1_plain(ts.x, ts.v, ts.p, ts.w, ts.mode_re, ts.mode_im)
-    mw1, mv1, (mpc1, mps1) = _kernel_model(prm, lay, a["x"], a["v"], a["p"], a["w"],
+    mw1, mv1, (mpc1, mps1) = _kernel_model(prm, table, lay, a["x"], a["v"], a["p"], a["w"],
                                            (mre, mim), substep=1)
     for label, got, want in (("w1", mw1, w1), ("v1", mv1, v1)):
         assert (got is None) == (want is None), label
@@ -253,7 +254,7 @@ def test_kernel_arithmetic_matches_plain(name):
 
     mre1, mim1 = -host(ps1) * 0.3, -host(pc1) * 0.3   # any midpoint modes
     mx2, mv2, mw2, (mpc2, mps2) = _kernel_model(
-        prm, lay, a["x"], a["v"], a["p"], a["w"], (mre1, mim1, mre, mim), substep=2,
+        prm, table, lay, a["x"], a["v"], a["p"], a["w"], (mre1, mim1, mre, mim), substep=2,
         w1=None if w1 is None else host(w1), v1=None if v1 is None else host(v1))
     x2, v2, w2, (pc2, ps2) = subs.substep2_plain(
         ts.x, ts.v, ts.p, ts.w, w1, v1, torch.from_numpy(mre1), torch.from_numpy(mim1),
