@@ -30,7 +30,18 @@ first failed check.  Phases, each printed:
      kernels by name must equal the counters, then the kernel, pipeline, compute, overlap and
      pingpong probes at 2^26, each with the stream kernels' counts set to 0
      just before it
-  5. timing: ms per call of each substep, unit and carry kernel and its
+  5. the rest of the single-device run surface, each path with the substep
+     kernels' counts set to 0 just before it and read just after: the
+     full-spectrum rho of diag_full_rho against the kept-mode rho and the
+     time of a snapshot with and without it; the EXPLICIT grid path against
+     the matrix-free kernels (f32 at full width, f64 at 2^16 markers) and its
+     ms/step; the multirand loader at full width with the native engine
+     against a Python-oracle draw, and 20 steps from its state; a checkpoint
+     at t = 5 resumed to t = 10 against the uninterrupted run, bit for bit,
+     in f32 and bf16_weights; a run with a merge/remove/merge/split schedule
+     at 2^21 markers to t = 75 (live counts around each event, gamma over
+     the linear window, two kernel launches per step at the event steps too)
+  6. timing: ms per call of each substep, unit and carry kernel and its
      plain version (for each substep its bound, share, V, B and where the
      angle table sat), and ms/step of the plain, the eager kernel and the CUDA
      graph Stepper at the main path's shape and at bench.py's headline
@@ -80,6 +91,12 @@ PROFILER_TRIES = 3                   # profiled runs of a case at most
 SEED = 20261016
 # the card's rates for bound_ms: NVIDIA's H100 SXM data sheet
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+FULL_RHO_TOL = 1e-4                  # tests/test_tools.py:189-193, in f32
+EXPLICIT_F64_N = 2**16
+MULTIRAND_RANKS = 640                # blocks of 10,000 markers for the oracle check
+CHECKPOINT_T = (5.0, 10.0)           # save at, run to
+OPT_N, OPT_TIME_MAX = 2**21, 75.0    # bench/opt_onchip.py's width
+OPT_GAMMA_WINDOW = (25.0, 48.0)      # before the first event, as bench/opt_onchip.py fits
 
 
 # ---- the reference's verification cases, at the widths of its examples
@@ -896,6 +913,291 @@ def probes_path() -> tuple[dict, dict]:
     return launches, rows
 
 
+def zero_substep_counts() -> None:
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+
+    for k in sk.KERNELS:
+        k.launches = 0
+
+
+def substep_counts() -> dict:
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+
+    return {k.name: k.launches for k in sk.KERNELS if k.launches}
+
+
+def full_rho_phase(cfg) -> None:
+    """diag_full_rho at the main shape: the full-spectrum rho's mode-1
+    projection is the kept-mode rho (tests/test_tools.py:189-193), and what a
+    snapshot costs with and without the flag."""
+    from pic1dp_tpu_torch import Simulation
+
+    zero_substep_counts()
+    ms = {}
+    with tempfile.TemporaryDirectory() as out:
+        for flag in (False, True):
+            sim = Simulation(dataclasses.replace(cfg, diag_full_rho=flag),
+                             out_path=os.path.join(out, str(flag)), device="cuda")
+            sim.load()
+            sim.state = sim.stepper.multi_step(sim.state, 20)
+            sim.output_snapshot()                       # warm-up
+            torch.cuda.synchronize()
+            ms[flag] = _events_ms(sim.output_snapshot, 5)
+            sim.writer.close()
+        deposit_ms = _events_ms(lambda: sim.stepper.full_rho(sim.state), 10)
+    full, kept = sim.stepper.full_rho(sim.state).double(), sim.state.rho.double()
+    k1 = torch.exp(2j * np.pi * torch.arange(cfg.nx, device="cuda") / cfg.nx)
+    proj = 2.0 * (torch.mean(full * k1.conj()) * k1).real
+    err = float((proj - kept).abs().max() / kept.abs().max())
+    other = float((full - kept).abs().max() / kept.abs().max())
+    say(f"[5 full rho] n={cfg.nparticle_max} nx={cfg.nx}: mode-1 projection of full_rho "
+        f"against the kept-mode rho {err:.3e} of max (limit {FULL_RHO_TOL:g}); full rho "
+        f"differs from it by {other:.3e} of max (the other modes' marker noise); launches "
+        f"{substep_counts()}")
+    check(err <= FULL_RHO_TOL, "full rho's mode-1 projection equals the kept-mode rho")
+    check(other > 10 * FULL_RHO_TOL, "full rho holds more than the kept mode")
+    check(tuple(full.shape) == (cfg.nx,) and bool(torch.isfinite(full).all()), "full rho finite")
+    say(f"[5 full rho] one snapshot (energies, x-v histograms, host copy, write): "
+        f"{ms[False]:.3f} ms without diag_full_rho, {ms[True]:.3f} ms with; full_rho alone "
+        f"{deposit_ms:.3f} ms")
+
+
+def explicit_phase(cfg) -> None:
+    """The EXPLICIT grid path against the matrix-free kernels from one
+    state: 5 steps in f32 at cfg's shape within the f32 bounds, in f64 at
+    EXPLICIT_F64_N markers within 1e-12; ms/step of the grid path."""
+    from pic1dp_tpu_torch.config import ParticleShape
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+
+    small = dataclasses.replace(cfg, dtype="float64", nparticle_max=EXPLICIT_F64_N)
+    for c in (cfg, small):
+        zero_substep_counts()
+        kern = Stepper(c, "cuda")
+        grid = Stepper(dataclasses.replace(c, shape=ParticleShape.EXPLICIT), "cuda")
+        raw = load_particles(c, "cuda")
+        a, b = kern.initial_field(raw.clone()), grid.initial_field(raw.clone())
+        a, b = kern.multi_step(a, 5), grid.multi_step(b, 5)
+        torch.cuda.synchronize()
+        check(substep_counts() == {k.name: 5 for k in kern.substeps.counters},
+              "5 kernel steps beside 5 grid steps, which launch no kernel")
+        if c.dtype == "float32":
+            errs = dict(x=periodic_err(b.x, a.x, c.lx), v=abs_err(b.v, a.v), w=rel_err(b.w, a.w))
+            limits = F32_TOL
+        else:
+            errs = {f: rel_err(getattr(b, f), getattr(a, f))
+                    for f in ("v", "w", "mode_re", "mode_im", "electric")}
+            errs["x"] = periodic_err(b.x, a.x, c.lx) / c.lx
+            limits = dict.fromkeys(errs, F64_TOL)
+        say(f"[5 explicit] {c.dtype} n={c.nparticle_max}: 5 grid-path steps against 5 kernel "
+            f"steps: " + ", ".join(f"{k} {v:.3e} (limit {limits[k]:g})" for k, v in errs.items()))
+        for k, v in errs.items():
+            check(v <= limits[k], f"EXPLICIT {c.dtype} {k} within {limits[k]}")
+        check(bool(torch.isfinite(b.w).all() and torch.isfinite(b.electric).all()),
+              "EXPLICIT state finite")
+        box = [b]
+
+        def one():
+            box[0] = grid.step(box[0])
+
+        ms = _events_ms(one, 10)
+        say(f"[5 explicit] {c.dtype} n={c.nparticle_max} nx={c.nx}: {ms:.4f} ms/step (eager "
+            f"steps, index_add_ deposit)")
+        del a, b, box, raw
+
+
+def multirand_phase(cfg) -> None:
+    """The main case loaded by the multirand backend with the native engine:
+    the load's time, the markers of the first and the last rank block of a
+    MULTIRAND_RANKS-rank load and the first velocities of the one-rank load
+    against the Python oracle's draws, then 20 kernel steps."""
+    from pic1dp_tpu_torch.config import RngConfig
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+    from pic1dp_tpu_torch.rng import native
+    from pic1dp_tpu_torch.rng.multirand import MultiRand
+
+    check(native.available(), f"native multirand engine built: {native.build_error()}")
+    cfg = dataclasses.replace(cfg, rng=RngConfig(backend="multirand"))
+    rc, n = cfg.rng, cfg.nparticle_max
+    start = time.perf_counter()
+    state = load_particles(cfg, "cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    say(f"[5 multirand] {n} markers ({2 * n} draws, native engine "
+        f"{native.library_path().name}) loaded in {seconds:.3f} s")
+
+    def oracle(mype: int, count: int):
+        eng = MultiRand(algorithm=rc.algorithm, seed_type=rc.seed_type, mype=mype,
+                        warmup=rc.warmup)
+        v = (eng.real_array(count) - 0.5) * 2.0 * cfg.v_max
+        return v, eng.real_array(count) * cfg.lx
+
+    def same(t, a) -> bool:
+        return torch.equal(t.cpu(), torch.from_numpy(a).to(t.dtype))
+
+    v0, _ = oracle(0, 10_000)
+    check(same(state.v[0, :10_000], v0), "one-rank load: first 10,000 v equal the oracle's")
+    ranked = load_particles(cfg, "cuda", emulate_ranks=MULTIRAND_RANKS)
+    block = n // MULTIRAND_RANKS
+    check(n % MULTIRAND_RANKS == 0, "equal rank blocks")
+    for mype, sl in ((0, slice(0, block)), (MULTIRAND_RANKS - 1, slice(n - block, n))):
+        v, x = oracle(mype, block)
+        check(same(ranked.v[0, sl], v) and same(ranked.x[0, sl], x),
+              f"{MULTIRAND_RANKS}-rank load: rank {mype}'s x and v equal the oracle's")
+    say(f"[5 multirand] first 10,000 v of the one-rank load and the first and last "
+        f"{block}-marker blocks (x and v) of a {MULTIRAND_RANKS}-rank load equal the Python "
+        f"oracle's draws bit for bit")
+    del ranked
+    zero_substep_counts()
+    st = Stepper(cfg, "cuda")
+    state = st.multi_step(st.initial_field(state), 20)
+    torch.cuda.synchronize()
+    ok = all(bool(torch.isfinite(getattr(state, f)).all()) for f in ("x", "v", "w", "electric"))
+    say(f"[5 multirand] 20 steps from the multirand state: finite {ok}; launches "
+        f"{substep_counts()}")
+    check(ok, "20 steps from the multirand state finite")
+    check(substep_counts() == {k.name: 20 for k in st.substeps.counters},
+          "20 steps, one launch of each kernel per step")
+
+
+def checkpoint_phase(cfg) -> None:
+    """cfg to CHECKPOINT_T[0], save_checkpoint, a fresh Simulation restores
+    and runs to CHECKPOINT_T[1]: bit for bit the uninterrupted run."""
+    from pic1dp_tpu_torch import Simulation
+
+    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+    t_save, t_end = CHECKPOINT_T
+    zero_substep_counts()
+    whole = Simulation(dataclasses.replace(cfg, time_max=t_end), device="cuda")
+    whole.run()
+    first = Simulation(dataclasses.replace(cfg, time_max=t_save), device="cuda")
+    first.run()
+    with tempfile.TemporaryDirectory() as out:
+        start = time.perf_counter()
+        path = first.save_checkpoint(os.path.join(out, "checkpoint.npz"))
+        seconds = time.perf_counter() - start
+        size = os.path.getsize(path)
+        rest = Simulation(dataclasses.replace(cfg, time_max=t_end), device="cuda")
+        start = time.perf_counter()
+        rest.restore_checkpoint(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - start
+    check(rest.itime == first.itime and rest.state.p.dtype == getattr(torch, cfg.p_dtype),
+          f"{label} restored step count and p dtype")
+    same = {f: torch.equal(getattr(rest.state, f), getattr(first.state, f))
+            for f in ("x", "v", "p", "w", "live", "electric", "rho", "mode_re", "mode_im")}
+    check(all(same.values()), f"{label} restored state bit-equal to the saved one: {same}")
+    rest.run()
+    torch.cuda.synchronize()
+    same = {f: torch.equal(getattr(rest.state, f), getattr(whole.state, f))
+            for f in ("x", "v", "w", "electric")}
+    steps = whole.itime + first.itime + (rest.itime - first.itime)
+    say(f"[5 checkpoint] {label} n={cfg.nparticle_max}: saved at t={first.time:.2f} "
+        f"({size} bytes in {seconds:.3f} s, restored in {restore_s:.3f} s), resumed to "
+        f"t={rest.time:.2f}: bitwise equal to the uninterrupted run {same}; launches "
+        f"{substep_counts()}")
+    check(rest.itime == whole.itime and all(same.values()),
+          f"{label} resume = uninterrupted run bit for bit")
+    check(substep_counts() == {k.name: steps for k in whole.stepper.substeps.counters},
+          f"{label}: one launch of each kernel per step of the three runs")
+
+
+def optimization_cfg():
+    """bench/opt_onchip.py's schedule at its own width: merge at 50 and 62,
+    importance-sampling remove at 56, split at 68."""
+    from pic1dp_tpu_torch.config import OptimizationConfig, bump_on_tail_default
+
+    return bump_on_tail_default(
+        nparticle_max=OPT_N, time_max=OPT_TIME_MAX, output_interval=1.0, verbosity=0,
+        optimization=OptimizationConfig(
+            tmerge=(50.0, 62.0), thshmerge=(0.05, 0.1), tremove=(56.0,), typeremove=2,
+            thshremove=(), tsplit=(68.0,), thshsplit=(0.9,), split_ngroup=2,
+            split_dv_sig_frac=0.1))
+
+
+def optimization_run(cfg):
+    """Simulation.run of cfg with the live counts taken around each step
+    that optimizes; returns the simulation, the events, the snapshots and
+    the launch counts."""
+    from pic1dp_tpu_torch import Simulation
+
+    sim = Simulation(cfg, device="cuda")
+    events, snaps = [], []
+    step_once = sim.step_once
+
+    def counted_step_once():
+        due = sim._optimization_due()
+        ops = [name for name, d in zip(("merge", "remove", "split"), due) if d is not None]
+        before = int(sim.state.nparticles().sum()) if ops else None
+        start = time.perf_counter()
+        step_once()
+        if ops:
+            after = int(sim.state.nparticles().sum())     # waits for the device
+            events.append(dict(time=round(sim.time, 6), ops=ops, n_before=before,
+                               n_after=after, seconds=time.perf_counter() - start))
+
+    sim.step_once = counted_step_once
+    zero_substep_counts()
+    start = time.perf_counter()
+    sim.run(snapshot_callback=snaps.append)
+    torch.cuda.synchronize()
+    return sim, events, snaps, substep_counts(), time.perf_counter() - start
+
+
+def optimization_phase() -> None:
+    """The merge/remove/merge/split schedule through Simulation.run with the
+    kernels: the events in order, live counts, gamma before the first event,
+    a finite state with the dead-slot invariant, two launches per step at
+    the event steps too; and whether a second run repeats the first."""
+    cfg = optimization_cfg()
+    sim, events, snaps, counts, wall = optimization_run(cfg)
+    for ev in events:
+        say(f"[5 optimization] t={ev['time']:.2f} {'+'.join(ev['ops'])}: live "
+            f"{ev['n_before']} -> {ev['n_after']} ({ev['seconds'] * 1e3:.1f} ms for the step)")
+    check([ev["ops"] for ev in events] == [["merge"], ["remove"], ["merge"], ["split"]],
+          "the four scheduled events ran, in order")
+    check(all(ev["n_after"] > ev["n_before"] if ev["ops"] == ["split"]
+              else ev["n_after"] <= ev["n_before"] for ev in events)
+          and all(ev["n_after"] < ev["n_before"] for ev in events[:2]),
+          "merge and remove lower the live count, split raises it")
+    check(events[-1]["n_after"] <= cfg.nparticle_max, "live count within capacity")
+    t = np.array([q["time"] for q in snaps])
+    e = np.array([q["field_energy"] for q in snaps])
+    gamma = _energy_gamma(t, e, *OPT_GAMMA_WINDOW)
+    rel = abs(gamma - BOT_OMEGA.imag) / BOT_OMEGA.imag
+    steps = round(cfg.time_max / cfg.dt)
+    st = sim.state
+    finite = bool(np.isfinite(e).all()) and all(
+        bool(torch.isfinite(getattr(st, f)).all()) for f in ("x", "v", "p", "w", "electric"))
+    dead = ~st.live
+    say(f"[5 optimization] n={cfg.nparticle_max} to t={sim.time:.2f}: {sim.itime} steps, "
+        f"{len(snaps)} snapshots, wall {wall:.2f} s; gamma over {OPT_GAMMA_WINDOW} "
+        f"{gamma:.5f} vs {BOT_OMEGA.imag:.5f} (rel err {rel:.4f}, limit {GAMMA_REL_TOL}); "
+        f"int E^2 dx at the end {e[-1]:.4e}; all finite {finite}; launches {counts}; "
+        f"timers push pair {sim.timers.seconds('step: push pair'):.3f} s, optimize "
+        f"{sim.timers.seconds('optimize particle'):.3f} s, collect + solve "
+        f"{sim.timers.seconds('step: collect + solve'):.3f} s")
+    check(sim.itime == steps and len(snaps) == round(cfg.time_max / cfg.output_interval) + 1,
+          "optimization run step and snapshot counts")
+    check(finite, "optimization run finite")
+    check(rel <= GAMMA_REL_TOL, "optimization run gamma within 5% of the dispersion root")
+    check(counts == {k.name: steps for k in sim.stepper.substeps.counters},
+          "two kernel launches per step, the four push_pair steps included")
+    check(float(st.p[dead].abs().max()) == 0.0 and float(st.w[dead].abs().max()) == 0.0,
+          "dead-slot invariant after the events")
+    check(int(st.live.sum()) == events[-1]["n_after"], "final live count is the last event's")
+    again, events2, _, _, _ = optimization_run(cfg)
+    same_counts = [ev["n_after"] for ev in events2] == [ev["n_after"] for ev in events]
+    same_state = all(torch.equal(getattr(again.state, f), getattr(st, f))
+                     for f in ("x", "v", "w", "live"))
+    say(f"[5 optimization] a second run: live counts after the events "
+        f"{[ev['n_after'] for ev in events2]}, equal to the first run's {same_counts}; final "
+        f"x, v, w, live bitwise equal {same_state} (the profile is an index_add_ with float "
+        f"atomics: reported, not required)")
+
+
+
 def device_state() -> str:
     """The caching allocator's state and the card's clocks, power and
     temperature, printed beside each timing window."""
@@ -930,7 +1232,7 @@ def time_steppers(cfg, smi: str) -> dict:
 
     kern, plain = Stepper(cfg, "cuda"), Stepper(cfg, "cuda", plain=True)
     state0 = kern.initial_field(load_particles(cfg, "cuda"))
-    say(f"[5 timing] before: {device_state()}")
+    say(f"[6 timing] before: {device_state()}")
     ms = {"plain": [], "eager": [], "graph": []}
     for which in ("plain", "eager", "graph", "graph", "eager", "plain"):
         st = plain if which == "plain" else kern
@@ -949,11 +1251,11 @@ def time_steppers(cfg, smi: str) -> dict:
             ms[which].append(_events_ms(one, TIMING_STEPS))
         check(bool(torch.isfinite(box[0].w).all()), f"{which} timing run finite")
         del box
-    say(f"[5 timing] after: {device_state()}")
+    say(f"[6 timing] after: {device_state()}")
     mean = {w: float(np.mean(v)) for w, v in ms.items()}
     n = cfg.nspecies * cfg.nparticle_max
     label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
-    say(f"[5 timing] n={n} nx={cfg.nx} {label}: "
+    say(f"[6 timing] n={n} nx={cfg.nx} {label}: "
         + "; ".join(f"{w} {mean[w]:.4f} ms/step ({v[0]:.4f}, {v[1]:.4f}) = "
                     f"{n / mean[w] * 1e3:.4e} pushes/s" for w, v in ms.items())
         + f"; card {smi}")
@@ -1022,7 +1324,7 @@ def time_kernels(cfg, inputs=None) -> tuple[dict, dict]:
     grid = sk.launch_grid(n, vec, torch.cuda.get_device_properties(0).multi_processor_count,
                           subs.blocks_per_sm)
     smem = sk.angle_smem_bytes(cfg.nmode, cfg.nx, x.element_size())
-    say(f"[5 timing] {cfg.equilibrium.value} {'bf16_weights' if cfg.bf16_weights else cfg.dtype}"
+    say(f"[6 timing] {cfg.equilibrium.value} {'bf16_weights' if cfg.bf16_weights else cfg.dtype}"
         f" per call at {cfg.nspecies} x {cfg.nparticle_max} markers, nx {cfg.nx}: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()) + "; bound "
         + ", ".join(f"{k} {b:.4f} ms ({by}, {stream_bytes(cfg, ss)} B/marker), share "
@@ -1042,7 +1344,7 @@ def time_stream_plain() -> float:
     fn = lambda: stream_plain(ins, 3, pipeline_probe.ALIAS)   # noqa: E731
     fn()
     ms = _events_ms(fn, 10)
-    say(f"[5 timing] stream_plain 4r+3w aliased n=2^{PROBE_LOG2}: {ms:.4f} ms")
+    say(f"[6 timing] stream_plain 4r+3w aliased n=2^{PROBE_LOG2}: {ms:.4f} ms")
     return ms
 
 
@@ -1070,7 +1372,7 @@ def time_probe_kernels() -> dict:
         out[name] = _events_ms(lambda: fn(ins), 10)
         del ins
     out["stream_bulk_units_plain"] = out["stream_units_plain"]
-    say(f"[5 timing] per call at n=2^{PROBE_LOG2} (trig x4, fresh outputs; carry in "
+    say(f"[6 timing] per call at n=2^{PROBE_LOG2} (trig x4, fresh outputs; carry in "
         f"place): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
     return out
@@ -1121,6 +1423,14 @@ def main() -> int:
             launches[k] = v
     stream_launches, rows = probes_path()
     launches.update(stream_launches)
+
+    full_rho_phase(main_cfg)
+    explicit_phase(main_cfg)
+    multirand_phase(main_cfg)
+    checkpoint_phase(main_cfg)
+    checkpoint_phase(bf16_cfg)
+    optimization_phase()
+    torch.cuda.synchronize()
 
     # each layout's kernels at the shape of each of its verification cases;
     # the kernels line keeps the first shape a kernel was timed at (the main

@@ -10,8 +10,9 @@ The JAX package deposits the x-v histogram as a chunked one-hot contraction
 because the TPU has no fast scatter.  Here it is one index_add_ over the flat
 bins iv * nx_opd + ix, four hat corners per marker.  On CUDA index_add_ adds
 with atomics, so a snapshot's histograms may differ in the last bits from run
-to run; the step itself does not use them.  Not ported yet: the |delta f|(v)
-histogram that drives particle optimization.
+to run; the step itself does not use them.  The |delta f|(v) histogram that
+drives particle optimization (dist_pertb_abs_v) is one index_add_ as well,
+over the flat bins species * nv + iv.
 """
 
 from __future__ import annotations
@@ -133,3 +134,18 @@ def ptcldist(cfg: Config, sp: dist.SpeciesParams, state: SimState) -> PtclDist:
 
     return PtclDist(markr_xv=markr_xv, total_xv=total_xv, pertb_xv=pertb_xv,
                     markr_v=markr_v, total_v=total_v, pertb_v=pertb_v)
+
+
+def dist_pertb_abs_v(v, w, live, v_max: float, nv: int) -> torch.Tensor:
+    """|delta f| deposited on the nv-point velocity grid, per species —
+    drives merge/remove/split (reference particle_compute_dist_pertb_abs_v,
+    src/pic1dp_particle.F90:356-403).  v, w, live: (ns, N) -> (ns, nv).
+    Markers with |v| >= v_max are skipped."""
+    ns = v.shape[0]
+    iv0, iv1, wv0, wv1, inside = hat_v(v, v_max, nv)
+    val = torch.where(live & inside, torch.abs(w), 0.0)
+    row = torch.arange(ns, device=v.device)[:, None] * nv
+    prof = torch.zeros(ns * nv, dtype=val.dtype, device=val.device)
+    prof.index_add_(0, torch.cat([(row + iv0).reshape(-1), (row + iv1).reshape(-1)]),
+                    torch.cat([(wv0 * val).reshape(-1), (wv1 * val).reshape(-1)]))
+    return prof.reshape(ns, nv)

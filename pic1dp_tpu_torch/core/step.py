@@ -1,6 +1,8 @@
-"""The RK2 time step of the matrix-free spectral path (port of
-pic1dp_tpu/core/step.py, `Stepper._step_pallas_body`, and of
-`make_multi_step` as a CUDA graph).
+"""The RK2 time step: gather -> push -> deposit -> spectral solve (port of
+pic1dp_tpu/core/step.py: `Stepper._step_pallas_body` for the matrix-free
+spectral path, `_step_grid` for the EXPLICIT grid path, `make_multi_step` as
+a CUDA graph, and `push_pair` / `collect_and_solve` for the steps at which
+the markers are optimized).
 
 Reference semantics (src/pic1dp.F90:78-109 main loop,
 src/pic1dp_interaction.F90 push/deposit, src/pic1dp_field.F90 solve): per
@@ -17,11 +19,18 @@ reference does; every number of species and every equilibrium runs.
 Under bf16_weights p is stored as bfloat16 and the substeps stream w1 as
 bfloat16; x, v, w and the fields stay float32.
 
-On a CUDA device `multi_step` replays k steps from one CUDA graph, the
-port's counterpart of the reference's k steps in one `lax.scan`.
+On a CUDA device `multi_step` replays k matrix-free steps from one CUDA
+graph, the port's counterpart of the reference's k steps in one `lax.scan`.
 
-Not ported yet: the EXPLICIT grid path, and push_pair with the particle
-optimization it serves.
+The EXPLICIT grid path (cfg.shape = EXPLICIT) is the stored-shape
+cross-check: it assembles the hat-shape matrix at each substep position,
+gathers E from the grid, deposits charge on the grid with index_add_ and
+solves there (ops/gather.py, ops/deposit.py, SpectralOperator.solve).  Its steps
+return new tensors, and `multi_step` runs them as eager steps on every
+device, never from a CUDA graph: index_add_ on CUDA adds with float
+atomics, so two runs of it differ in the last bits and "replay = eager bit
+for bit" could not be held anyway.  Every DepositMethod selects this one
+deposit and one gather; deposit_chunk is ignored.
 """
 
 from __future__ import annotations
@@ -33,9 +42,13 @@ import torch
 from pic1dp_tpu_torch import distributions as dist
 from pic1dp_tpu_torch.config import Config, ParticleShape
 from pic1dp_tpu_torch.core import diagnostics
+from pic1dp_tpu_torch.core import optimize as opt_mod
 from pic1dp_tpu_torch.core.state import SimState, torch_dtype
 from pic1dp_tpu_torch.ops import spectral as spectral_ops
 from pic1dp_tpu_torch.ops import substep_kernels
+from pic1dp_tpu_torch.ops.deposit import deposit
+from pic1dp_tpu_torch.ops.gather import gather
+from pic1dp_tpu_torch.ops.interp import wrap_x
 from pic1dp_tpu_torch.ops.spectral import SpectralOperator
 from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 
@@ -43,10 +56,11 @@ from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 class Stepper:
     """Step functions for a fixed Config on one device.
 
-    On a CUDA device the substeps launch the hand-written kernels; on the
-    CPU they run the kernels' plain PyTorch versions.  `plain=True` runs the
-    plain versions on any device (the reference a CUDA run is held against).
-    A step updates the state's x, v and w in place.
+    On a CUDA device the matrix-free substeps launch the hand-written
+    kernels; on the CPU they run the kernels' plain PyTorch versions.
+    `plain=True` runs the plain versions on any device (the reference a CUDA
+    run is held against).  A matrix-free step (and push_pair) updates the
+    state's x, v and w in place; an EXPLICIT step returns new tensors.
     """
 
     # steps per CUDA graph at most; a longer multi_step replays several
@@ -54,9 +68,6 @@ class Stepper:
 
     def __init__(self, cfg: Config, device: torch.device | str, plain: bool = False):
         cfg.validate()
-        if cfg.shape != ParticleShape.MATRIX_FREE:
-            raise NotImplementedError(
-                "not ported to pic1dp_tpu_torch yet: the EXPLICIT grid path")
         if cfg.bf16_weights and cfg.nspecies > 1 and any(
                 abs(s.v0) > 2.0 * (s.temperature / s.mass) ** 0.5
                 for s in cfg.species):
@@ -72,6 +83,7 @@ class Stepper:
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = torch_dtype(cfg.dtype)
+        self.explicit = cfg.shape == ParticleShape.EXPLICIT
         self.spectral = SpectralOperator.create(cfg.nx, cfg.modes, cfg.lx,
                                                 self.dtype, self.device)
         self.sp = dist.SpeciesParams.from_config(cfg, self.dtype, self.device)
@@ -98,10 +110,89 @@ class Stepper:
             electric=self.spectral.e_grid(mode_re, mode_im),
             mode_re=mode_re, mode_im=mode_im)
 
+    # ---- grid-space pieces ----
+
+    def deposit_charge(self, x, p, w, live) -> torch.Tensor:
+        """Charge density on the grid, every spatial mode (reference
+        interaction_collect_charge, src/pic1dp_interaction.F90:33-155)."""
+        cfg = self.cfg
+        val = w if cfg.deltaf else p.to(self.dtype)
+        val = torch.where(live, val, 0.0) * self.sp.charge
+        rho = deposit(x, val, cfg.lx, cfg.nx) * (cfg.nx / cfg.lx)
+        if not cfg.deltaf:
+            # subtract equilibrium charge density (reference :142-148)
+            rho = rho - torch.sum(self.sp.charge * self.sp.density)
+        return rho
+
+    def full_rho(self, state: SimState) -> torch.Tensor:
+        """The full-spectrum grid charge of a state (the diag_full_rho
+        stream); the state's own rho holds the kept modes only on the
+        matrix-free path."""
+        return self.deposit_charge(state.x, state.p, state.w, state.live)
+
+    def solve_field(self, rho):
+        return self.spectral.solve(rho)
+
+    def _gather(self, x, electric):
+        """E at particle positions (reference MatMult(S, E),
+        src/pic1dp_interaction.F90:213-220)."""
+        return gather(x, electric, self.cfg.lx, self.cfg.nx)
+
+    def _push(self, x, v, p, w, x_bak, v_bak, w_bak, electric, dt_eff):
+        """One RK substep particle push: grid-path gather composed with the
+        update body (_push_math holds the load-bearing ordering)."""
+        e_p = self._gather(x, electric)
+        return self._push_math(e_p, x, v, p, w, x_bak, v_bak, w_bak, dt_eff)
+
+    def _push_math(self, e_p, x, v, p, w, x_bak, v_bak, w_bak, dt_eff):
+        """The push update given the gathered field, in the reference's
+        order x, w, v (src/pic1dp_interaction.F90:238-339)."""
+        cfg, sp = self.cfg, self.sp
+        q_over_m = sp.charge / sp.mass
+        x_new = wrap_x(x_bak + dt_eff * v, cfg.lx)
+        if cfg.deltaf:
+            p = p.to(self.dtype)
+            drive = (p * e_p) if cfg.linear else ((p - w) * e_p)
+            kern = dist.minus_dlnf0_dv(cfg.equilibrium, sp, v)
+            w_new = w_bak + dt_eff * drive * kern * q_over_m
+        else:
+            w_new = w
+        v_new = v if cfg.linear else v_bak + dt_eff * e_p * q_over_m
+        return x_new, v_new, w_new
+
+    def _grid_pushes(self, state: SimState):
+        """Both pushes of a grid-path step and the midpoint field between
+        them: (x2, v2, w2, rho1, e1)."""
+        dt = self.cfg.dt
+        x0, v0, w0, p, live = state.x, state.v, state.w, state.p, state.live
+        # substep 1: half step from (x0, v0, w0)
+        x1, v1, w1 = self._push(x0, v0, p, w0, x0, v0, w0, state.electric, 0.5 * dt)
+        rho1 = self.deposit_charge(x1, p, w1, live)
+        e1, _, _ = self.solve_field(rho1)
+        # substep 2: full step from the same backups, midpoint quantities
+        x2, v2, w2 = self._push(x1, v1, p, w1, x0, v0, w0, e1, dt)
+        return x2, v2, w2, rho1, e1
+
+    def _step_grid(self, state: SimState) -> SimState:
+        """Grid-histogram RK2 step (explicit-shape analogue, cross-check
+        path for iptclshape 1-3, reference src/pic1dp_particle.F90:275-350)."""
+        x2, v2, w2, _, _ = self._grid_pushes(state)
+        rho2 = self.deposit_charge(x2, state.p, w2, state.live)
+        e2, mre, mim = self.solve_field(rho2)
+        return SimState(x=x2, v=v2, p=state.p, w=w2, live=state.live,
+                        rho=rho2, electric=e2, mode_re=mre, mode_im=mim)
+
+    # ---- entry points ----
+
     def initial_field(self, state: SimState) -> SimState:
         """Deposit + solve for the freshly loaded state
         (reference src/pic1dp.F90:70-72)."""
         cfg = self.cfg
+        if self.explicit:
+            rho = self.deposit_charge(state.x, state.p, state.w, state.live)
+            electric, mre, mim = self.solve_field(rho)
+            return SimState(x=state.x, v=state.v, p=state.p, w=state.w, live=state.live,
+                            rho=rho, electric=electric, mode_re=mre, mode_im=mim)
         trig = spectral_ops.mode_trig(state.x, cfg.lx, cfg.nx, cfg.modes)
         val = state.w if cfg.deltaf else state.p.to(self.dtype)
         val = torch.where(state.live, val, 0.0) * self.sp.charge
@@ -109,7 +200,10 @@ class Stepper:
         return self._with_field(state, state.x, state.v, state.w, p_c, p_s)
 
     def step(self, state: SimState) -> SimState:
-        """One full RK2 step; x, v and w are updated in place."""
+        """One full RK2 step; on the matrix-free path x, v and w are updated
+        in place."""
+        if self.explicit:
+            return self._step_grid(state)
         w1, v1, (pc1, ps1) = self._substep1(
             state.x, state.v, state.p, state.w, state.mode_re, state.mode_im)
         mre1, mim1 = self._solve(pc1, ps1)
@@ -118,14 +212,57 @@ class Stepper:
             state.mode_re, state.mode_im)
         return self._with_field(state, x2, v2, w2, pc2, ps2)
 
+    def push_pair(self, state: SimState) -> SimState:
+        """Both RK substeps' pushes WITHOUT the final deposit/solve; used by
+        the optimization path, which runs merge/remove/split after the second
+        push and before the final charge collection (reference
+        src/pic1dp.F90:79-90 with particle_optimize acting on irk == 2).
+
+        Returns the state after substep 2's push with rho and E of the
+        midpoint solve and the step-start modes.  On the matrix-free path
+        these are the step's own two substep calls (on CUDA the two kernels):
+        x, v and w are updated in place, so `state` and the result share
+        them, and the projections that substep 2 deposits at the pushed
+        positions are dropped — collect_and_solve deposits again once the
+        markers have been optimized."""
+        if self.explicit:
+            x2, v2, w2, rho1, e1 = self._grid_pushes(state)
+        else:
+            w1, v1, (pc1, ps1) = self._substep1(
+                state.x, state.v, state.p, state.w, state.mode_re, state.mode_im)
+            mre1, mim1 = self._solve(pc1, ps1)
+            x2, v2, w2, _ = self._substep2(
+                state.x, state.v, state.p, state.w, w1, v1, mre1, mim1,
+                state.mode_re, state.mode_im)
+            rho1 = self.spectral.rho_grid_from_projections(pc1, ps1, self.cfg.lx)
+            e1 = self.spectral.e_grid(mre1, mim1)
+        return SimState(x=x2, v=v2, p=state.p, w=w2, live=state.live, rho=rho1,
+                        electric=e1, mode_re=state.mode_re, mode_im=state.mode_im)
+
+    def collect_and_solve(self, state: SimState) -> SimState:
+        """Final deposit + solve after optimization."""
+        return self.initial_field(state)
+
+    def apply_optimizations(self, state: SimState, generator: torch.Generator,
+                            merge=None, remove=None, split=None) -> SimState:
+        """merge/remove/split at the given thresholds (None: not due), the
+        dice and normals drawn from `generator` on the state's device.  The
+        result holds new x, v, p, w and live tensors."""
+        dice, normals = opt_mod.draw_randoms(self.cfg, state, generator,
+                                             remove=remove is not None,
+                                             split=split is not None)
+        return opt_mod.apply_optimizations(self.cfg, state, dice, normals, merge=merge,
+                                           remove=remove, split=split)
+
     def multi_step(self, state: SimState, k: int) -> SimState:
-        """k steps, queued without a host sync.  On the CPU a loop of steps;
-        on a CUDA device the steps of graph_steps, after a first call of
-        eager steps that loads every kernel the graphs will hold."""
-        if state.x.device.type != "cuda" or not self._warm:
+        """k steps, queued without a host sync.  On the CPU and on the
+        EXPLICIT path a loop of steps; matrix-free on a CUDA device the steps
+        of graph_steps, after a first call of eager steps that loads every
+        kernel the graphs will hold."""
+        if self.explicit or state.x.device.type != "cuda" or not self._warm:
             for _ in range(k):
                 state = self.step(state)
-            self._warm = state.x.device.type == "cuda"
+            self._warm = state.x.device.type == "cuda" and not self.explicit
             return state
         return self.graph_steps(state, k)
 
@@ -141,6 +278,17 @@ class Stepper:
         over this one."""
         if state.x.device.type != "cuda":
             raise ValueError(f"CUDA graphs replay on a CUDA state, not {state.x.device}")
+        if self.explicit:
+            raise ValueError("the EXPLICIT grid path runs eager steps, not CUDA graphs")
+        # A graph holds addresses, not data: a replay reads and writes
+        # whatever lies at the captured addresses now.  Particle optimization
+        # hands back new tensors; if the allocator gives them other addresses
+        # the comparison below drops the graphs, and if it re-uses every
+        # captured address (same shapes and dtypes, contiguous as
+        # apply_optimizations returns them) the graphs are valid for the new
+        # state as they stand, since they then address exactly its tensors.
+        # The graphs' own temporaries (w1, v1, the partial sums) live in
+        # their private pool, which no other allocation can take.
         buffers = tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in (
             state.x, state.v, state.p, state.w, state.mode_re, state.mode_im,
             state.electric, state.rho))

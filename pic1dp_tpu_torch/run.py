@@ -8,6 +8,15 @@ overrides, on an explicit device:
     python -m pic1dp_tpu_torch.run -s bf16_weights=True      # p and w1 stored as bf16
     python -m pic1dp_tpu_torch.run -p landau --device cpu    # preset, on the CPU
     python -m pic1dp_tpu_torch.run --write-config cfg.json   # dump config and exit
+    python -m pic1dp_tpu_torch.run --checkpoint-interval 50  # checkpoint.npz every 50
+    python -m pic1dp_tpu_torch.run --resume run1/checkpoint.npz -s time_max=200
+    python -m pic1dp_tpu_torch.run -s shape=1                # the EXPLICIT grid path
+    python -m pic1dp_tpu_torch.run -s "rng={'backend': 'multirand'}" --emulate-ranks 4
+
+A schedule of particle optimization (merge/remove/split) is part of the
+config: write one with --write-config, fill in `optimization`, run it with
+-c.  Of the JAX package's command line, --phase-table, --profile, --mesh and
+--distributed are not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +64,15 @@ def main(argv=None) -> int:
                     help="run without writing the science-data stream")
     ap.add_argument("--write-config", metavar="<json file>",
                     help="write the resolved config and exit")
+    ap.add_argument("--checkpoint-interval", type=float, default=None,
+                    metavar="<sim time>",
+                    help="write a checkpoint every so much simulation time")
+    ap.add_argument("--resume", metavar="<checkpoint.npz>",
+                    help="resume from a checkpoint written by a previous run "
+                    "(of this package or of pic1dp_tpu)")
+    ap.add_argument("--emulate-ranks", type=int, default=1, metavar="<npe>",
+                    help="with -s rng=\"{'backend': 'multirand'}\": load "
+                    "markers in the draw order of an npe-rank reference run")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
@@ -83,7 +101,11 @@ def main(argv=None) -> int:
         raise SystemExit(f"device {args.device!r} requested but torch sees no "
                          "CUDA device; pass --device cpu to run on the CPU")
     sim = Simulation(cfg, out_path=None if args.no_output else args.out,
-                     device=device)
+                     checkpoint_interval=args.checkpoint_interval,
+                     checkpoint_path=None if args.no_output else args.out,
+                     emulate_ranks=args.emulate_ranks, device=device)
+    if args.resume:
+        sim.restore_checkpoint(args.resume)
     sim.run()
     return 0
 

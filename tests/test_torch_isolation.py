@@ -37,13 +37,24 @@ def test_port_imports_without_jax_in_a_fresh_process():
             "pic1dp_tpu_torch.ops.stream_probes, pic1dp_tpu_torch.probes.kernel_probe, "
             "pic1dp_tpu_torch.probes.pipeline_probe, pic1dp_tpu_torch.probes.compute_probe, "
             "pic1dp_tpu_torch.probes.overlap_probe, pic1dp_tpu_torch.probes.pingpong_probe, "
-            "pic1dp_tpu_torch.analysis.dispersion; "
+            "pic1dp_tpu_torch.analysis.dispersion, pic1dp_tpu_torch.core.optimize, "
+            "pic1dp_tpu_torch.ops.shape_matrix, pic1dp_tpu_torch.ops.deposit, "
+            "pic1dp_tpu_torch.ops.gather, pic1dp_tpu_torch.rng.multirand, "
+            "pic1dp_tpu_torch.rng.native; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pic1dp_tpu')); "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_new_modules_are_among_the_checked_files():
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"pic1dp_tpu_torch/rng/__init__.py", "pic1dp_tpu_torch/rng/multirand.py",
+            "pic1dp_tpu_torch/rng/native/__init__.py", "pic1dp_tpu_torch/core/optimize.py",
+            "pic1dp_tpu_torch/ops/shape_matrix.py", "pic1dp_tpu_torch/ops/deposit.py",
+            "pic1dp_tpu_torch/ops/gather.py"} <= checked
 
 
 def _no_cuda_env():

@@ -103,6 +103,12 @@ def test_generator_is_used_and_on_the_device():
 
 
 def test_multirand_backend_not_ported():
+    """Once a refusal, now the positive case: the backend loads the same
+    markers whatever generator is passed, and other ones than the
+    generator's."""
     cfg = dataclasses.replace(_bot(tcfg_mod), rng=tcfg_mod.RngConfig(backend="multirand"))
-    with pytest.raises(NotImplementedError, match="multirand"):
-        load_particles(cfg, "cpu")
+    a = load_particles(cfg, "cpu")
+    b = load_particles(cfg, "cpu", generator=torch.Generator().manual_seed(99))
+    assert torch.equal(a.x, b.x) and torch.equal(a.v, b.v)
+    assert host(a.nparticles()).tolist() == [6000]
+    assert not torch.equal(a.x, load_particles(_bot(tcfg_mod), "cpu").x)

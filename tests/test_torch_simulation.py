@@ -12,6 +12,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 from _torch_port import CASES, assert_rel, to_port
 
 from pic1dp_tpu import config as jcfg_mod
@@ -135,10 +136,60 @@ def test_nonfinite_field_energy_raises():
 
 
 def test_optimization_schedule_not_ported():
-    cfg = bot(nparticle_max=1024, optimization=OptimizationConfig(
-        tsplit=(1.0,), thshsplit=(0.1,)))
-    with pytest.raises(NotImplementedError, match="optimization"):
-        Simulation(cfg, device="cpu")
+    """Once a refusal, now the positive case: a schedule is accepted, the
+    split takes place at its time and fills dead slots."""
+    cfg = bot(nx=64, nparticle_max=2048, time_max=0.5, output_interval=0.25, dtype="float64",
+              verbosity=0,
+              species=(dataclasses.replace(tcfg_mod.SpeciesConfig(), nparticle_init=1024),),
+              optimization=OptimizationConfig(tsplit=(0.25,), thshsplit=(0.5,)))
+    sim = Simulation(cfg, device="cpu")
+    sim.run()
+    assert sim._isplit == 1 and sim.itime == 10
+    assert 1024 < int(sim.state.live.sum()) <= 2048
+    assert bool(torch.isfinite(sim.state.w).all())
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["kept_modes", "diag_full_rho"])
+def test_diag_full_rho_matches_jax(flag, tmp_path):
+    """tests/test_tools.py:177-194 through both packages from one JAX-loaded
+    state: rho in the port's pic1dp.out equals the JAX package's within
+    1e-12 of max|rho| at every snapshot, with diag_full_rho on and off; with
+    it on, rho holds every spatial mode and its mode-1 projection is the
+    kept-mode rho."""
+    kw = dict(nx=32, nparticle=8192, time_max=0.5, output_interval=0.25, dtype="float64",
+              verbosity=0, nx_opd=16, nv_opd=16, diag_full_rho=flag)
+    jcfg, tcfg = jcfg_mod.landau_damping(**kw), tcfg_mod.landau_damping(**kw)
+    raw = jax_load(jcfg, jax.random.PRNGKey(0))
+    jsim = JaxSimulation(jcfg, out_path=str(tmp_path / "jax"))
+    jsim.state = jsim.stepper.initial_field(raw)
+    jsim.run()
+    sim = Simulation(tcfg, out_path=str(tmp_path / "torch"), device="cpu")
+    sim.state = sim.stepper.initial_field(to_port(raw))
+    sim.run()
+    a, b = OutputData(str(tmp_path / "torch")), OutputData(str(tmp_path / "jax"))
+    assert a.ntime == b.ntime == 3
+    k1 = np.exp(2j * np.pi * np.arange(32) / 32)
+    for it in range(3):
+        rho_t, rho_j = a.get_field_x(it)[1], b.get_field_x(it)[1]
+        assert_rel(rho_t, rho_j, 1e-12, f"rho at snapshot {it}")
+        kept = sim.state.rho.numpy() if it == 2 else None
+        proj = 2.0 * np.real(np.mean(rho_t[:32] * np.conj(k1)) * k1)
+        if flag:
+            assert not np.allclose(rho_t[:32], proj)
+        else:
+            np.testing.assert_allclose(rho_t[:32], proj, atol=1e-10)
+        if kept is not None:
+            np.testing.assert_allclose(kept, proj, atol=1e-10)
+
+
+def test_diag_full_rho_needs_a_writer():
+    """Without a writer nothing reads the full rho: no deposit is made."""
+    cfg = tcfg_mod.landau_damping(nx=32, nparticle=1024, time_max=0.2, output_interval=0.1,
+                                  dtype="float64", verbosity=0, diag_full_rho=True)
+    sim = Simulation(cfg, device="cpu")
+    sim.load()
+    sim.stepper.full_rho = None   # would raise if called
+    sim.output_snapshot()
 
 
 def test_run_cli_on_cpu(tmp_path):

@@ -124,15 +124,27 @@ def test_graph_steps_refuse_a_cpu_state():
     (dict(shape=tcfg_mod.ParticleShape.EXPLICIT), "EXPLICIT"),
 ], ids=["explicit"])
 def test_unported_paths_raise(change, what):
-    cfg = dataclasses.replace(tcfg_mod.bump_on_tail_default(nparticle_max=1024), **change)
-    with pytest.raises(NotImplementedError, match=what):
-        Stepper(cfg, "cpu")
+    """Once a refusal, now the positive case: the EXPLICIT grid path builds
+    and steps (tests/test_torch_grid.py holds it against the JAX package)."""
+    cfg = dataclasses.replace(tcfg_mod.bump_on_tail_default(nparticle_max=1024,
+                                                            dtype="float64"), **change)
+    stepper = Stepper(cfg, "cpu")
+    assert stepper.explicit, what
+    from pic1dp_tpu_torch.core.loading import load_particles
+
+    state = stepper.step(stepper.initial_field(load_particles(cfg, "cpu")))
+    assert np.isfinite(host(state.w)).all() and np.isfinite(host(state.electric)).all()
 
 
 def test_multirand_loader_not_ported():
+    """Once a refusal, now the positive case: the multirand backend loads
+    (tests/test_torch_multirand.py holds it against the JAX package) and the
+    loaded state steps."""
     from pic1dp_tpu_torch.core.loading import load_particles
 
-    cfg = dataclasses.replace(tcfg_mod.bump_on_tail_default(nparticle_max=1024),
+    cfg = dataclasses.replace(tcfg_mod.bump_on_tail_default(nparticle_max=1024,
+                                                            dtype="float64"),
                               rng=tcfg_mod.RngConfig(backend="multirand"))
-    with pytest.raises(NotImplementedError, match="multirand"):
-        load_particles(cfg, "cpu")
+    stepper = Stepper(cfg, "cpu")
+    state = stepper.step(stepper.initial_field(load_particles(cfg, "cpu")))
+    assert np.isfinite(host(state.w)).all()
