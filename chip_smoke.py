@@ -40,7 +40,11 @@ first failed check.  Phases, each printed:
      at t = 5 resumed to t = 10 against the uninterrupted run, bit for bit,
      in f32 and bf16_weights; a run with a merge/remove/merge/split schedule
      at 2^21 markers to t = 75 (live counts around each event, gamma over
-     the linear window, two kernel launches per step at the event steps too)
+     the linear window, two kernel launches per step at the event steps too),
+     then at that shape both kernels against their plain versions on a
+     loaded state and on the state the events left, push_pair with the
+     kernels against the plain Stepper's, and merge, remove and split on the
+     card against the CPU in float64 with the same dice and normals
   6. timing: ms per call of each substep, unit and carry kernel and its
      plain version (for each substep its bound, share, V, B and where the
      angle table sat), and ms/step of the plain, the eager kernel and the CUDA
@@ -97,6 +101,11 @@ MULTIRAND_RANKS = 640                # blocks of 10,000 markers for the oracle c
 CHECKPOINT_T = (5.0, 10.0)           # save at, run to
 OPT_N, OPT_TIME_MAX = 2**21, 75.0    # bench/opt_onchip.py's width
 OPT_GAMMA_WINDOW = (25.0, 48.0)      # before the first event, as bench/opt_onchip.py fits
+# merge/remove/split on the card against the CPU in float64: live bits that
+# may differ in float64; in float32 the live count's and the sums' bounds
+# (a few markers of 2^21 sit within float32 rounding of a threshold, and one
+# that remove keeps on one side only carries its weight over its importance)
+OPT_F64_FLIPS, OPT_F32_LIVE, OPT_F32_SUM = 2, 5e-4, 1e-3
 
 
 # ---- the reference's verification cases, at the widths of its examples
@@ -1145,11 +1154,112 @@ def optimization_run(cfg):
     return sim, events, snaps, substep_counts(), time.perf_counter() - start
 
 
-def optimization_phase() -> None:
+def compare_push_pair(cfg, state) -> None:
+    """Stepper.push_pair with the kernels against the plain Stepper's on
+    clones of one state on the card, within the f32 bounds (rho and E as the
+    projections: relative to their max)."""
+    from pic1dp_tpu_torch.core.step import Stepper
+
+    a = Stepper(cfg, "cuda").push_pair(state.clone())
+    b = Stepper(cfg, "cuda", plain=True).push_pair(state.clone())
+    torch.cuda.synchronize()
+    errs = dict(x=periodic_err(a.x, b.x, cfg.lx), v=abs_err(a.v, b.v), w=rel_err(a.w, b.w),
+                rho=rel_err(a.rho, b.rho), electric=rel_err(a.electric, b.electric))
+    limits = dict(F32_TOL, rho=F32_TOL["proj"], electric=F32_TOL["proj"])
+    say(f"[5 optimization] push_pair, kernels against plain, n={cfg.nparticle_max} with "
+        f"{int(state.live.sum())} live: "
+        + ", ".join(f"{k} {v:.3e} (limit {limits[k]:g})" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= limits[k], f"push_pair {k} within {limits[k]}")
+    dead = ~state.live
+    check(torch.equal(a.mode_re, state.mode_re) and torch.equal(a.mode_im, state.mode_im)
+          and torch.equal(a.live, state.live) and float(a.w[dead].abs().max()) == 0.0,
+          "push_pair keeps the step-start modes, the live set and w = 0 in dead slots")
+
+
+def _moments(st) -> dict:
+    """Sums over the markers that merge conserves, in float64, each beside
+    the sum of its terms' magnitudes."""
+    x, v, p, w = (getattr(st, f).double().cpu() for f in ("x", "v", "p", "w"))
+    terms = dict(p=p, w=w, wx=w * x, wv=w * v)
+    return {k: (float(t.sum()), float(t.abs().sum())) for k, t in terms.items()}
+
+
+def compare_optimizations(cfg, state) -> None:
+    """merge, remove, split and all three in one call on the card against
+    the CPU in float64, with the same dice and normals, on a state whose live
+    and dead slots are interleaved.  In float64 the card's result is the
+    CPU's: the live masks equal but for OPT_F64_FLIPS markers at most (the
+    profile is summed in another order, so a marker within rounding of a
+    threshold may change sides) and x, v, p, w within 1e-12 of their max
+    everywhere but around such a marker.  In float32 the card's live count
+    and its sums of p, w, w x and w v are held to the CPU's within
+    OPT_F32_LIVE and OPT_F32_SUM."""
+    from pic1dp_tpu_torch.core import optimize as opt
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dice, normals = opt.draw_randoms(cfg, state, gen)
+    o = cfg.optimization
+    ops = dict(merge=dict(merge=o.thshmerge[1]), remove=dict(remove=0.0),
+               split=dict(split=o.thshsplit[0]))
+    ops["merge+remove+split"] = {k: v for d in ops.values() for k, v in d.items()}
+
+    def widened(st, device):
+        return dataclasses.replace(st, **{
+            f: getattr(st, f).to(device=device, dtype=torch.float64)
+            for f in ("x", "v", "p", "w", "rho", "electric", "mode_re", "mode_im")},
+            live=st.live.to(device))
+
+    cpu = widened(state, "cpu")
+    dice64, normals64 = dice.double(), normals.double()
+    for name, kw in ops.items():
+        want = opt.apply_optimizations(cfg, cpu, dice64.cpu(), normals64.cpu(), **kw)
+        got64 = opt.apply_optimizations(cfg, widened(state, "cuda"), dice64, normals64, **kw)
+        got32 = opt.apply_optimizations(cfg, state, dice, normals, **kw)
+        torch.cuda.synchronize()
+        n_want = int(want.live.sum())
+        check(n_want != int(state.live.sum()), f"{name} changes the live count")
+        flips = int((got64.live.cpu() != want.live).sum())
+        errs, off = {}, 0
+        for f in ("x", "v", "p", "w"):
+            a, b = getattr(got64, f).cpu(), getattr(want, f)
+            d = (a - b).abs()
+            if f == "x":
+                d = torch.minimum(d, cfg.lx - d)
+            scale = float(b.abs().max())
+            off = max(off, int((d > F64_TOL * scale).sum()))
+            errs[f] = float(d.max()) / scale
+        say(f"[5 optimization] {name} on the card against the CPU, float64, same dice and "
+            f"normals: live {int(state.live.sum())} -> {int(got64.live.sum())} (CPU {n_want}), "
+            f"{flips} live bits differ, {off} markers beyond {F64_TOL:g} of max; worst "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        check(flips <= OPT_F64_FLIPS and off <= 64 * flips,
+              f"{name} in float64 on the card equals the CPU's")
+        check(got32.p.dtype == state.p.dtype and got32.x.dtype == state.x.dtype
+              and float(got32.p[~got32.live].abs().max()) == 0.0
+              and float(got32.w[~got32.live].abs().max()) == 0.0,
+              f"{name} in float32 keeps the dtypes and the dead-slot invariant")
+        n32 = int(got32.live.sum())
+        m32, m64 = _moments(got32), _moments(want)
+        sums = {k: abs(m32[k][0] - m64[k][0]) / m64[k][1] for k in m64}
+        say(f"[5 optimization] {name} float32 on the card against the float64 CPU: live "
+            f"{n32} vs {n_want} (limit {OPT_F32_LIVE:g} of it); sums relative to the sums of "
+            f"magnitudes: " + ", ".join(f"{k} {v:.3e}" for k, v in sums.items())
+            + f" (limit {OPT_F32_SUM:g})")
+        check(abs(n32 - n_want) <= OPT_F32_LIVE * n_want, f"{name} float32 live count")
+        check(max(sums.values()) <= OPT_F32_SUM, f"{name} float32 sums")
+
+
+def optimization_phase() -> dict:
     """The merge/remove/merge/split schedule through Simulation.run with the
     kernels: the events in order, live counts, gamma before the first event,
     a finite state with the dead-slot invariant, two launches per step at
-    the event steps too; and whether a second run repeats the first."""
+    the event steps too; whether a second run repeats the first; then, at
+    this path's shape, both kernels against their plain versions on a loaded
+    state and on the state the events left (live and dead slots
+    interleaved), push_pair with the kernels against the plain Stepper's,
+    and the three operations on the card against the CPU.  Returns each
+    kernel's largest absolute error."""
     cfg = optimization_cfg()
     sim, events, snaps, counts, wall = optimization_run(cfg)
     for ev in events:
@@ -1195,7 +1305,15 @@ def optimization_phase() -> None:
         f"{[ev['n_after'] for ev in events2]}, equal to the first run's {same_counts}; final "
         f"x, v, w, live bitwise equal {same_state} (the profile is an index_add_ with float "
         f"atomics: reported, not required)")
-
+    del again
+    inputs = _loaded_inputs(cfg)
+    worst = compare_substeps(cfg, OPT_N, F32_TOL, inputs)
+    for name, err in compare_substeps(cfg, OPT_N, F32_TOL,
+                                      (st.x, st.v, st.p, st.w, *inputs[4:])).items():
+        worst[name] = max(worst[name], err)
+    compare_push_pair(cfg, st)
+    compare_optimizations(cfg, st)
+    return worst
 
 
 def device_state() -> str:
@@ -1429,7 +1547,8 @@ def main() -> int:
     multirand_phase(main_cfg)
     checkpoint_phase(main_cfg)
     checkpoint_phase(bf16_cfg)
-    optimization_phase()
+    for name, e in optimization_phase().items():
+        err[name] = max(err[name], e)
     torch.cuda.synchronize()
 
     # each layout's kernels at the shape of each of its verification cases;
