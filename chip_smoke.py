@@ -2,7 +2,8 @@
 
 Drives pic1dp_tpu_torch's main paths — the default bump-on-tail run at its
 full width of 6.4M markers, in f32 and with bf16_weights, through the
-hand-written CUDA substep kernels; the reference's verification cases
+hand-written CUDA substep kernels, in both nonlinear delta-f layouts, with
+32 kept modes and with nine species; the reference's verification cases
 (Landau damping nonlinear and linear, two-stream in delta-f and full-f, two
 species, ion-acoustic) through the substep kernels of their layouts; and
 the five probes through the stream kernels — and checks them.  It imports
@@ -45,11 +46,29 @@ first failed check.  Phases, each printed:
      loaded state and on the state the events left, push_pair with the
      kernels against the plain Stepper's, and merge, remove and split on the
      card against the CPU in float64 with the same dice and normals
+  7. (run after 5, before 6) the substep kernels' last layouts, each path
+     with the substep kernels' counts set to 0 just before it and read just
+     after: the kernels of the nonlinear delta-f layout the main config
+     does not take (substep_kernels.layout) at the main shape in f32 and
+     bf16_weights against their plain versions, both layouts stepped side
+     by side bit for bit, and that layout (PIC1DP_STREAM_V1) through graph
+     = eager and a run to t = 100 against the root; 32 kept modes (the wide
+     bin) at full width against plain in f32 and f64, graph = eager, and a
+     run whose mode 1 grows at the root's rate; 64 modes against plain; nine
+     species (the species table) against plain in f32 and f64, graph =
+     eager, and Landau damping's root; the phase table at the main shape and
+     the headline in both layouts, with the step minus its two kernels and
+     the idle share of a graph replay; and run.py --profile, whose trace
+     holds each substep kernel as often as the counters say
   6. timing: ms per call of each substep, unit and carry kernel and its
      plain version (for each substep its bound, share, V, B and where the
-     angle table sat), and ms/step of the plain, the eager kernel and the CUDA
+     angle table sat), ms/step of the plain, the eager kernel and the CUDA
      graph Stepper at the main path's shape and at bench.py's headline
-     shape (2^26 markers, nx 1024)
+     shape (2^26 markers, nx 1024), and both nonlinear delta-f layouts per
+     call and per graph step in turns on each side of the line that
+     substep_kernels.rebuilds_v1_faster draws: the main shape and the
+     headline in f32 and bf16_weights, 4, 16, 32 and 64 kept modes, the
+     species loop and the cases of 1M markers or fewer
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object on the kernels, and {"ok": true, "device": ...}.
@@ -57,6 +76,7 @@ limit, one JSON object on the kernels, and {"ok": true, "device": ...}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -114,12 +134,7 @@ OPT_F64_FLIPS, OPT_F32_LIVE, OPT_F32_SUM = 2, 5e-4, 1e-3
 # examples/ion_acoustic.py:47-58) ----
 
 def landau_cfg(linear: bool = False, bf16: bool = False):
-    from pic1dp_tpu_torch.config import landau_damping
-
-    return dataclasses.replace(
-        landau_damping(nx=64, nparticle=102_400, k=0.5, amp=1e-4, time_max=20.0,
-                       output_interval=0.1, verbosity=0),
-        linear=linear, bf16_weights=bf16)
+    return dataclasses.replace(landau_damping_cfg(), linear=linear, bf16_weights=bf16)
 
 
 def two_stream_cfg(deltaf: bool = True):
@@ -152,6 +167,33 @@ def ion_acoustic_cfg():
         nx=64, nparticle_max=2**22, time_max=320.0, dt=0.05, marker=MarkerLoading.PHYSICAL,
         v_max=8.0, modes=(1,), init_modes=(1,), init_amp_cos=(0.0,), init_amp_sin=(3e-4,),
         output_interval=1.0, verbosity=0).validate()
+
+
+def nine_species_cfg(dtype: str = "float32", n: int = 102_400):
+    """Landau k = 0.5 (examples/landau_damping.py:21-22) as nine identical
+    electron species of density 1/9, n markers each: the plasma and its
+    dispersion root are the one-species case's."""
+    from pic1dp_tpu_torch.config import SpeciesConfig
+
+    sp = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=1.0 / 9.0, v0=0.0)
+    return dataclasses.replace(
+        landau_damping_cfg(n), species=(sp,) * 9, dtype=dtype).validate()
+
+
+def landau_damping_cfg(n: int = 102_400):
+    from pic1dp_tpu_torch.config import landau_damping
+
+    return landau_damping(nx=64, nparticle=n, k=0.5, amp=1e-4, time_max=20.0,
+                          output_interval=0.1, verbosity=0)
+
+
+def many_modes_cfg(nmode: int, **kw):
+    """The default bump-on-tail case keeping modes 1..nmode, mode 1 alone
+    perturbed at the start."""
+    from pic1dp_tpu_torch.config import bump_on_tail_default
+
+    return bump_on_tail_default(modes=tuple(range(1, nmode + 1)), init_modes=(1,),
+                                verbosity=0, **kw)
 
 
 def pallas_cases(n: int):
@@ -274,17 +316,19 @@ def build() -> None:
                 entries[-1][1].append(ln)
         rest = []
         for entry, lines in entries:
-            if _substep_entry(entry) in ("main", "grid_angle"):
+            if _substep_entry(entry) in ("main", "wide", "grid_angle"):
                 for line in (entry, *lines):
                     say(f"[2 build] {line}")
             else:
                 rest.extend(lines)
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in rest if "Used " in ln]
-        spills = [ln for ln in rest if "spill" in ln and not ln.startswith("0 bytes")]
+        spills = [(entry, ln) for entry, lines in entries for ln in lines
+                  if _substep_entry(entry) not in ("main", "wide", "grid_angle")
+                  and "spill" in ln and not ln.startswith("0 bytes")]
         say(f"[2 build] {built.path.name}: {len(regs)} other kernels, at most "
             f"{max(regs, default=0)} registers; lines with spills: {len(spills)}")
-        for line in spills:
-            say(f"[2 build] {line}")
+        for entry, line in spills:
+            say(f"[2 build] {entry.split('entry function ')[-1]}: {line}")
     sk.library()
     sp.library()
     say(f"[2 build] all libraries built in parallel and loaded in "
@@ -293,14 +337,17 @@ def build() -> None:
 
 def _substep_entry(name: str) -> str | None:
     """What a ptxas entry name is: "main" for a substep kernel of the main
-    path (nonlinear, kSpecies false), "grid_angle", "substep" for another
-    substep kernel, None for another source's kernel."""
+    path (nonlinear, v1 streamed or rebuilt, kSpecies false), "wide" for
+    one of the wide mode bin, "grid_angle", "substep" for another substep
+    kernel, None for another source's kernel."""
     if "grid_angle_kernel" in name:
         return "grid_angle"
-    m = re.search(r"substep[12]_kernelI\w*?Li\d+ELi(\d+)ELb([01])E", name)
+    m = re.search(r"substep[12]_kernelI\w*?Li\d+ELi(\d+)ELb([01])ELb([01])E", name)
     if m is None:
         return None
-    return "main" if m.group(1) == "0" and m.group(2) == "0" else "substep"
+    if m.group(3) == "1":
+        return "wide"
+    return "main" if m.group(1) in ("0", "3") and m.group(2) == "0" else "substep"
 
 
 def substep_counter(kernel_name: str) -> str | None:
@@ -309,7 +356,7 @@ def substep_counter(kernel_name: str) -> str | None:
     __nv_bfloat16, 1, 1, true>") or mangled ("substep1_kernelIf13__nv_...
     Li1ELi1ELb1E"): substep, layout (template argument L) and bf16 storage;
     None for any other kernel."""
-    layouts = {"0": "", "1": "_linear", "2": "_fullf"}
+    layouts = {"0": "", "1": "_linear", "2": "_fullf", "3": "_recompute"}
     m = re.search(r"substep([12])_kernel<([^<>]*)>", kernel_name)
     if m:
         args = [a.strip() for a in m.group(2).split(",")]
@@ -362,18 +409,21 @@ def _loaded_inputs(cfg):
     return st.x, st.v, st.p, st.w, modes, dist.SpeciesParams.from_config(cfg, dtype, "cuda")
 
 
-def compare_substeps(cfg, n: int, tol: dict | None, inputs=None) -> dict:
+def compare_substeps(cfg, n: int, tol: dict | None, inputs=None,
+                     stream_v1: bool | None = None) -> dict:
     """Both kernels and both plain versions on the same inputs (default
     _inputs, one species of n markers); returns each kernel's largest
     absolute error; raises past the tolerance (tol None: F64_TOL relative to
     each field's max).  Under bf16_weights substep 1's w1 is held to one
     bfloat16 ulp per element: the kernel's float w1 may differ from torch's
     by an ulp (FMA contraction), which flips the rounding of a few markers.
-    Streams a layout does not write are compared where they come back."""
+    Streams a layout does not write are compared where they come back.
+    stream_v1 picks the nonlinear delta-f layout (None: the config's own,
+    substep_kernels.layout)."""
     from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 
     x, v, p, w, (mre0, mim0, mre1, mim1), sp = inputs or _inputs(cfg, n, "cuda")
-    subs = FusedSubsteps(cfg, sp)
+    subs = FusedSubsteps(cfg, sp, stream_v1=stream_v1)
     kw1, kv1, kproj1 = subs.substep1(x, v, p, w, mre0, mim0)
     pw1, pv1, pproj1 = subs.substep1_plain(x, v, p, w, mre0, mim0)
     streams = [t.clone() for t in (x, v, w)]
@@ -415,8 +465,8 @@ def compare_substeps(cfg, n: int, tol: dict | None, inputs=None) -> dict:
             rel = ab / max(float(b.double().abs().max()), 1e-300)
             limit = F64_TOL if tol is None else tol[field]
             measured = rel if (tol is None or field in ("w", "proj")) else ab
-            say(f"[3 compare] {cfg.dtype}{'/bf16' if bf16 else ''} n={n} "
-                f"modes={cfg.modes} {name} {field}: "
+            say(f"[3 compare] {cfg.dtype}{'/bf16' if bf16 else ''} n={cfg.nspecies}x{n} "
+                f"nmode={cfg.nmode} {name} {field}: "
                 f"max abs err {ab:.3e}, rel to max {rel:.3e} (limit {limit:g})")
             check(measured <= limit, f"{name} {field} {cfg.dtype} within {limit}")
             errs.append(ab)
@@ -541,7 +591,7 @@ def compare_graph(cfg) -> None:
     fields = ("x", "v", "p", "w", "mode_re", "mode_im", "electric", "rho")
     same = {f: torch.equal(getattr(a, f), getattr(b, f)) for f in fields}
     used = {kk.name for kk in st.substeps.counters}
-    label = f"{sk.layout(cfg)} n={cfg.nspecies}x{cfg.nparticle_max}"
+    label = f"{st.substeps.layout} n={cfg.nspecies}x{cfg.nparticle_max} nmode={cfg.nmode}"
     say(f"[3 compare] CUDA graph {label}: {k} replayed steps against {k} eager steps, "
         f"bitwise equal {same}; counters gained {({n: d for n, d in added.items() if d})}")
     check(all(same.values()), "graph replay bit for bit equal to eager steps")
@@ -772,17 +822,17 @@ def run_case(phase: str, label: str, cfg) -> tuple[list, dict]:
     return snaps, launches
 
 
-def main_path(cfg) -> tuple[dict, float]:
+def main_path(cfg, phase: str = "4 main path") -> tuple[dict, float]:
     """The default case to time_max (run_case); returns the counts and
     gamma against the dispersion root."""
     label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
-    snaps, launches = run_case("4 main path", label, cfg)
+    snaps, launches = run_case(phase, label, cfg)
     t = np.array([q["time"] for q in snaps])
     e = np.array([q["field_energy"] for q in snaps])
     m = (t >= GAMMA_WINDOW[0]) & (t <= GAMMA_WINDOW[1])
     gamma = float(np.polyfit(t[m], np.log(e[m]), 1)[0] / 2.0)
     rel = abs(gamma - BOT_OMEGA.imag) / BOT_OMEGA.imag
-    say(f"[4 main path] {label} gamma {gamma:.5f} vs theory {BOT_OMEGA.imag:.5f}: "
+    say(f"[{phase}] {label} gamma {gamma:.5f} vs theory {BOT_OMEGA.imag:.5f}: "
         f"rel err {rel:.4f} (limit {GAMMA_REL_TOL}); int E^2 dx at t=100: {e[-1]:.4e}")
     check(rel <= GAMMA_REL_TOL, "growth rate within 5% of the dispersion root")
     return launches, gamma
@@ -1380,29 +1430,39 @@ def time_steppers(cfg, smi: str) -> dict:
     return mean
 
 
-def stream_bytes(cfg, substep: int) -> int:
-    """Bytes per marker that a substep kernel must move in cfg's layout:
+def stream_bytes(cfg, substep: int, lay: str) -> int:
+    """Bytes per marker that a substep kernel must move in layout `lay`:
     each stream it reads once and each it writes once (the mode scalars,
     the angle table and the per-block partials are a few KB per call and
     left out)."""
-    from pic1dp_tpu_torch.ops.substep_kernels import FULLF, LINEAR, NONLINEAR, layout
+    from pic1dp_tpu_torch.ops.substep_kernels import FULLF, LINEAR, NONLINEAR, RECOMPUTE
 
     f = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     n = torch.empty((), dtype=getattr(torch, cfg.p_dtype)).element_size()
-    lay = layout(cfg)
     reads = {NONLINEAR: {1: [f, f, n, f], 2: [f, f, n, f, n, f]},
+             RECOMPUTE: {1: [f, f, n, f], 2: [f, f, n, f, n]},
              LINEAR: {1: [f, f, n, f], 2: [f, f, n, f, n]},
              FULLF: {1: [f, f, n], 2: [f, f, n]}}[lay][substep]
-    writes = {NONLINEAR: {1: [n, f], 2: [f, f, f]}, LINEAR: {1: [n], 2: [f, f]},
-              FULLF: {1: [], 2: [f, f]}}[lay][substep]
+    writes = {NONLINEAR: {1: [n, f], 2: [f, f, f]}, RECOMPUTE: {1: [n], 2: [f, f, f]},
+              LINEAR: {1: [n], 2: [f, f]}, FULLF: {1: [], 2: [f, f]}}[lay][substep]
     return sum(reads) + sum(writes)
 
 
-def substep_ops(cfg, substep: int) -> int:
-    """Operations per marker of a substep kernel: the flops and
-    transcendentals of the TPU kernel's cost estimate
-    (pallas_kernels.py:697-702)."""
-    return ((30 + 30 * cfg.nmode) + (2 * cfg.nmode + 1)) * substep
+def substep_ops(cfg, substep: int, lay: str) -> int:
+    """Operations per marker that a substep kernel's CUDA body performs in
+    layout `lay`, an FMA counted as two: each gather of E or deposit at a
+    position takes 4 for its cell and 13 per kept mode (the table entry's
+    fold 9, the sum 4; the angles come from the table, so no transcendental
+    per mode); substep 1's push 32 (one wrap 8, the w update 5, the drive 17,
+    v 2), substep 2's 40 (two wraps), and where substep 2 rebuilds v1 one
+    gather at x0 and 2 more.  The wide bin's repeated pushes are the
+    design's, not the function's, and are not counted."""
+    from pic1dp_tpu_torch.ops.substep_kernels import FULLF, RECOMPUTE
+
+    position = 4 + 13 * cfg.nmode
+    if substep == 1:
+        return 2 * position + 32
+    return 2 * position + 40 + (position + 2 if lay in (FULLF, RECOMPUTE) else 0)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1412,7 +1472,7 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(cfg, inputs=None) -> tuple[dict, dict]:
+def time_kernels(cfg, inputs=None, stream_v1: bool | None = None) -> tuple[dict, dict]:
     """ms per call of each substep kernel of cfg and of its plain version
     at cfg's shape, on the card's clock: calls captured in a CUDA graph and
     replayed (probes.graph_ms), so that a small case is not timed at the
@@ -1425,7 +1485,7 @@ def time_kernels(cfg, inputs=None) -> tuple[dict, dict]:
 
     x, v, p, w, (mre0, mim0, mre1, mim1), sp = inputs or _inputs(
         cfg, cfg.nparticle_max, "cuda")
-    subs = sk.FusedSubsteps(cfg, sp)
+    subs = sk.FusedSubsteps(cfg, sp, stream_v1=stream_v1)
     w1, v1, _ = subs.substep1(x, v, p, w, mre0, mim0)
     k1, k2 = (k.name for k in subs.counters)
     out = {}
@@ -1436,16 +1496,18 @@ def time_kernels(cfg, inputs=None) -> tuple[dict, dict]:
                                                                  mim1, mre0, mim0))):
         out[name] = graph_ms(fn, x.device)
     n = x.numel()
-    bounds = {name: bound(n * stream_bytes(cfg, ss), n * substep_ops(cfg, ss))
+    nbytes = {ss: stream_bytes(cfg, ss, subs.layout) for ss in (1, 2)}
+    bounds = {name: bound(n * nbytes[ss], n * substep_ops(cfg, ss, subs.layout))
               for name, ss in ((k1, 1), (k2, 2))}
     vec = sk.vector_width(cfg.nmode, x.element_size())
     grid = sk.launch_grid(n, vec, torch.cuda.get_device_properties(0).multi_processor_count,
                           subs.blocks_per_sm)
     smem = sk.angle_smem_bytes(cfg.nmode, cfg.nx, x.element_size())
     say(f"[6 timing] {cfg.equilibrium.value} {'bf16_weights' if cfg.bf16_weights else cfg.dtype}"
-        f" per call at {cfg.nspecies} x {cfg.nparticle_max} markers, nx {cfg.nx}: "
+        f" per call at {cfg.nspecies} x {cfg.nparticle_max} markers, nx {cfg.nx}, "
+        f"{cfg.nmode} modes, {subs.layout}: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()) + "; bound "
-        + ", ".join(f"{k} {b:.4f} ms ({by}, {stream_bytes(cfg, ss)} B/marker), share "
+        + ", ".join(f"{k} {b:.4f} ms ({by}, {nbytes[ss]} B/marker), share "
                     f"{b / out[k]:.1%}" for (k, (b, by)), ss in zip(bounds.items(), (1, 2)))
         + f"; V {vec}, B {subs.blocks_per_sm}, grid {grid}, angle table in "
         + (f"shared memory ({smem} B)" if smem else "device memory"))
@@ -1494,6 +1556,264 @@ def time_probe_kernels() -> dict:
         f"place): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
     return out
+
+
+# ---- phase 7: the substep kernels' last layouts, the phase table, the
+# profiler ----
+
+@contextlib.contextmanager
+def stream_v1_env(stream_v1: bool):
+    """PIC1DP_STREAM_V1 set for the block (a Stepper reads it when made)."""
+    old = os.environ.get("PIC1DP_STREAM_V1")
+    os.environ["PIC1DP_STREAM_V1"] = "1" if stream_v1 else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PIC1DP_STREAM_V1"]
+        else:
+            os.environ["PIC1DP_STREAM_V1"] = old
+
+
+def compare_v1_layouts(cfg, k: int = GRAPH_CHECK_STEPS) -> None:
+    """k steps of the recompute layout against k of the streamed layout from
+    one loaded state, every field bit for bit (the JAX package requires as
+    much: tests/test_spectral_path.py:504-528)."""
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+
+    with stream_v1_env(True):
+        streamed = Stepper(cfg, "cuda")
+    with stream_v1_env(False):
+        rebuilt = Stepper(cfg, "cuda")
+    a = streamed.initial_field(load_particles(cfg, "cuda"))
+    b = a.clone()
+    for _ in range(k):
+        a, b = streamed.step(a), rebuilt.step(b)
+    torch.cuda.synchronize()
+    fields = ("x", "v", "w", "mode_re", "mode_im", "electric", "rho")
+    same = {f: torch.equal(getattr(a, f), getattr(b, f)) for f in fields}
+    say(f"[7 layouts] {'bf16_weights' if cfg.bf16_weights else cfg.dtype} "
+        f"{cfg.nspecies}x{cfg.nparticle_max} nmode={cfg.nmode}: {k} recompute steps "
+        f"({[c.name for c in rebuilt.substeps.counters]}) against {k} streamed steps "
+        f"({[c.name for c in streamed.substeps.counters]}): bitwise equal {same}")
+    check(all(same.values()), "recompute layout = streamed layout bit for bit")
+
+
+def v1_layout_phase(main_cfg, bf16_cfg) -> tuple[dict, dict]:
+    """Both nonlinear delta-f layouts at the main shape in f32 and
+    bf16_weights: the kernels of the layout the config does not take
+    (substep_kernels.layout; phase 3 holds the one it takes) against their
+    plain versions (f32 bounds; both layouts in f64 at 1e-12), both layouts
+    stepped side by side bit for bit, and the other layout through graph =
+    eager and its run to t = 100 (main_path: gamma, counts, profiler).
+    Returns the launches of that layout's kernels on its run and their
+    errors."""
+    from pic1dp_tpu_torch.ops.substep_kernels import NONLINEAR, layout
+
+    launches, err = {}, {}
+    for cfg in (main_cfg, bf16_cfg):
+        other = layout(cfg) != NONLINEAR          # stream_v1 of the other layout
+        err.update(compare_substeps(cfg, FULL_N, F32_TOL, stream_v1=other))
+        compare_v1_layouts(cfg)
+        with stream_v1_env(other):
+            compare_graph(cfg)
+            zero_substep_counts()
+            counts, _ = main_path(cfg, "7 layouts")
+        launches.update({k: v for k, v in counts.items() if v})
+    f64 = dataclasses.replace(main_cfg, dtype="float64", nparticle_max=F64_N)
+    for stream_v1 in (True, False):
+        compare_substeps(f64, F64_N, None, stream_v1=stream_v1)
+    return launches, err
+
+
+def many_modes_phase() -> dict:
+    """32 kept modes at the main width in f32 (the wide bin, two passes):
+    the kernels of both nonlinear layouts against their plain versions, in
+    f64 at 2^16 markers at 1e-12, graph = eager, recompute = streamed, and
+    a run to t = 70 whose mode 1 grows at the dispersion root's rate (fit of
+    ln |mode 1| over the linear window); 64 modes kernels against plain.
+    Returns the run's launches."""
+    cfg = many_modes_cfg(32, time_max=GAMMA_WINDOW[1])
+    check(cfg.nmode == 32 and cfg.nparticle_max == FULL_N and cfg.nx == 192,
+          "32 modes at full width")
+    small = dataclasses.replace(cfg, dtype="float64", nparticle_max=2**16)
+    for stream_v1 in (True, False):
+        compare_substeps(cfg, FULL_N, F32_TOL, stream_v1=stream_v1)
+        compare_substeps(small, 2**16, None, stream_v1=stream_v1)
+    compare_graph(cfg)
+    compare_v1_layouts(dataclasses.replace(cfg, nparticle_max=2**20))
+    zero_substep_counts()
+    snaps, launches = run_case("7 modes", "32 kept modes", cfg)
+    t = np.array([q["time"] for q in snaps])
+    amp = np.array([np.hypot(q["mode_re"][0], q["mode_im"][0]) for q in snaps])
+    m = (t >= GAMMA_WINDOW[0]) & (t <= GAMMA_WINDOW[1])
+    gamma = float(np.polyfit(t[m], np.log(amp[m]), 1)[0])
+    rel = abs(gamma - BOT_OMEGA.imag) / BOT_OMEGA.imag
+    top = [int(np.argmax(np.hypot(snaps[-1]["mode_re"], snaps[-1]["mode_im"]))) + 1]
+    say(f"[7 modes] 32 kept modes: mode 1 gamma (ln |mode 1| over {GAMMA_WINDOW}) "
+        f"{gamma:.5f} vs {BOT_OMEGA.imag:.5f}, rel err {rel:.4f} (limit {GAMMA_REL_TOL}); "
+        f"largest mode at the end: {top}")
+    check(rel <= GAMMA_REL_TOL, "32 modes: mode 1's growth within 5% of the root")
+    wide = many_modes_cfg(64)
+    compare_substeps(wide, FULL_N, F32_TOL)
+    compare_substeps(dataclasses.replace(wide, dtype="float64", nparticle_max=2**16), 2**16,
+                     None)
+    return launches
+
+
+def nine_species_phase() -> dict:
+    """Landau k = 0.5 as nine identical species (nine_species_cfg): the
+    kernels against their plain versions in f32 and f64 (species 8 takes its
+    constants from the species table), graph = eager, and Simulation.run
+    to t = 20, gamma from the energy peaks within the example's 5% of the
+    one-species root.  Returns the run's launches."""
+    from pic1dp_tpu_torch.analysis.dispersion import Dispersion, species_for_config
+
+    cfg = nine_species_cfg()
+    compare_substeps(cfg, cfg.nparticle_max, F32_TOL, _loaded_inputs(cfg))
+    small = nine_species_cfg("float64", 2**14)
+    for stream_v1 in (True, False):
+        compare_substeps(small, small.nparticle_max, None, _loaded_inputs(small),
+                         stream_v1=stream_v1)
+    compare_graph(cfg)
+    zero_substep_counts()
+    snaps, launches = run_case("7 species", "nine species", cfg)
+    root = Dispersion(species_for_config(landau_damping_cfg()), 0.5).solve_omega()
+    t = np.array([q["time"] for q in snaps])
+    gamma = _peaks_gamma(t, np.array([q["field_energy"] for q in snaps]), 1.0, 15.0)
+    rel = abs(gamma - root.imag) / abs(root.imag)
+    say(f"[7 species] nine species: gamma (energy peaks, t in [1, 15]) {gamma:.5f} vs the "
+        f"one-species root {root.imag:.5f}, rel err {rel:.4f} (limit 0.05)")
+    check(rel <= 0.05, "nine species gamma within 5% of the root")
+    return launches
+
+
+def idle_share(stepper, state, steps: int) -> tuple[float, float]:
+    """ms/step and the share of the time the card runs no kernel, over one
+    replay of a `steps`-step CUDA graph under torch.profiler (from the
+    first kernel's start to the last one's end)."""
+    stepper.graph_steps(state, steps)                  # captures the graph
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as out:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            stepper.graph_steps(state, steps)
+            torch.cuda.synchronize()
+        path = os.path.join(out, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    spans = sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events
+                   if ev.get("cat") == "kernel" and "dur" in ev)
+    check(len(spans) > 0, "the profiler saw the graph's kernels")
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = spans[-1][1] - spans[0][0]
+    return span / steps * 1e-3, 1.0 - busy / span
+
+
+def phase_table_phase() -> dict:
+    """The phase table (utils/phase_split.py) at the main shape and the
+    headline in f32, in both nonlinear layouts, each with the step minus
+    its two kernels and the idle share of a 50-step graph replay."""
+    from pic1dp_tpu_torch.config import bump_on_tail_default
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+    from pic1dp_tpu_torch.utils.phase_split import format_phase_table, measure_phase_split
+
+    out = {}
+    for label, cfg in (("main", bump_on_tail_default(verbosity=0)),
+                       ("headline", bump_on_tail_default(nparticle_max=BENCH_N, nx=BENCH_NX,
+                                                         verbosity=0))):
+        for stream_v1 in (True, False):
+            with stream_v1_env(stream_v1):
+                st = Stepper(cfg, "cuda")
+            state = st.initial_field(load_particles(cfg, "cuda"))
+            table = measure_phase_split(st, state, steps=10)
+            rest = (table["full step (measured)"] - table["substep-1 kernel (fused)"]
+                    - table["substep-2 kernel (fused)"])
+            ms, idle = idle_share(st, state, TIMING_STEPS)
+            name = f"{label} {st.substeps.layout}"
+            say(f"[7 phase table] {name}, n={cfg.nparticle_max} nx={cfg.nx} f32:")
+            for line in format_phase_table(table).splitlines():
+                say(f"[7 phase table]   {line}")
+            say(f"[7 phase table] {name}: step minus the two kernels {rest * 1e3:.4f} ms; "
+                f"{TIMING_STEPS}-step graph replay under the profiler {ms:.4f} ms/step, idle "
+                f"share {idle:.4f} (no kernel running)")
+            check(all(np.isfinite(v) and v >= 0.0 for v in table.values()),
+                  "phase table finite")
+            out[name] = dict(table, idle=idle)
+            del state, st
+            torch.cuda.empty_cache()
+    return out
+
+
+def profile_phase(steps: int = 50) -> None:
+    """run.py --profile on the card: the main case for `steps` steps, the
+    trace's substep kernels by name equal to the counters (the run is made
+    again, up to PROFILER_TRIES times, while the profiler sees fewer)."""
+    from pic1dp_tpu_torch import run
+    from pic1dp_tpu_torch.config import bump_on_tail_default
+
+    cfg = bump_on_tail_default(verbosity=0)
+    for attempt in range(1, PROFILER_TRIES + 1):
+        with tempfile.TemporaryDirectory() as out:
+            zero_substep_counts()
+            check(run.main(["-s", f"time_max={steps * cfg.dt}", "-s", "verbosity=0",
+                            "--no-output", "--profile", out]) == 0, "run.py --profile")
+            counts = substep_counts()
+            with open(os.path.join(out, run.TRACE_FILE)) as fh:
+                events = json.load(fh)["traceEvents"]
+        seen = {}
+        for ev in events:
+            name = substep_counter(ev.get("name", "")) if ev.get("cat") == "kernel" else None
+            if name is not None:
+                seen[name] = seen.get(name, 0) + 1
+        say(f"[7 profile] run.py --profile, {steps} steps at {cfg.nparticle_max} markers: "
+            f"{len(events)} trace events; substep kernels in the trace {seen}, counters "
+            f"{counts} (run {attempt} of at most {PROFILER_TRIES})")
+        check(len(counts) == 2 and all(v == steps for v in counts.values()),
+              f"{steps} launches of each of the two kernels")
+        check(all(v <= counts.get(n, 0) for n, v in seen.items()),
+              "the trace holds no substep kernel beyond the counters")
+        if seen == counts:
+            return
+    check(False, f"the trace's substep kernels equal the counters in one of "
+          f"{PROFILER_TRIES} runs")
+
+
+def compare_v1_steps(cfg, smi: str) -> dict:
+    """ms/step of CUDA graph replays of both nonlinear layouts in turns
+    streamed, recompute, recompute, streamed (TIMING_STEPS steps each, after
+    the graph's capture): each layout's mean and its two turns."""
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+    from pic1dp_tpu_torch.ops.substep_kernels import layout
+
+    steppers = {}
+    for stream_v1 in (True, False):
+        with stream_v1_env(stream_v1):
+            steppers[stream_v1] = Stepper(cfg, "cuda")
+    state0 = steppers[True].initial_field(load_particles(cfg, "cuda"))
+    ms = {True: [], False: []}
+    for stream_v1 in (True, False, False, True):
+        st = steppers[stream_v1]
+        box = [st.multi_step(state0.clone(), WARMUP_STEPS)]
+        box[0] = st.graph_steps(box[0], TIMING_STEPS)
+        torch.cuda.synchronize()
+        ms[stream_v1].append(_events_ms(lambda: st.graph_steps(box[0], TIMING_STEPS), 1)
+                             / TIMING_STEPS)
+        del box
+    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    say(f"[7 timing] graph ms/step {cfg.nspecies}x{cfg.nparticle_max} nx={cfg.nx} "
+        f"nmode={cfg.nmode} {label}: streamed "
+        f"{mean[True]:.4f} ({ms[True][0]:.4f}, {ms[True][1]:.4f}), recompute "
+        f"{mean[False]:.4f} ({ms[False][0]:.4f}, {ms[False][1]:.4f}); recompute/streamed "
+        f"{mean[False] / mean[True]:.4f}; the config takes {layout(cfg)}; card {smi}")
+    return mean
 
 
 def main() -> int:
@@ -1551,22 +1871,52 @@ def main() -> int:
         err[name] = max(err[name], e)
     torch.cuda.synchronize()
 
+    v1_launches, v1_err = v1_layout_phase(main_cfg, bf16_cfg)
+    err.update({k: max(v, err.get(k, 0.0)) for k, v in v1_err.items()})
+    for k, v in v1_launches.items():     # the other layout's kernels: its run's counts
+        if not launches.get(k):
+            launches[k] = v
+    many_modes_phase()
+    nine_species_phase()
+    phase_table_phase()
+    profile_phase()
+    torch.cuda.synchronize()
+
     # each layout's kernels at the shape of each of its verification cases;
     # the kernels line keeps the first shape a kernel was timed at (the main
-    # path's for the nonlinear kernels, Landau's for linear, 2^24 for full-f)
-    per_call, bounds = time_kernels(main_cfg)
-    for cfg, inputs in ((bf16_cfg, None),
-                        *((c, _loaded_inputs(c)) for c in (
-                            landau_cfg(linear=True), landau_cfg(linear=True, bf16=True),
-                            two_stream_cfg(), two_stream_cfg(deltaf=False),
-                            two_species_cfg(bf16=True), two_species_cfg(),
-                            ion_acoustic_cfg()))):
-        ms, b = time_kernels(cfg, inputs)
+    # path's for the nonlinear kernels in both layouts, Landau's for linear,
+    # 2^24 for full-f)
+    per_call, bounds = {}, {}
+    timed = [(cfg, None, stream_v1) for cfg in (main_cfg, bf16_cfg) for stream_v1 in (True, False)]
+    timed += [(c, _loaded_inputs, None) for c in (
+        landau_cfg(linear=True), landau_cfg(linear=True, bf16=True), two_stream_cfg(deltaf=False))]
+    for cfg, inputs, stream_v1 in timed:
+        ms, b = time_kernels(cfg, inputs and inputs(cfg), stream_v1)
         for name in ms:
             per_call.setdefault(name, ms[name])
             if name in b:
                 bounds.setdefault(name, b[name])
         torch.cuda.synchronize()
+    # both nonlinear delta-f layouts, per call and per graph step in turns,
+    # on each side of substep_kernels.rebuilds_v1_faster's line: the 1-, 4-,
+    # 16- and 32-mode bins at the main width (64 modes per call only), the
+    # species loop at 2 x 2^20 and 2 x 2^22 markers, and the cases of 1M
+    # markers or fewer (printed only)
+    headline = bump_on_tail_default(nparticle_max=BENCH_N, nx=BENCH_NX, verbosity=0)
+    head16 = dataclasses.replace(headline, bf16_weights=True)
+    for cfg in (main_cfg, bf16_cfg, headline, head16):
+        compare_v1_steps(cfg, smi)
+    for cfg, inputs in (
+            (many_modes_cfg(4), None), (many_modes_cfg(4, bf16_weights=True), None),
+            (many_modes_cfg(16), None), (many_modes_cfg(32), None), (many_modes_cfg(64), None),
+            *((c, _loaded_inputs) for c in (
+                two_species_cfg(), two_species_cfg(bf16=True), ion_acoustic_cfg(),
+                two_stream_cfg(), nine_species_cfg(), landau_cfg()))):
+        for stream_v1 in (True, False):
+            time_kernels(cfg, inputs and inputs(cfg), stream_v1)
+        if cfg.nmode < 64:
+            compare_v1_steps(cfg, smi)
+        torch.cuda.empty_cache()
     # the stream, unit and carry kernels move 4 reads and 3 writes of 2^26
     # f32 values; their operations per element: the sum's adds, and for trig
     # x4 four trig units at the substep cost estimate's per-mode share
@@ -1579,9 +1929,8 @@ def main() -> int:
     per_call["stream_rw_plain"] = per_call["stream_bulk_plain"] = time_stream_plain()
     per_call.update(time_probe_kernels())
     time_steppers(main_cfg, smi)
-    headline = bump_on_tail_default(nparticle_max=BENCH_N, nx=BENCH_NX, verbosity=0)
     time_steppers(headline, smi)
-    time_steppers(dataclasses.replace(headline, bf16_weights=True), smi)
+    time_steppers(head16, smi)
 
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],

@@ -274,6 +274,26 @@ class Simulation:
         if self.cfg.verbosity >= 1:
             self._print(self.timers.report())
 
+    def phase_table(self, steps: int = 10) -> str:
+        """Per-phase step decomposition (push / shape+gather / collect /
+        field solve / the two substep kernels / the full step), measured on
+        the current state with the two-point slope method
+        (utils/phase_split.py) — the reference's wtimer granularity
+        (src/pic1dp_output.F90:576-627) that whole-step timing cannot give.
+        Run it after (or instead of) a run via `python -m
+        pic1dp_tpu_torch.run --phase-table`."""
+        from pic1dp_tpu_torch.config import ParticleShape
+        from pic1dp_tpu_torch.utils.phase_split import (format_phase_table,
+                                                        measure_phase_split)
+
+        if self.state is None:
+            self.load()
+        if self.cfg.shape != ParticleShape.MATRIX_FREE:
+            return ("Info: phase table requires the MATRIX_FREE shape "
+                    "(the production hot path)")
+        return format_phase_table(
+            measure_phase_split(self.stepper, self.state, steps))
+
     # ---- checkpoint / resume (no reference equivalent: the reference
     # restarts from t = 0 on any failure) ----
 

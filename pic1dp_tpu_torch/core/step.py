@@ -22,6 +22,15 @@ bfloat16; x, v, w and the fields stay float32.
 On a CUDA device `multi_step` replays k matrix-free steps from one CUDA
 graph, the port's counterpart of the reference's k steps in one `lax.scan`.
 
+Nonlinear delta-f has two kernel layouts (ops/substep_kernels.py): substep 1
+streams the midpoint velocities v1 to substep 2, or substep 2 rebuilds them
+from the step-start modes (two fewer streams per marker, one more gather
+of E).  Both give the same bits.  substep_kernels.layout takes the one
+measured faster on the H100 for the config's kernel (PERF.md);
+PIC1DP_STREAM_V1=1 or 0 overrides it (stream or rebuild), read once, when
+the Stepper is made, as the JAX Stepper reads it
+(pic1dp_tpu/core/step.py:122-128).
+
 The EXPLICIT grid path (cfg.shape = EXPLICIT) is the stored-shape
 cross-check: it assembles the hat-shape matrix at each substep position,
 gathers E from the grid, deposits charge on the grid with index_add_ and
@@ -35,6 +44,7 @@ deposit and one gather; deposit_chunk is ignored.
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import torch
@@ -87,7 +97,13 @@ class Stepper:
         self.spectral = SpectralOperator.create(cfg.nx, cfg.modes, cfg.lx,
                                                 self.dtype, self.device)
         self.sp = dist.SpeciesParams.from_config(cfg, self.dtype, self.device)
-        self.substeps = FusedSubsteps(cfg, self.sp)
+        # nonlinear delta-f with PIC1DP_STREAM_V1 set: stream the midpoint
+        # velocities v1 between the substeps ("1") or rebuild them ("0");
+        # otherwise the config's layout
+        env = os.environ.get("PIC1DP_STREAM_V1", "") if cfg.deltaf and not cfg.linear else ""
+        self.substeps = FusedSubsteps(cfg, self.sp,
+                                      stream_v1=bool(int(env)) if env else None)
+        self.stream_v1 = self.substeps.layout == substep_kernels.NONLINEAR
         if plain:
             self._substep1 = self.substeps.substep1_plain
             self._substep2 = self.substeps.substep2_plain
@@ -308,22 +324,19 @@ class Stepper:
         return diagnostics.ptcldist(self.cfg, self.sp, state)
 
 
-class _StepGraph:
-    """n steps of a Stepper over one state's buffers, captured in a CUDA
-    graph.  The wrappers count their launches while the steps are captured,
-    when nothing runs; those counts are taken back at once and added again
-    at each replay, when the kernels do run."""
+class CountedGraph:
+    """fn() captured in a CUDA graph.  The substep wrappers count their
+    launches while fn is captured, when nothing runs; those counts are taken
+    back at once and added again at each replay, when the kernels do run.
+    fn must have run eagerly once before (that loads every kernel the graph
+    will hold)."""
 
-    def __init__(self, stepper: Stepper, state: SimState, n: int):
+    def __init__(self, fn):
         kernels = substep_kernels.KERNELS
         before = [k.launches for k in kernels]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            out = state
-            for _ in range(n):
-                out = stepper.step(out)
-            for field in ("mode_re", "mode_im", "electric", "rho"):
-                getattr(state, field).copy_(getattr(out, field))
+            fn()
         self.launches = [k.launches - b for k, b in zip(kernels, before)]
         for k, b in zip(kernels, before):
             k.launches = b
@@ -332,3 +345,18 @@ class _StepGraph:
         self.graph.replay()
         for k, d in zip(substep_kernels.KERNELS, self.launches):
             k.launches += d
+
+
+class _StepGraph(CountedGraph):
+    """n steps of a Stepper over one state's buffers; the graph ends by
+    copying the new modes, E and rho into the state's own tensors."""
+
+    def __init__(self, stepper: Stepper, state: SimState, n: int):
+        def steps():
+            out = state
+            for _ in range(n):
+                out = stepper.step(out)
+            for field in ("mode_re", "mode_im", "electric", "rho"):
+                getattr(state, field).copy_(getattr(out, field))
+
+        super().__init__(steps)

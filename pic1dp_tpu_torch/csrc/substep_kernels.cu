@@ -6,10 +6,10 @@
 // pic1dp_tpu/ops/pallas_kernels.py (:395-730): substep 1 is
 // make_substep_call(cfg, 1, n) (body :558-591) and substep 2 is
 // make_substep_call(cfg, 2, n) (body :592-622), each with the mode-projection
-// deposit of :624-643, with separate streams, up to kMaxModes kept modes
-// (each evaluated directly, no angle-addition recurrence), float and double.
-// One body per substep serves every layout of the TPU kernel (:499-508), the
-// template parameter L:
+// deposit of :624-643, with separate streams, any number of kept modes
+// (each evaluated directly, no angle-addition recurrence) and of species,
+// float and double.  One body per substep serves every layout of the TPU
+// kernel (:499-508), the template parameter L:
 //
 //   kNonlinear  nonlinear delta-f, stream_v1:
 //               substep 1 reads x0, v0, p, w0, writes w1, v1;
@@ -23,12 +23,18 @@
 //               substep 2 reads x0, v0, p and rebuilds v1 from a gather at
 //               x0 with the step-start modes (the recompute layout,
 //               :601-603), writes x2, v2;
+//   kRecompute  nonlinear delta-f without stream_v1 (:501-507, :599-603):
+//               substep 1 reads x0, v0, p, w0, writes w1;
+//               substep 2 reads x0, v0, p, w0, w1 and rebuilds v1 as full-f
+//               does, with the same device functions and expression as
+//               substep 1's v1 (so the same bits), writes x2, v2, w2;
 //
 // and both species modes, the template parameter kSpecies:
 //
 //   false  the main path's kernel: one species and the bump-on-tail or
 //          Maxwellian drive (forms 0 and 1 of minus_dlnf0_dv; core
-//          fractions 0 and 1 included), nonlinear delta-f only;
+//          fractions 0 and 1 included), nonlinear delta-f with v1 streamed
+//          or rebuilt, up to kMaxModes modes;
 //   true   the port of pallas_kernels._make_sel (:71-89): the state is
 //          (ns, n) and contiguous, so species s is the slice [s n, (s + 1) n).
 //          Each thread walks the species in order, and within one species the
@@ -37,7 +43,18 @@
 //          species' constants (dt q/m, charge, the -f0'/f0 form and its
 //          constants) are selected once per species (with_species), and every
 //          form is compiled in, the two-stream drives and the mixed-degenerate
-//          clamp included.  At most kMaxSpecies species.
+//          clamp included.  Species kMaxSpecies and above take their
+//          constants from a device table instead of the parameter bank.
+//
+// The kept modes come in bins, the template parameter NM: each thread keeps
+// NM projection sums, NM mode components and the constants of hat_table in
+// registers, in the bins of 1, 4 and kMaxModes modes.  Above kMaxModes the
+// wide bin (kWide) keeps kMaxModes sums per thread and walks its markers
+// once per kMaxModes modes: every pass pushes every marker (the gather sums
+// every mode, read from memory with each mode's constants, before the push)
+// and deposits onto its own kMaxModes modes; only the last pass stores the
+// pushed streams, so substep 2's in-place update reads the step-start values
+// in every pass.  Its sums go to the partials row pass by pass.
 //
 // bf16_weights (the delta-f layouts; Config.validate refuses it with full-f):
 // float arithmetic with p stored and w1 streamed as bfloat16
@@ -105,8 +122,9 @@
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // A launch gets 48 KB of shared memory without cudaFuncSetAttribute; the
-// kernels' static shared memory (the block sum, the mbarrier, the last-block
-// flag) stays within kStaticSmem, and the angle table may have the rest.
+// kernels' static shared memory (the block sum of at most kMaxModes modes,
+// the mbarrier, the last-block flag) stays within kStaticSmem, and the angle
+// table may have the rest.
 constexpr int kSmemNoOptIn = 48 * 1024;
 constexpr int kStaticSmem = 4096;
 constexpr int kAngleSmemMax = kSmemNoOptIn - kStaticSmem;
@@ -114,10 +132,10 @@ static_assert(kWarps * 2 * kMaxModes * sizeof(double) + 64 <= kStaticSmem,
               "the block sum outgrew kStaticSmem");
 
 // The layouts; ops/substep_kernels.py passes these ints.
-enum Layout { kNonlinear = 0, kLinear = 1, kFullf = 2 };
+enum Layout { kNonlinear = 0, kLinear = 1, kFullf = 2, kRecompute = 3 };
 
-// Markers per thread and iteration in the NM-mode bin
-// (ops/substep_kernels.vector_width mirrors it).
+// Markers per thread and iteration in the NM-mode bin (the wide bin has
+// NM = kMaxModes; ops/substep_kernels.vector_width mirrors it).
 template <typename T, int NM>
 __host__ __device__ constexpr int vec_width() {
   return NM > 4 ? 1 : 16 / static_cast<int>(sizeof(T));
@@ -174,8 +192,9 @@ __device__ __forceinline__ void store_vec(S* dst, const S (&src)[W]) {
 
 // What a launch is given besides the constants: the marker streams (those
 // the layout does not touch may be null), the modes (re0, im0: the
-// step-start modes of full-f substep 2), the partials, projections and
-// counter of the final sum, and the angle table.
+// step-start modes of substep 2 where it rebuilds v1), the species and mode
+// tables, the partials, projections and counter of the final sum, and the
+// angle table.
 template <typename T, typename PT, typename WT>
 struct Args {
   T* x;
@@ -188,6 +207,8 @@ struct Args {
   const T* im;
   const T* re0;
   const T* im0;
+  const T* species;      // (nspecies, kSpeciesFields); read above kMaxSpecies
+  const T* mtab;         // (2, nmode): cdm1, then sd; read by the wide bin
   T* partials;           // (grid, 2, nmode)
   T* proj;               // (2, nmode)
   unsigned int* done;    // blocks finished; 0 between launches
@@ -208,6 +229,7 @@ struct Group {
   alignas(W * sizeof(T)) T v1[W];
 };
 
+// The bins' register copies of the mode components (unused in the wide bin).
 template <typename T, int NM>
 struct Modes {
   T re[NM], im[NM], re0[NM], im0[NM];
@@ -255,13 +277,71 @@ __device__ __forceinline__ void load_modes(const Params<T>& p, const T* re_in,
   }
 }
 
-// Deterministic block sum of the threads' projection sums, written as
-// out[0 .. 2 nmode) = [cos_0 .. cos_{nmode-1}, sin_0 .. sin_{nmode-1}].
-// Every thread of the block must call it.
+// E at x from the modes: in a bin from the register copies (re, im) and the
+// constants in q; in the wide bin (kWide) from every kept mode's components
+// (gre, gim) and constants (mtab) in memory, the same loads for every
+// thread, summed in mode order.
+template <bool kWide, typename T, int NM>
+__device__ __forceinline__ T field_at(const Params<T>& q, const Pair<T>* ang, const T* mtab,
+                                      T x, const T (&re)[NM], const T (&im)[NM],
+                                      const T* gre, const T* gim) {
+  if constexpr (kWide) {
+    T f;
+    int ix0;
+    hat_cell(q, x, &f, &ix0);
+    T e = T(0);
+    for (int j = 0; j < q.nmode; ++j) {
+      T c, s;
+      hat_mode(ang, q.nx, j, ix0, f, __ldg(mtab + j), __ldg(mtab + q.nmode + j), &c, &s);
+      e += c * __ldg(gre + j) - s * __ldg(gim + j);
+    }
+    return T(2) * e;
+  } else {
+    T C[NM], S[NM];
+    hat_table(q, ang, x, C, S);
+    return gather_e(C, S, re, im);
+  }
+}
+
+// Adds val (C_m, S_m) at x to this pass's sums: every mode of a bin, or the
+// wide bin's modes [chunk NM, chunk NM + NM) below nmode.
+template <bool kWide, typename T, int NM>
+__device__ __forceinline__ void deposit_at(const Params<T>& q, const Pair<T>* ang,
+                                           const T* mtab, int chunk, T x, T val,
+                                           T (&acc_c)[NM], T (&acc_s)[NM]) {
+  if constexpr (kWide) {
+    T f;
+    int ix0;
+    hat_cell(q, x, &f, &ix0);
+#pragma unroll
+    for (int k = 0; k < NM; ++k) {
+      const int j = chunk * NM + k;
+      if (j < q.nmode) {
+        T c, s;
+        hat_mode(ang, q.nx, j, ix0, f, __ldg(mtab + j), __ldg(mtab + q.nmode + j), &c, &s);
+        acc_c[k] += val * c;
+        acc_s[k] += val * s;
+      }
+    }
+  } else {
+    T C[NM], S[NM];
+    hat_table(q, ang, x, C, S);
+#pragma unroll
+    for (int j = 0; j < NM; ++j) {
+      acc_c[j] += val * C[j];
+      acc_s[j] += val * S[j];
+    }
+  }
+}
+
+// Deterministic block sum of the threads' sums of modes [j0, j0 + NM) (those
+// below nmode), written into a row of 2 nmode values [cos_0 .. cos_{nmode-1},
+// sin_0 .. sin_{nmode-1}].  Every thread of the block must call it; it ends
+// with a barrier, so it may be called again at once.
 template <typename T, int NM>
 __device__ __forceinline__ void block_sum_store(const Params<T>& p,
                                                 const T (&acc_c)[NM],
-                                                const T (&acc_s)[NM], T* out) {
+                                                const T (&acc_s)[NM], T* out, int j0) {
   __shared__ T red[kWarps][2 * NM];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -280,43 +360,49 @@ __device__ __forceinline__ void block_sum_store(const Params<T>& p,
     }
   }
   __syncthreads();
+  const int cnt = min(NM, p.nmode - j0);
   const int t = threadIdx.x;
-  if (t < 2 * p.nmode) {
-    const int j = t < p.nmode ? t : NM + (t - p.nmode);
+  if (t < 2 * cnt) {
+    const bool cosine = t < cnt;
+    const int k = cosine ? t : t - cnt;
     T sum = T(0);
-    for (int w = 0; w < kWarps; ++w) sum += red[w][j];
-    out[t] = sum;
+    for (int w = 0; w < kWarps; ++w) sum += red[w][cosine ? k : NM + k];
+    out[(cosine ? 0 : p.nmode) + j0 + k] = sum;
   }
+  __syncthreads();
 }
 
-// This block's row of partials; the last block to finish sums the rows into
-// the projections and sets the counter back to 0.  Every thread of the
-// block must call it.
+// After this block's partials row is written: the last block to finish sums
+// the rows into the projections, `passes` groups of NM modes, and sets the
+// counter back to 0.  Every thread of the block must call it.
 template <typename T, typename PT, typename WT, int NM>
-__device__ __forceinline__ void finish(const Params<T>& p, T (&acc_c)[NM], T (&acc_s)[NM],
-                                       const Args<T, PT, WT>& a) {
+__device__ __forceinline__ void finish(const Params<T>& p, const Args<T, PT, WT>& a,
+                                       int passes) {
   __shared__ bool last;
   const int m = 2 * p.nmode;
-  block_sum_store(p, acc_c, acc_s, a.partials + static_cast<long long>(blockIdx.x) * m);
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(a.done, 1u) == gridDim.x - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
+  for (int c = 0; c < passes; ++c) {
+    T acc_c[NM], acc_s[NM];
 #pragma unroll
-  for (int j = 0; j < NM; ++j) acc_c[j] = acc_s[j] = T(0);
-  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads) {
-    const T* row = a.partials + static_cast<long long>(b) * m;
+    for (int k = 0; k < NM; ++k) acc_c[k] = acc_s[k] = T(0);
+    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads) {
+      const T* row = a.partials + static_cast<long long>(b) * m;
 #pragma unroll
-    for (int j = 0; j < NM; ++j) {
-      if (j < p.nmode) {
-        acc_c[j] += __ldcg(row + j);
-        acc_s[j] += __ldcg(row + p.nmode + j);
+      for (int k = 0; k < NM; ++k) {
+        const int j = c * NM + k;
+        if (j < p.nmode) {
+          acc_c[k] += __ldcg(row + j);
+          acc_s[k] += __ldcg(row + p.nmode + j);
+        }
       }
     }
+    block_sum_store(p, acc_c, acc_s, a.proj, c * NM);
   }
-  block_sum_store(p, acc_c, acc_s, a.proj);
   if (threadIdx.x == 0) *a.done = 0u;
 }
 
@@ -347,51 +433,43 @@ __device__ __forceinline__ void store_group(const Group<T, PT, WT, W>& g,
   }
 }
 
-template <int NM, typename T>
-__device__ __forceinline__ void deposit(T val, const T (&C)[NM], const T (&S)[NM],
-                                        T (&acc_c)[NM], T (&acc_s)[NM]) {
-#pragma unroll
-  for (int j = 0; j < NM; ++j) {
-    acc_c[j] += val * C[j];
-    acc_s[j] += val * S[j];
-  }
-}
-
 // Substep 1 on W markers: gather E at x0 from the step-start modes, push by
 // dt/2 in the reference's order x, w, v, and deposit charge * w1 (full-f:
-// charge * p) at x1.  w1 and v1 go to the group (then to fresh buffers:
-// substep 2 still reads w0 and v0); the deposit uses w1 before it is
-// rounded to WT.
-template <int L, bool kSpecies, int NM, int W, typename T, typename PT, typename WT>
+// charge * p) at x1 onto this pass's modes.  w1 and v1 go to the group
+// (then to fresh buffers: substep 2 still reads w0 and v0); the deposit
+// uses w1 before it is rounded to WT.
+template <int L, bool kSpecies, bool kWide, int NM, int W, typename T, typename PT,
+          typename WT>
 __device__ __forceinline__ void push1(const Params<T>& q, const Pair<T>* ang,
-                                      const Modes<T, NM>& md, Group<T, PT, WT, W>& g,
-                                      T (&acc_c)[NM], T (&acc_s)[NM]) {
-  T C[NM], S[NM];
+                                      const Args<T, PT, WT>& a, const Modes<T, NM>& md,
+                                      int chunk, Group<T, PT, WT, W>& g, T (&acc_c)[NM],
+                                      T (&acc_s)[NM]) {
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     const T x = g.x[k], v = g.v[k], pp = upcast(g.p[k]), w = L == kFullf ? T(0) : g.w[k];
-    hat_table(q, ang, x, C, S);
-    const T e = gather_e(C, S, md.re, md.im);
+    const T e = field_at<kWide>(q, ang, a.mtab, x, md.re, md.im, a.re, a.im);
     const T x1 = wrap(q, x + q.dt_half * v);
     const T w1 = w + q.dtqm_half * (L == kLinear ? pp * e : (pp - w) * e) *
                          minus_dlnf0_dv<T, kSpecies>(q, v);
     g.w1[k] = to_storage<WT>(w1);
     g.v1[k] = v + q.dtqm_half * e;
-    hat_table(q, ang, x1, C, S);
-    deposit(q.charge * (L == kFullf ? pp : w1), C, S, acc_c, acc_s);
+    deposit_at<kWide>(q, ang, a.mtab, chunk, x1, q.charge * (L == kFullf ? pp : w1), acc_c,
+                      acc_s);
   }
 }
 
 // Substep 2 on W markers: recompute x1 = wrap(x0 + dt/2 v0) in registers,
-// take v1 by the layout (streamed, rebuilt from the step-start modes at x0,
-// or v0), gather E at x1 from the midpoint modes, push by the full dt from
-// the step-start values, and deposit charge * w2 (full-f: charge * p) at x2.
-// x2, v2 and w2 replace x0, v0 and w0 in the group.
-template <int L, bool kSpecies, int NM, int W, typename T, typename PT, typename WT>
+// take v1 by the layout (streamed; rebuilt from the step-start modes at x0
+// by substep 1's own expression; or v0), gather E at x1 from the midpoint
+// modes, push by the full dt from the step-start values, and deposit
+// charge * w2 (full-f: charge * p) at x2 onto this pass's modes.  x2, v2
+// and w2 replace x0, v0 and w0 in the group.
+template <int L, bool kSpecies, bool kWide, int NM, int W, typename T, typename PT,
+          typename WT>
 __device__ __forceinline__ void push2(const Params<T>& q, const Pair<T>* ang,
-                                      const Modes<T, NM>& md, Group<T, PT, WT, W>& g,
-                                      T (&acc_c)[NM], T (&acc_s)[NM]) {
-  T C[NM], S[NM];
+                                      const Args<T, PT, WT>& a, const Modes<T, NM>& md,
+                                      int chunk, Group<T, PT, WT, W>& g, T (&acc_c)[NM],
+                                      T (&acc_s)[NM]) {
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     const T x0 = g.x[k], v0 = g.v[k], pp = upcast(g.p[k]),
@@ -400,43 +478,47 @@ __device__ __forceinline__ void push2(const Params<T>& q, const Pair<T>* ang,
     T v1 = v0;
     if constexpr (L == kNonlinear) {
       v1 = g.v1[k];
-    } else if constexpr (L == kFullf) {
-      hat_table(q, ang, x0, C, S);
-      v1 = v0 + q.dtqm_half * gather_e(C, S, md.re0, md.im0);
+    } else if constexpr (L == kFullf || L == kRecompute) {
+      v1 = v0 + q.dtqm_half * field_at<kWide>(q, ang, a.mtab, x0, md.re0, md.im0, a.re0,
+                                              a.im0);
     }
     const T x1 = wrap(q, x0 + q.dt_half * v0);
-    hat_table(q, ang, x1, C, S);
-    const T e = gather_e(C, S, md.re, md.im);
+    const T e = field_at<kWide>(q, ang, a.mtab, x1, md.re, md.im, a.re, a.im);
     const T x2 = wrap(q, x0 + q.dt * v1);
     const T w2 = w0 + q.dtqm_full * (L == kLinear ? pp * e : (pp - w1) * e) *
                           minus_dlnf0_dv<T, kSpecies>(q, v1);
     g.x[k] = x2;
     g.v[k] = v0 + q.dtqm_full * e;
     g.w[k] = w2;
-    hat_table(q, ang, x2, C, S);
-    deposit(q.charge * (L == kFullf ? pp : w2), C, S, acc_c, acc_s);
+    deposit_at<kWide>(q, ang, a.mtab, chunk, x2, q.charge * (L == kFullf ? pp : w2), acc_c,
+                      acc_s);
   }
 }
 
-template <int SUB, int L, bool kSpecies, int NM, int W, typename T, typename PT, typename WT>
+template <int SUB, int L, bool kSpecies, bool kWide, int NM, int W, typename T, typename PT,
+          typename WT>
 __device__ __forceinline__ void push(const Params<T>& q, const Pair<T>* ang,
-                                     const Modes<T, NM>& md, Group<T, PT, WT, W>& g,
-                                     T (&acc_c)[NM], T (&acc_s)[NM]) {
+                                     const Args<T, PT, WT>& a, const Modes<T, NM>& md,
+                                     int chunk, Group<T, PT, WT, W>& g, T (&acc_c)[NM],
+                                     T (&acc_s)[NM]) {
   if constexpr (SUB == 1)
-    push1<L, kSpecies>(q, ang, md, g, acc_c, acc_s);
+    push1<L, kSpecies, kWide>(q, ang, a, md, chunk, g, acc_c, acc_s);
   else
-    push2<L, kSpecies>(q, ang, md, g, acc_c, acc_s);
+    push2<L, kSpecies, kWide>(q, ang, a, md, chunk, g, acc_c, acc_s);
 }
 
 // The markers [base, base + n) of one species, whose constants q holds:
 // single markers up to the first V-aligned element and after the last whole
 // group (every marker when a stream is not 16-byte aligned), V-marker groups
 // between them, each group's loads all issued before its arithmetic.  Thread
-// positions stride by the whole grid.
-template <int SUB, int L, bool kSpecies, int NM, typename T, typename PT, typename WT>
+// positions stride by the whole grid, so a thread walks the same markers in
+// every pass.  The pushed streams are stored when `store` is set.
+template <int SUB, int L, bool kSpecies, bool kWide, int NM, typename T, typename PT,
+          typename WT>
 __device__ __forceinline__ void walk(const Params<T>& q, const Pair<T>* ang,
                                      const Args<T, PT, WT>& a, const Modes<T, NM>& md,
-                                     T (&acc_c)[NM], T (&acc_s)[NM], long long base) {
+                                     int chunk, bool store, T (&acc_c)[NM], T (&acc_s)[NM],
+                                     long long base) {
   constexpr int V = vec_width<T, NM>();
   const long long n = q.n;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -447,56 +529,69 @@ __device__ __forceinline__ void walk(const Params<T>& q, const Pair<T>* ang,
   auto one = [&](long long i) {
     Group<T, PT, WT, 1> g;
     load_group<SUB, L>(g, a, i);
-    push<SUB, L, kSpecies>(q, ang, md, g, acc_c, acc_s);
-    store_group<SUB, L>(g, a, i);
+    push<SUB, L, kSpecies, kWide>(q, ang, a, md, chunk, g, acc_c, acc_s);
+    if (store) store_group<SUB, L>(g, a, i);
   };
   for (long long t = first; t < head; t += stride) one(base + t);
   for (long long t = head + groups * V + first; t < n; t += stride) one(base + t);
   for (long long k = first; k < groups; k += stride) {
     Group<T, PT, WT, V> g;
     load_group<SUB, L>(g, a, body + k * V);
-    push<SUB, L, kSpecies>(q, ang, md, g, acc_c, acc_s);
-    store_group<SUB, L>(g, a, body + k * V);
+    push<SUB, L, kSpecies, kWide>(q, ang, a, md, chunk, g, acc_c, acc_s);
+    if (store) store_group<SUB, L>(g, a, body + k * V);
   }
 }
 
-// One body for both substeps: stage the table, walk every species in order,
-// and finish the projection sum.
-template <int SUB, typename T, typename PT, typename WT, int NM, int L, bool kSpecies>
+// One body for both substeps: stage the table; per pass (one in a bin, one
+// per NM modes in the wide bin) walk every species in order and write this
+// block's sums of the pass's modes to its partials row; then finish the
+// projection sum.
+template <int SUB, typename T, typename PT, typename WT, int NM, int L, bool kSpecies,
+          bool kWide>
 __device__ __forceinline__ void substep_body(const Params<T>& p, const Args<T, PT, WT>& a,
                                              const SpeciesTable<T>& tab) {
   const Pair<T>* ang = stage_angles<T>(a.angles, a.angle_smem);
   Modes<T, NM> md;
-  load_modes(p, a.re, a.im, md.re, md.im);
-  if constexpr (SUB == 2 && L == kFullf) load_modes(p, a.re0, a.im0, md.re0, md.im0);
-  T acc_c[NM], acc_s[NM];
-#pragma unroll
-  for (int j = 0; j < NM; ++j) acc_c[j] = acc_s[j] = T(0);
-  if constexpr (kSpecies) {
-    for (int s = 0; s < tab.ns; ++s)
-      walk<SUB, L, kSpecies>(with_species(p, tab, s), ang, a, md, acc_c, acc_s, s * p.n);
-  } else {
-    walk<SUB, L, kSpecies>(p, ang, a, md, acc_c, acc_s, 0);
+  if constexpr (!kWide) {
+    load_modes(p, a.re, a.im, md.re, md.im);
+    if constexpr (SUB == 2 && (L == kFullf || L == kRecompute))
+      load_modes(p, a.re0, a.im0, md.re0, md.im0);
   }
-  finish(p, acc_c, acc_s, a);
+  const int passes = kWide ? (p.nmode + NM - 1) / NM : 1;
+  for (int c = 0; c < passes; ++c) {
+    T acc_c[NM], acc_s[NM];
+#pragma unroll
+    for (int j = 0; j < NM; ++j) acc_c[j] = acc_s[j] = T(0);
+    const bool store = c == passes - 1;
+    if constexpr (kSpecies) {
+      for (int s = 0; s < tab.ns; ++s)
+        walk<SUB, L, kSpecies, kWide>(with_species(p, tab, a.species, s), ang, a, md, c,
+                                      store, acc_c, acc_s, s * p.n);
+    } else {
+      walk<SUB, L, kSpecies, kWide>(p, ang, a, md, c, store, acc_c, acc_s, 0);
+    }
+    block_sum_store(p, acc_c, acc_s,
+                    a.partials + static_cast<long long>(blockIdx.x) * 2 * p.nmode, c * NM);
+  }
+  finish<T, PT, WT, NM>(p, a, passes);
 }
 
 // Substep 1 (reads x0, v0, p, w0 and the step-start modes; writes w1, v1
-// and the projections at x1).  PT and WT are the storage types of p and w1
-// (T, or bfloat16 with T float).
-template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies>
+// where the layout streams them, and the projections at x1).  PT and WT are
+// the storage types of p and w1 (T, or bfloat16 with T float).
+template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 substep1_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T> tab) {
-  substep_body<1, T, PT, WT, NM, L, kSpecies>(p, a, tab);
+  substep_body<1, T, PT, WT, NM, L, kSpecies, kWide>(p, a, tab);
 }
 
-// Substep 2 (reads x0, v0, p, w0, w1, v1 and the midpoint modes; writes x2,
-// v2, w2 over x0, v0, w0 where the layout updates them, and the projections
-// at x2).
-template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies>
+// Substep 2 (reads x0, v0, p, w0, w1, v1 and the midpoint modes, and the
+// step-start modes where it rebuilds v1; writes x2, v2, w2 over x0, v0, w0
+// where the layout updates them, and the projections at x2).
+template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 substep2_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T> tab) {
-  substep_body<2, T, PT, WT, NM, L, kSpecies>(p, a, tab);
+  substep_body<2, T, PT, WT, NM, L, kSpecies, kWide>(p, a, tab);
 }
 
 // The device's grid-angle trig chain (hat_trig's) on its own, for the
@@ -521,33 +616,41 @@ __global__ void angle_gather_kernel(const Pair<T>* angles, int angle_smem,
     out[i] = ang[idx[i]];
 }
 
-template <int SUB, typename T, typename PT, typename WT, int NM, int L, bool kSpecies>
+template <int SUB, typename T, typename PT, typename WT, int NM, int L, bool kSpecies,
+          bool kWide>
 void launch(const HostParams& h, const Args<T, PT, WT>& a, int grid, cudaStream_t st) {
   if constexpr (SUB == 1)
-    substep1_kernel<T, PT, WT, NM, L, kSpecies><<<grid, kThreads, a.angle_smem, st>>>(
-        to_params<T>(h), a, to_species<T>(h));
+    substep1_kernel<T, PT, WT, NM, L, kSpecies, kWide>
+        <<<grid, kThreads, a.angle_smem, st>>>(to_params<T>(h), a, to_species<T>(h));
   else
-    substep2_kernel<T, PT, WT, NM, L, kSpecies><<<grid, kThreads, a.angle_smem, st>>>(
-        to_params<T>(h), a, to_species<T>(h));
+    substep2_kernel<T, PT, WT, NM, L, kSpecies, kWide>
+        <<<grid, kThreads, a.angle_smem, st>>>(to_params<T>(h), a, to_species<T>(h));
 }
 
-// The species mode: the main path's kernel for nonlinear delta-f with one
-// bump-on-tail or Maxwellian species, the species loop otherwise.
-template <int SUB, typename T, typename PT, typename WT, int NM, int L>
+// The species mode: the main path's kernel for nonlinear delta-f (v1
+// streamed or rebuilt) with one bump-on-tail or Maxwellian species in a
+// bin, the species loop otherwise.
+template <int SUB, typename T, typename PT, typename WT, int NM, int L, bool kWide>
 void launch_species(const HostParams& h, const Args<T, PT, WT>& a, int grid,
                     cudaStream_t st) {
-  if constexpr (L == kNonlinear) {
+  if constexpr ((L == kNonlinear || L == kRecompute) && !kWide) {
     if (h.nspecies == 1 && h.sp_kform[0] <= 1)
-      return launch<SUB, T, PT, WT, NM, L, false>(h, a, grid, st);
+      return launch<SUB, T, PT, WT, NM, L, false, false>(h, a, grid, st);
   }
-  launch<SUB, T, PT, WT, NM, L, true>(h, a, grid, st);
+  launch<SUB, T, PT, WT, NM, L, true, kWide>(h, a, grid, st);
 }
 
 // The bin of kept modes: the kernels keep NM sums per thread in registers, so
 // NM is a template parameter; a run uses the smallest bin that holds its
-// nmode.  -1 outside [1, kMaxModes].
+// nmode, and above kMaxModes the wide bin (kWideBin, kMaxModes sums per
+// pass).  -1 below 1.
+constexpr int kWideBin = 0;
 constexpr int mode_bin(int nmode) {
-  return nmode == 1 ? 1 : nmode < 1 ? -1 : nmode <= 4 ? 4 : nmode <= kMaxModes ? kMaxModes : -1;
+  return nmode == 1           ? 1
+         : nmode < 1          ? -1
+         : nmode <= 4         ? 4
+         : nmode <= kMaxModes ? kMaxModes
+                              : kWideBin;
 }
 
 template <int SUB, typename T, typename PT, typename WT, int L>
@@ -555,11 +658,13 @@ void launch_modes(const HostParams& h, const Args<T, PT, WT>& a, int grid,
                   cudaStream_t st) {
   switch (mode_bin(h.nmode)) {
     case 1:
-      return launch_species<SUB, T, PT, WT, 1, L>(h, a, grid, st);
+      return launch_species<SUB, T, PT, WT, 1, L, false>(h, a, grid, st);
     case 4:
-      return launch_species<SUB, T, PT, WT, 4, L>(h, a, grid, st);
+      return launch_species<SUB, T, PT, WT, 4, L, false>(h, a, grid, st);
+    case kMaxModes:
+      return launch_species<SUB, T, PT, WT, kMaxModes, L, false>(h, a, grid, st);
     default:
-      return launch_species<SUB, T, PT, WT, kMaxModes, L>(h, a, grid, st);
+      return launch_species<SUB, T, PT, WT, kMaxModes, L, true>(h, a, grid, st);
   }
 }
 
@@ -570,15 +675,18 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 template <int SUB, typename T, typename PT, typename WT>
 int substep(const HostParams* h, int layout, Args<T, PT, WT> a, int grid, void* stream) {
   if (grid <= 0 || mode_bin(h->nmode) < 0 || h->nspecies < 1 ||
-      h->nspecies > kMaxSpecies || a.angle_smem < 0 || a.angle_smem > kAngleSmemMax ||
-      a.angle_smem % 16 != 0 || !aligned16(a.angles) || a.partials == nullptr ||
-      a.proj == nullptr || a.done == nullptr)
+      (h->nspecies > kMaxSpecies && a.species == nullptr) ||
+      (h->nmode > kMaxModes && a.mtab == nullptr) || a.angle_smem < 0 ||
+      a.angle_smem > kAngleSmemMax || a.angle_smem % 16 != 0 || !aligned16(a.angles) ||
+      a.partials == nullptr || a.proj == nullptr || a.done == nullptr)
     return cudaErrorInvalidValue;
   a.aligned = aligned16(a.x) && aligned16(a.v) && aligned16(a.p) && aligned16(a.w) &&
               aligned16(a.w1) && aligned16(a.v1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (layout == kNonlinear) {
     launch_modes<SUB, T, PT, WT, kNonlinear>(*h, a, grid, st);
+  } else if (layout == kRecompute) {
+    launch_modes<SUB, T, PT, WT, kRecompute>(*h, a, grid, st);
   } else if (layout == kLinear) {
     launch_modes<SUB, T, PT, WT, kLinear>(*h, a, grid, st);
   } else if constexpr (std::is_same<T, PT>::value) {
@@ -610,16 +718,18 @@ int pic1dp_max_modes() { return kMaxModes; }
 
 int pic1dp_max_species() { return kMaxSpecies; }
 
+int pic1dp_species_fields() { return kSpeciesFields; }
+
 int pic1dp_params_size() { return static_cast<int>(sizeof(HostParams)); }
 
 int pic1dp_angle_smem_max() { return kAngleSmemMax; }
 
 // V of the instantiation that runs nmode kept modes with arithmetic of
-// `itemsize` bytes (4 or 8); 0 for a count outside the bins.
+// `itemsize` bytes (4 or 8); 0 for a count below 1.
 int pic1dp_vector_width(int nmode, int itemsize) {
   const int bin = mode_bin(nmode);
   if (bin < 0) return 0;
-  const bool wide = bin > 4;
+  const bool wide = bin > 4 || bin == kWideBin;
   if (itemsize == 4) return wide ? vec_width<float, kMaxModes>() : vec_width<float, 4>();
   if (itemsize == 8) return wide ? vec_width<double, kMaxModes>() : vec_width<double, 4>();
   return 0;
@@ -631,17 +741,20 @@ const char* pic1dp_error_string(int code) {
 
 // One pair of entry points per (arithmetic, storage of p and w1) build: f32,
 // f64, and f32 with bfloat16 p and w1 (bf16_weights).  `layout` is enum
-// Layout; a stream the layout does not touch may be null.  partials holds
+// Layout; a stream the layout does not touch may be null.  species is the
+// (nspecies, kSpeciesFields) table and mtab the (2, nmode) mode table, both
+// at the arithmetic type (either may be null where the run does not need
+// it: at most kMaxSpecies species, at most kMaxModes modes); partials holds
 // (grid, 2, nmode) values, proj (2, nmode); done is an int that is 0 and is
 // left 0; angles is the (nmode, nx) table of (cos, sin) pairs, 16-byte
 // aligned and padded to angle_smem bytes when angle_smem > 0.
 #define PIC1DP_SUBSTEPS(SUFFIX, T, PT, WT)                                                \
   int pic1dp_substep1_##SUFFIX(const HostParams* h, int layout, const void* x,            \
                                const void* v, const void* pw, const void* w,              \
-                               const void* mre, const void* mim, void* w1, void* v1,      \
-                               void* partials, void* proj, void* done,                    \
-                               const void* angles, int angle_smem, int grid,              \
-                               void* stream) {                                            \
+                               const void* mre, const void* mim, const void* species,     \
+                               const void* mtab, void* w1, void* v1, void* partials,      \
+                               void* proj, void* done, const void* angles,                \
+                               int angle_smem, int grid, void* stream) {                  \
     const Args<T, PT, WT> a{const_cast<T*>(static_cast<const T*>(x)),                     \
                             const_cast<T*>(static_cast<const T*>(v)),                     \
                             static_cast<const PT*>(pw),                                   \
@@ -652,6 +765,8 @@ const char* pic1dp_error_string(int code) {
                             static_cast<const T*>(mim),                                   \
                             nullptr,                                                      \
                             nullptr,                                                      \
+                            static_cast<const T*>(species),                               \
+                            static_cast<const T*>(mtab),                                  \
                             static_cast<T*>(partials),                                    \
                             static_cast<T*>(proj),                                        \
                             static_cast<unsigned int*>(done),                             \
@@ -663,7 +778,8 @@ const char* pic1dp_error_string(int code) {
   int pic1dp_substep2_##SUFFIX(const HostParams* h, int layout, void* x, void* v,         \
                                const void* pw, void* w, const void* w1, const void* v1,   \
                                const void* mre, const void* mim, const void* mre0,        \
-                               const void* mim0, void* partials, void* proj, void* done,  \
+                               const void* mim0, const void* species, const void* mtab,   \
+                               void* partials, void* proj, void* done,                    \
                                const void* angles, int angle_smem, int grid,              \
                                void* stream) {                                            \
     const Args<T, PT, WT> a{static_cast<T*>(x),                                           \
@@ -676,6 +792,8 @@ const char* pic1dp_error_string(int code) {
                             static_cast<const T*>(mim),                                   \
                             static_cast<const T*>(mre0),                                  \
                             static_cast<const T*>(mim0),                                  \
+                            static_cast<const T*>(species),                               \
+                            static_cast<const T*>(mtab),                                  \
                             static_cast<T*>(partials),                                    \
                             static_cast<T*>(proj),                                        \
                             static_cast<unsigned int*>(done),                             \

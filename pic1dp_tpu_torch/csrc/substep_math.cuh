@@ -9,15 +9,24 @@
 // Host constants arrive as HostParams (in double, mirrored field by field by
 // the ctypes.Structure SubstepParams in ops/substep_kernels.py) and reach a
 // kernel as Params<T>, converted by to_params<T> (with species 0's
-// constants), and as SpeciesTable<T>, every species' constants, converted by
-// to_species<T> and read by the species-loop instantiations only.
+// constants), and as SpeciesTable<T>, the first kMaxSpecies species'
+// constants, converted by to_species<T> and read by the species-loop
+// instantiations only.  A run with more species than that has every
+// species' constants in a device table as well (kSpeciesFields values of T
+// per species, ops/substep_kernels.species_table), from which the species
+// loop reads species kMaxSpecies and above.  HostParams holds the first
+// kMaxModes kept modes; the kernels of a run with more read every mode's
+// constants from a device table (ops/substep_kernels.mode_table).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
-constexpr int kMaxModes = 16;
-constexpr int kMaxSpecies = 8;
+constexpr int kMaxModes = 16;    // modes in Params, and per deposit pass
+constexpr int kMaxSpecies = 8;   // species in the parameter table
+// values per species in the device table: kform, then Species<T>'s T fields
+// in their order
+constexpr int kSpeciesFields = 10;
 
 // Host constants, in double.  ops/substep_kernels.py mirrors this layout
 // field by field in the ctypes.Structure SubstepParams.
@@ -115,17 +124,33 @@ SpeciesTable<T> to_species(const HostParams& h) {
 }
 
 // p with species s's constants in place of its own (the port of
-// pallas_kernels._make_sel).  s is the same for every thread; the entry is
-// picked by a chain of selects over constant indices, so the table stays in
-// the parameter bank instead of being copied to local memory for a
-// run-time index.
+// pallas_kernels._make_sel).  s is the same for every thread.  Below
+// kMaxSpecies the entry is picked by a chain of selects over constant
+// indices, so the table stays in the parameter bank instead of being copied
+// to local memory for a run-time index; above, it is read from the device
+// table `dev` (uniform loads, once per species and thread).
 template <typename T>
 __device__ __forceinline__ Params<T> with_species(const Params<T>& p,
-                                                  const SpeciesTable<T>& tab, int s) {
+                                                  const SpeciesTable<T>& tab,
+                                                  const T* dev, int s) {
   Species<T> c = tab.s[0];
+  if (s < kMaxSpecies) {
 #pragma unroll
-  for (int j = 1; j < kMaxSpecies; ++j)
-    if (j == s) c = tab.s[j];
+    for (int j = 1; j < kMaxSpecies; ++j)
+      if (j == s) c = tab.s[j];
+  } else {
+    const T* r = dev + static_cast<long long>(s) * kSpeciesFields;
+    c.kform = static_cast<int>(__ldg(r));
+    c.dtqm_half = __ldg(r + 1);
+    c.dtqm_full = __ldg(r + 2);
+    c.charge = __ldg(r + 3);
+    c.k_v0 = __ldg(r + 4);
+    c.k_iv = __ldg(r + 5);
+    c.k_ivb = __ldg(r + 6);
+    c.k_half_iv = __ldg(r + 7);
+    c.k_half_ivb = __ldg(r + 8);
+    c.k_log_ratio = __ldg(r + 9);
+  }
   Params<T> q = p;
   q.kform = c.kform;
   q.dtqm_half = c.dtqm_half;
@@ -213,28 +238,45 @@ struct PairOf<double> {
 template <typename T>
 using Pair = typename PairOf<T>::type;
 
-// hat_trig with the grid angles gathered from a table: ang[j * nx + ix] is
-// (cos, sin) of 2 pi (m_j ix mod nx) / nx for kept mode j, built on the host
-// in float64 and rounded once to T (ops/substep_kernels.angle_table).  The
-// same cell index, clamp and hat fold as hat_trig; no %, divide or sincospi.
+// The cell of x in [0, lx): its hat fraction f and its index ix0, clamped
+// (hat_trig's).
+template <typename T>
+__device__ __forceinline__ void hat_cell(const Params<T>& p, T x, T* f, int* ix0) {
+  const T s = x * p.nx_over_lx;
+  const T fl = floor_t(s);
+  *f = s - fl;
+  *ix0 = min(max(static_cast<int>(fl), 0), p.nx - 1);
+}
+
+// (C, S) of kept mode j in cell ix0 at fraction f, from the grid-angle
+// table ang (ang[j * nx + ix] is (cos, sin) of 2 pi (m_j ix mod nx) / nx,
+// built on the host in float64 and rounded once to T,
+// ops/substep_kernels.angle_table) and the mode's constants
+// cdm1 = cos(2 pi m_j / nx) - 1 and sd = sin(2 pi m_j / nx): hat_trig's
+// fold, with no %, divide or sincospi.
+template <typename T>
+__device__ __forceinline__ void hat_mode(const Pair<T>* ang, int nx, int j, int ix0, T f,
+                                         T cdm1, T sd, T* C, T* S) {
+  const Pair<T> e = ang[j * nx + ix0];
+  const T a = T(1) + f * cdm1;
+  const T b = f * sd;
+  *C = e.x * a - e.y * b;
+  *S = e.y * a + e.x * b;
+}
+
+// hat_trig with the grid angles gathered from the table (hat_mode) for the
+// first NM kept modes, whose constants p holds (NM <= kMaxModes).
 template <typename T, int NM>
 __device__ __forceinline__ void hat_table(const Params<T>& p, const Pair<T>* ang, T x,
                                           T (&C)[NM], T (&S)[NM]) {
-  const T s = x * p.nx_over_lx;
-  const T fl = floor_t(s);
-  const T f = s - fl;
-  const int ix0 = min(max(static_cast<int>(fl), 0), p.nx - 1);
+  T f;
+  int ix0;
+  hat_cell(p, x, &f, &ix0);
 #pragma unroll
   for (int j = 0; j < NM; ++j) {
     C[j] = T(0);
     S[j] = T(0);
-    if (j < p.nmode) {
-      const Pair<T> e = ang[j * p.nx + ix0];
-      const T a = T(1) + f * p.cdm1[j];
-      const T b = f * p.sd[j];
-      C[j] = e.x * a - e.y * b;
-      S[j] = e.y * a + e.x * b;
-    }
+    if (j < p.nmode) hat_mode(ang, p.nx, j, ix0, f, p.cdm1[j], p.sd[j], &C[j], &S[j]);
   }
 }
 

@@ -7,6 +7,10 @@ streams, in each of its layouts (pallas_kernels.py:499-508):
     nonlinear delta-f (stream_v1):
       substep 1:  read x0, v0, p, w0            write w1, v1
       substep 2:  read x0, v0, p, w0, w1, v1    write x2, v2, w2 over x0, v0, w0
+    nonlinear delta-f, recompute (stream_v1=False; substep 2 rebuilds v1
+    from the step-start modes, the same bits as substep 1's v1):
+      substep 1:  read x0, v0, p, w0            write w1
+      substep 2:  read x0, v0, p, w0, w1        write x2, v2, w2 over x0, v0, w0
     linear delta-f (v frozen, drive p E):
       substep 1:  read x0, v0, p, w0            write w1
       substep 2:  read x0, v0, p, w0, w1        write x2, w2 over x0, w0
@@ -24,16 +28,21 @@ round-to-nearest-even after substep 1 has deposited it unrounded
 holds
 
   * the CUDA kernels of csrc/substep_kernels.cu, built by nvcc at first use
-    and bound through ctypes: one body per substep for every layout, up to
-    MAX_SPECIES species and every equilibrium (the C side picks the main
-    path's instantiation for one bump-on-tail or Maxwellian species in
-    nonlinear delta-f, the species loop otherwise); one launch counter per
-    layout and build (KERNELS).  What they take beside the streams is made
-    here: the grid-angle table (angle_table, staged into shared memory when
-    it fits, angle_smem_bytes), the grid (launch_grid: vector_width markers
-    per thread and iteration, at most BLOCKS_PER_SM blocks per SM), and the
-    counter with which the last block finds out that it sums the partials
-    into the projections;
+    and bound through ctypes: one body per substep for every layout, any
+    number of species and of kept modes and every equilibrium (the C side
+    picks the main path's instantiation for one bump-on-tail or Maxwellian
+    species in nonlinear delta-f with up to MAX_MODES modes, the species loop
+    otherwise, and above MAX_MODES modes the wide bin, one pass over the
+    markers per MAX_MODES modes); one launch counter per layout and build
+    (KERNELS).  What they take beside the streams is made here: the
+    grid-angle table (angle_table, staged into shared memory when it fits,
+    angle_smem_bytes), the species table (species_table: the species past
+    the MAX_SPECIES the parameters hold read their constants from it) and
+    the mode table (mode_table: the wide bin reads every mode's constants
+    from it), the grid (launch_grid: vector_width markers per thread and
+    iteration, at most BLOCKS_PER_SM blocks per SM), and the counter with
+    which the last block finds out that it sums the partials into the
+    projections;
   * the plain PyTorch version, FusedSubsteps.substep1_plain / substep2_plain,
     the same function written with the port's mode_trig / efield_at /
     project_modes and distributions.minus_dlnf0_dv, on any device;
@@ -61,8 +70,11 @@ from pic1dp_tpu_torch.ops.spectral import efield_at, mode_trig, project_modes
 from pic1dp_tpu_torch.utils import nvcc
 from pic1dp_tpu_torch.utils.nvcc import CudaKernel
 
-MAX_MODES = 16          # kMaxModes in csrc/substep_math.cuh
-MAX_SPECIES = 8         # kMaxSpecies in csrc/substep_math.cuh
+# kMaxModes in csrc/substep_math.cuh: the modes SubstepParams holds, the
+# widest register bin and the modes of one pass of the wide bin
+MAX_MODES = 16
+# kMaxSpecies: the species SubstepParams holds
+MAX_SPECIES = 8
 THREADS = 256           # kThreads in csrc/substep_kernels.cu
 # kAngleSmemMax in csrc/substep_kernels.cu: the 48 KB a launch gets without
 # an opt-in, less 4 KB kept for the kernels' static shared memory
@@ -87,13 +99,20 @@ SUBSTEP1_LINEAR_BF16 = CudaKernel("substep1_linear_bf16", _SRC, f"{_TPU}:526")
 SUBSTEP2_LINEAR_BF16 = CudaKernel("substep2_linear_bf16", _SRC, f"{_TPU}:604")
 SUBSTEP1_FULLF = CudaKernel("substep1_fullf", _SRC, f"{_TPU}:629")
 SUBSTEP2_FULLF = CudaKernel("substep2_fullf", _SRC, f"{_TPU}:601")
+# nonlinear delta-f without stream_v1 (:501-507): substep 1 stores no v1
+# (:588), substep 2 rebuilds it (:601)
+SUBSTEP1_RECOMPUTE = CudaKernel("substep1_recompute", _SRC, f"{_TPU}:588")
+SUBSTEP2_RECOMPUTE = CudaKernel("substep2_recompute", _SRC, f"{_TPU}:601")
+SUBSTEP1_RECOMPUTE_BF16 = CudaKernel("substep1_recompute_bf16", _SRC, f"{_TPU}:588")
+SUBSTEP2_RECOMPUTE_BF16 = CudaKernel("substep2_recompute_bf16", _SRC, f"{_TPU}:601")
 KERNELS = (SUBSTEP1, SUBSTEP2, SUBSTEP1_BF16, SUBSTEP2_BF16,
            SUBSTEP1_LINEAR, SUBSTEP2_LINEAR, SUBSTEP1_LINEAR_BF16, SUBSTEP2_LINEAR_BF16,
-           SUBSTEP1_FULLF, SUBSTEP2_FULLF)
+           SUBSTEP1_FULLF, SUBSTEP2_FULLF, SUBSTEP1_RECOMPUTE, SUBSTEP2_RECOMPUTE,
+           SUBSTEP1_RECOMPUTE_BF16, SUBSTEP2_RECOMPUTE_BF16)
 
 # layouts: the int is enum Layout of csrc/substep_kernels.cu
-NONLINEAR, LINEAR, FULLF = "nonlinear", "linear", "fullf"
-_LAYOUT_IDS = {NONLINEAR: 0, LINEAR: 1, FULLF: 2}
+NONLINEAR, LINEAR, FULLF, RECOMPUTE = "nonlinear", "linear", "fullf", "recompute"
+_LAYOUT_IDS = {NONLINEAR: 0, LINEAR: 1, FULLF: 2, RECOMPUTE: 3}
 
 # (arithmetic dtype, storage dtype of p and w1) -> C suffix
 _SUFFIX = {(torch.float32, torch.float32): "f32",
@@ -106,10 +125,15 @@ _COUNTERS = {
     (LINEAR, False): (SUBSTEP1_LINEAR, SUBSTEP2_LINEAR),
     (LINEAR, True): (SUBSTEP1_LINEAR_BF16, SUBSTEP2_LINEAR_BF16),
     (FULLF, False): (SUBSTEP1_FULLF, SUBSTEP2_FULLF),
+    (RECOMPUTE, False): (SUBSTEP1_RECOMPUTE, SUBSTEP2_RECOMPUTE),
+    (RECOMPUTE, True): (SUBSTEP1_RECOMPUTE_BF16, SUBSTEP2_RECOMPUTE_BF16),
 }
 
+# each species' constants after kform, in the order of SubstepParams' sp_*
+# arrays and of a row of the species table (kSpeciesFields = 1 + 9)
 _SPECIES_FIELDS = ("dtqm_half", "dtqm_full", "charge", "k_v0", "k_iv", "k_ivb",
                    "k_half_iv", "k_half_ivb", "k_log_ratio")
+SPECIES_FIELDS = 1 + len(_SPECIES_FIELDS)
 
 
 class SubstepParams(ctypes.Structure):
@@ -130,11 +154,35 @@ class SubstepParams(ctypes.Structure):
     ]
 
 
-def layout(cfg: Config) -> str:
-    """The kernel layout of a config: which streams the substeps update."""
+def layout(cfg: Config, stream_v1: bool | None = None) -> str:
+    """The kernel layout of a config: which streams the substeps update and
+    stream.  stream_v1 chooses between the two nonlinear delta-f layouts
+    (True streams v1, False rebuilds it, as pallas_kernels.FusedStepper's
+    flag); None takes the one measured faster on the H100 for the config
+    (rebuilds_v1_faster).  The other layouts ignore it."""
     if not cfg.deltaf:
         return FULLF
-    return LINEAR if cfg.linear else NONLINEAR
+    if cfg.linear:
+        return LINEAR
+    if stream_v1 is None:
+        stream_v1 = not rebuilds_v1_faster(cfg)
+    return NONLINEAR if stream_v1 else RECOMPUTE
+
+
+# markers (all species) above which rebuilding v1 is faster with one kept mode
+REBUILD_V1_MIN_MARKERS = 2**20
+
+
+def rebuilds_v1_faster(cfg: Config) -> bool:
+    """Whether nonlinear delta-f runs faster with substep 2 rebuilding v1
+    than with v1 streamed, on the H100 (PERF.md, graph steps of both layouts
+    in turns): with one kept mode and more than REBUILD_V1_MIN_MARKERS
+    markers, where the two streams it saves dominate (0.85-0.94x the
+    streamed step, one species or the species loop, f32 and bf16).  With 4
+    modes the extra gather costs more than the streams (1.02-1.06x), with 16
+    or more much more (1.44x), and at 1M markers or fewer the steps are
+    launch-bound and equal within 2%."""
+    return cfg.nmode == 1 and cfg.nspecies * cfg.nparticle_max > REBUILD_V1_MIN_MARKERS
 
 
 def _drive_constants(cfg: Config) -> list[dict]:
@@ -175,18 +223,33 @@ def _drive_constants(cfg: Config) -> list[dict]:
     return out
 
 
+def species_constants(cfg: Config) -> list[dict]:
+    """Each species' kernel constants in double, as the kernels read them:
+    kform and the k_* constants of its -f0'/f0 form, dt q/m at half and
+    full dt, and its charge."""
+    return [dict(drive, dtqm_half=0.5 * cfg.dt * (sp.charge / sp.mass),
+                 dtqm_full=cfg.dt * (sp.charge / sp.mass), charge=sp.charge)
+            for sp, drive in zip(cfg.species, _drive_constants(cfg))]
+
+
+def mode_constants(cfg: Config) -> tuple[list[float], list[float]]:
+    """cos(2 pi m / nx) - 1 and sin(2 pi m / nx) of each kept mode m, in
+    double: the hat fold's constants (hat_mode)."""
+    steps = [2.0 * math.pi * m / cfg.nx for m in cfg.modes]
+    return [math.cos(a) - 1.0 for a in steps], [math.sin(a) for a in steps]
+
+
 def kernel_params(cfg: Config) -> SubstepParams:
-    """The kernels' constants for cfg (n is set per launch), or
-    NotImplementedError for a variant outside the kernels' set."""
+    """The kernels' constants for cfg (n is set per launch): the first
+    MAX_MODES modes and MAX_SPECIES species (mode_table and species_table
+    hold them all); NotImplementedError for a config no kernel serves."""
     why = []
-    if cfg.nspecies > MAX_SPECIES:
-        why.append(f"{cfg.nspecies} species (at most {MAX_SPECIES})")
     if cfg.dtype not in ("float32", "float64"):
         why.append(f"dtype {cfg.dtype}")
     if cfg.bf16_weights and not cfg.deltaf:
         why.append("bf16_weights with full-f")
-    if not 1 <= cfg.nmode <= MAX_MODES:
-        why.append(f"{cfg.nmode} kept modes (at most {MAX_MODES})")
+    if cfg.nmode < 1:
+        why.append("no kept mode")
     if any(m < 1 or m * cfg.nx >= 2**31 for m in cfg.modes):
         why.append(f"modes {cfg.modes} with nx {cfg.nx}")
     if why:
@@ -194,19 +257,33 @@ def kernel_params(cfg: Config) -> SubstepParams:
                                   + "; ".join(why))
     prm = SubstepParams()
     prm.nmode, prm.nx = cfg.nmode, cfg.nx
-    for j, m in enumerate(cfg.modes):
-        step = 2.0 * math.pi * m / cfg.nx
-        prm.modes[j], prm.cdm1[j], prm.sd[j] = m, math.cos(step) - 1.0, math.sin(step)
+    cdm1, sd = mode_constants(cfg)
+    for j, m in enumerate(cfg.modes[:MAX_MODES]):
+        prm.modes[j], prm.cdm1[j], prm.sd[j] = m, cdm1[j], sd[j]
     prm.lx, prm.inv_lx, prm.nx_over_lx = cfg.lx, 1.0 / cfg.lx, cfg.nx / cfg.lx
     prm.dt_half, prm.dt = 0.5 * cfg.dt, cfg.dt
     prm.nspecies = cfg.nspecies
-    for i, (sp, drive) in enumerate(zip(cfg.species, _drive_constants(cfg))):
-        consts = dict(drive, dtqm_half=0.5 * cfg.dt * (sp.charge / sp.mass),
-                      dtqm_full=cfg.dt * (sp.charge / sp.mass), charge=sp.charge)
-        prm.sp_kform[i] = consts.pop("kform")
-        for name, value in consts.items():
-            getattr(prm, f"sp_{name}")[i] = value
+    for i, consts in enumerate(species_constants(cfg)[:MAX_SPECIES]):
+        prm.sp_kform[i] = consts["kform"]
+        for name in _SPECIES_FIELDS:
+            getattr(prm, f"sp_{name}")[i] = consts.get(name, 0.0)
     return prm
+
+
+def species_table(cfg: Config, dtype: torch.dtype, device) -> torch.Tensor:
+    """(nspecies, SPECIES_FIELDS): each species' kform and constants
+    (species_constants) rounded once to dtype, as Params<T> rounds the
+    parameters; the kernels read the rows of species MAX_SPECIES and above."""
+    rows = [[c["kform"], *(c.get(name, 0.0) for name in _SPECIES_FIELDS)]
+            for c in species_constants(cfg)]
+    return torch.tensor(rows, dtype=torch.float64).to(device=device, dtype=dtype)
+
+
+def mode_table(cfg: Config, dtype: torch.dtype, device) -> torch.Tensor:
+    """(2, nmode): mode_constants rounded once to dtype; the wide bin reads
+    every mode's constants from it."""
+    return torch.tensor(mode_constants(cfg), dtype=torch.float64).to(device=device,
+                                                                      dtype=dtype)
 
 
 _lib: ctypes.CDLL | None = None
@@ -223,18 +300,20 @@ def library() -> ctypes.CDLL:
             raise RuntimeError("MAX_MODES does not match kMaxModes")
         if lib.pic1dp_max_species() != MAX_SPECIES:
             raise RuntimeError("MAX_SPECIES does not match kMaxSpecies")
+        if lib.pic1dp_species_fields() != SPECIES_FIELDS:
+            raise RuntimeError("SPECIES_FIELDS does not match kSpeciesFields")
         if lib.pic1dp_angle_smem_max() != ANGLE_SMEM_MAX:
             raise RuntimeError("ANGLE_SMEM_MAX does not match kAngleSmemMax")
         if any(lib.pic1dp_vector_width(m, b) != vector_width(m, b)
-               for m in range(1, MAX_MODES + 1) for b in (4, 8)):
+               for m in range(1, 4 * MAX_MODES + 1) for b in (4, 8)):
             raise RuntimeError("vector_width does not match vec_width")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         prm = ctypes.POINTER(SubstepParams)
         for suffix in _SUFFIX.values():
             getattr(lib, f"pic1dp_substep1_{suffix}").argtypes = \
-                [prm, i32] + [ptr] * 12 + [i32, i32, ptr]
-            getattr(lib, f"pic1dp_substep2_{suffix}").argtypes = \
                 [prm, i32] + [ptr] * 14 + [i32, i32, ptr]
+            getattr(lib, f"pic1dp_substep2_{suffix}").argtypes = \
+                [prm, i32] + [ptr] * 16 + [i32, i32, ptr]
         lib.pic1dp_grid_angle_f32.argtypes = [ptr, i32, i64, ptr, ptr, ptr]
         for suffix in ("f32", "f64"):
             getattr(lib, f"pic1dp_angle_gather_{suffix}").argtypes = [ptr, i32, ptr, i64, ptr, ptr]
@@ -248,8 +327,8 @@ def vector_width(nmode: int, itemsize: int) -> int:
     """Markers per thread and iteration of the kernel that runs nmode kept
     modes with arithmetic of `itemsize` bytes: one 16-byte load per stream
     (4 in float, 2 in double) in the bins of at most 4 modes, 1 in the
-    16-mode bin, whose per-mode sums fill the registers (vec_width in
-    csrc/substep_kernels.cu)."""
+    16-mode bin and the wide bin, whose per-mode sums fill the registers
+    (vec_width in csrc/substep_kernels.cu)."""
     return 1 if nmode > 4 else 16 // itemsize
 
 
@@ -329,19 +408,25 @@ class FusedSubsteps:
     `sp` holds the species parameters at the state's dtype and device, for
     the plain versions; the kernels' angle table and counters (one int per
     substep, 0 between launches) are made once on the same device, outside
-    any CUDA graph capture, and a launch refuses streams on another device.
-    Streams a layout does not write come back as None from substep 1 and are
-    ignored by substep 2 (full-f takes no w1 or v1, linear no v1); substep 2
-    takes the step-start modes as well in full-f, where it rebuilds v1 from
-    them.  blocks_per_sm caps the grid (launch_grid)."""
+    any CUDA graph capture, and a launch refuses streams on another device;
+    so are the species and mode tables.  stream_v1 picks the nonlinear
+    delta-f layout: v1 streamed from substep 1 to substep 2 (True) or
+    rebuilt by substep 2 (False, RECOMPUTE), by default the config's own
+    (layout); the other layouts ignore it.  Streams a layout does not write come back as None from
+    substep 1 and are ignored by substep 2 (full-f takes no w1 or v1, linear
+    and recompute no v1); substep 2 takes the step-start modes as well where
+    it rebuilds v1 from them (full-f and recompute).  blocks_per_sm caps the
+    grid (launch_grid)."""
 
-    def __init__(self, cfg: Config, sp: dist.SpeciesParams):
+    def __init__(self, cfg: Config, sp: dist.SpeciesParams, stream_v1: bool | None = None):
         self.cfg = cfg
         self.sp = sp
         self.q_over_m = sp.charge / sp.mass
-        self.layout = layout(cfg)
+        self.layout = layout(cfg, stream_v1)
         self.has_v = self.layout != LINEAR
         self.has_w = self.layout != FULLF
+        # substep 2 rebuilds v1 from the step-start modes
+        self.rebuilds_v1 = self.layout in (FULLF, RECOMPUTE)
         # what each kernel takes, per stream: p and w1 at cfg.p_dtype, the
         # other streams and the modes at cfg.dtype
         dtype, narrow = getattr(torch, cfg.dtype), getattr(torch, cfg.p_dtype)
@@ -355,10 +440,12 @@ class FusedSubsteps:
             # raised again at the first CUDA launch; CPU runs need no kernel
             self._params, self._unsupported = None, exc
         self.blocks_per_sm = BLOCKS_PER_SM
-        self.angles = self._done = None
+        self.angles = self._done = self.species = self.modes = None
         if self._unsupported is None:
             device = sp.charge.device
             self.angles = angle_table(cfg, dtype, device)
+            self.species = species_table(cfg, dtype, device)
+            self.modes = mode_table(cfg, dtype, device)
             self._done = torch.zeros(2, dtype=torch.int32, device=device)
             self._vec = vector_width(cfg.nmode, self.angles.element_size())
             self._angle_smem = angle_smem_bytes(cfg.nmode, cfg.nx, self.angles.element_size())
@@ -399,21 +486,22 @@ class FusedSubsteps:
         """(x0, v0, p, w0) + step-start modes -> (w1, v1, (p_c, p_s)).  w1
         is returned at p's storage dtype (rounded to nearest even under
         bf16_weights); the projections deposit it unrounded.  w1 is None in
-        full-f and v1 None outside nonlinear delta-f."""
-        e0 = self._efield(x, mode_re, mode_im)
-        x1, v1, w1 = self._push(x, v, p, w, v, w, e0, 0.5 * self.cfg.dt)
+        full-f and v1 None outside the streamed nonlinear delta-f layout."""
+        x1, v1, w1 = self._push(x, v, p, w, v, w, self._efield(x, mode_re, mode_im),
+                                0.5 * self.cfg.dt)
         proj = self._project(x1, self._deposit_val(p, w1))
         return (w1.to(p.dtype) if self.has_w else None,
                 v1 if self.layout == NONLINEAR else None, proj)
 
     def substep2_plain(self, x, v, p, w, w1, v1, mode_re1, mode_im1,
                        mode_re0=None, mode_im0=None):
-        """(x0, v0, p, w0, w1, v1) + midpoint modes (and, in full-f, the
-        step-start modes) -> (x2, v2, w2, (p_c, p_s)); x2, v2, w2 are x, v, w
-        updated in place where the layout updates them.  p and w1 are at p's
-        storage dtype."""
+        """(x0, v0, p, w0, w1, v1) + midpoint modes (and, where v1 is
+        rebuilt, the step-start modes) -> (x2, v2, w2, (p_c, p_s)); x2, v2, w2
+        are x, v, w updated in place where the layout updates them.  p and w1
+        are at p's storage dtype.  The rebuilt v1 is substep1_plain's
+        expression on the same values, so the same bits."""
         cfg = self.cfg
-        if self.layout == FULLF:
+        if self.rebuilds_v1:
             self._need_step_start_modes(mode_re0, mode_im0)
             v_mid = v + 0.5 * cfg.dt * self._efield(x, mode_re0, mode_im0) * self.q_over_m
         else:
@@ -429,10 +517,9 @@ class FusedSubsteps:
             w.copy_(w2)
         return x, v, w, proj
 
-    @staticmethod
-    def _need_step_start_modes(mode_re0, mode_im0):
+    def _need_step_start_modes(self, mode_re0, mode_im0):
         if mode_re0 is None or mode_im0 is None:
-            raise ValueError("full-f substep 2 rebuilds v1 from the step-start "
+            raise ValueError(f"{self.layout} substep 2 rebuilds v1 from the step-start "
                              "modes: pass mode_re0 and mode_im0")
 
     # ---- dispatch ----
@@ -446,8 +533,8 @@ class FusedSubsteps:
         sums = self._sums(x, grid)
         rc = getattr(lib, f"pic1dp_substep1_{self._suffix}")(
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
-            *_pointers(x, v, p, w, mode_re, mode_im, w1, v1, sums, sums[grid], self._done[0],
-                       self.angles),
+            *_pointers(x, v, p, w, mode_re, mode_im, self.species, self.modes, w1, v1, sums,
+                       sums[grid], self._done[0], self.angles),
             self._angle_smem, grid, torch.cuda.current_stream(x.device).cuda_stream)
         self.counters[0].launched(rc, lib)
         return w1, v1, (sums[grid, 0], sums[grid, 1])
@@ -462,17 +549,17 @@ class FusedSubsteps:
             streams["w1"] = w1
         if self.layout == NONLINEAR:
             streams["v1"] = v1
-        if self.layout == FULLF:
+        if self.rebuilds_v1:
             self._need_step_start_modes(mode_re0, mode_im0)
             modes += (mode_re0, mode_im0)
         prm, lib, grid = self._prepare(streams, modes)
         sums = self._sums(x, grid)
-        full = self.layout == FULLF
+        start = (mode_re0, mode_im0) if self.rebuilds_v1 else (None, None)
         rc = getattr(lib, f"pic1dp_substep2_{self._suffix}")(
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
             *_pointers(x, v, p, w, streams.get("w1"), streams.get("v1"), mode_re1, mode_im1,
-                       mode_re0 if full else None, mode_im0 if full else None,
-                       sums, sums[grid], self._done[1], self.angles),
+                       *start, self.species, self.modes, sums, sums[grid], self._done[1],
+                       self.angles),
             self._angle_smem, grid, torch.cuda.current_stream(x.device).cuda_stream)
         self.counters[1].launched(rc, lib)
         return x, v, w, (sums[grid, 0], sums[grid, 1])
@@ -483,9 +570,10 @@ class FusedSubsteps:
         return torch.empty((grid + 1, 2, self.cfg.nmode), dtype=x.dtype, device=x.device)
 
     def check_scratch(self, device: torch.device) -> None:
-        """Refuse a launch on `device` unless the angle table and the
-        counters lie there."""
-        for name, t in (("angle table", self.angles), ("counters", self._done)):
+        """Refuse a launch on `device` unless the angle, species and mode
+        tables and the counters lie there."""
+        for name, t in (("angle table", self.angles), ("counters", self._done),
+                        ("species table", self.species), ("mode table", self.modes)):
             if t.device != device:
                 raise ValueError(f"the substep kernels' {name} lies on {t.device}, the "
                                  f"streams on {device}: build FusedSubsteps with species "

@@ -3,7 +3,8 @@
 Port of bench/kernel_probe.py.  It times
 
   1. the real substep kernels, f32 and bf16_weights (separate bf16 p and w1
-     streams), per call;
+     streams), per call, with v1 streamed from substep 1 to substep 2 and
+     without (the recompute layout: substep 2 rebuilds v1);
   2. stream-only kernels (ops/stream_probes.stream_rw: the same direct-load
      access, trivial compute) for the TPU probe's patterns, 4r+1w (substep 1
      without v1) and 4r+3w (substep 2) aliased, 4r+3w not aliased, 3r+1w
@@ -12,7 +13,8 @@ Port of bench/kernel_probe.py.  It times
      and 6r+3w with x, v, w overwritten;
   3. the compute overhang: kernel time minus the time its bytes take at the
      ceiling rate of its pattern (:217-220);
-  4. on cuda, the substep kernels again with their grid capped at each of
+  4. on cuda, the substep kernels of the layout the config takes
+     (substep_kernels.layout) again with their grid capped at each of
      SWEEP_BLOCKS_PER_SM blocks per SM (the sweep that chose
      substep_kernels.BLOCKS_PER_SM).
 
@@ -30,7 +32,7 @@ import torch
 from pic1dp_tpu_torch import distributions as dist
 from pic1dp_tpu_torch.config import bump_on_tail_default
 from pic1dp_tpu_torch.ops.stream_probes import stream_rw
-from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+from pic1dp_tpu_torch.ops.substep_kernels import NONLINEAR, FusedSubsteps
 from pic1dp_tpu_torch.probes import (Row, describe, device_from_arg, fresh_streams,
                                      line, parser, time_ms)
 
@@ -47,15 +49,20 @@ PORT_PATTERNS = (
     ("port ss2 pattern 6r+3w aliased", 6, 3, {0: 0, 1: 1, 3: 2}),
 )
 # bytes per marker of one call: substep 1 reads x v p w, writes w1 v1;
-# substep 2 reads x v p w w1 v1, writes x v w.  bf16_weights narrows p, w1.
-SUBSTEP_BYTES = {"f32": (24, 36), "bf16": (20, 32)}
+# substep 2 reads x v p w w1 v1, writes x v w.  bf16_weights narrows p, w1;
+# the recompute layout drops the v1 stream (substep 1 writes w1 only,
+# substep 2 reads x v p w w1)
+SUBSTEP_BYTES = {("f32", "nonlinear"): (24, 36), ("bf16", "nonlinear"): (20, 32),
+                 ("f32", "recompute"): (20, 32), ("bf16", "recompute"): (16, 28)}
 SWEEP_BLOCKS_PER_SM = (2, 4, 8, 16)
 
 
 def substep_rows(n: int, device: torch.device, bf16: bool,
-                 blocks_per_sm: int | None = None) -> tuple[Row, Row]:
+                 blocks_per_sm: int | None = None,
+                 stream_v1: bool | None = None) -> tuple[Row, Row]:
     """ms per call of both substeps at n markers, nx 1024, one mode (with
-    the grid capped at blocks_per_sm blocks per SM where given)."""
+    the grid capped at blocks_per_sm blocks per SM where given), with v1
+    streamed or rebuilt (by default as the config's layout)."""
     cfg = bump_on_tail_default(nx=1024, nparticle_max=n, dtype="float32",
                                bf16_weights=bf16, verbosity=0)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -66,15 +73,17 @@ def substep_rows(n: int, device: torch.device, bf16: bool,
     w = torch.randn((1, n), generator=gen, device=device) * 1e-6
     mre = torch.tensor([1e-4], device=device)
     mim = torch.tensor([5e-5], device=device)
-    subs = FusedSubsteps(cfg, dist.SpeciesParams.from_config(cfg, torch.float32, device))
+    subs = FusedSubsteps(cfg, dist.SpeciesParams.from_config(cfg, torch.float32, device),
+                         stream_v1=stream_v1)
     if blocks_per_sm is not None:
         subs.blocks_per_sm = blocks_per_sm
     w1, v1, _ = subs.substep1(x, v, p, w, mre, mim)
     t1 = time_ms(lambda: subs.substep1(x, v, p, w, mre, mim), device)
-    t2 = time_ms(lambda: subs.substep2(x, v, p, w, w1, v1, mre, mim), device)
+    t2 = time_ms(lambda: subs.substep2(x, v, p, w, w1, v1, mre, mim, mre, mim), device)
     name = "bf16" if bf16 else "f32"
-    tag = "" if blocks_per_sm is None else f" B={blocks_per_sm}"
-    b1, b2 = SUBSTEP_BYTES[name]
+    tag = ("" if subs.layout == NONLINEAR else f" {subs.layout}") + (
+        "" if blocks_per_sm is None else f" B={blocks_per_sm}")
+    b1, b2 = SUBSTEP_BYTES[name, subs.layout]
     return (Row(f"{name} substep1{tag}", t1, b1 * n),
             Row(f"{name} substep2{tag}", t2, b2 * n))
 
@@ -92,10 +101,10 @@ def run(n: int, device: torch.device, say=print) -> dict[str, Row]:
     rows: dict[str, Row] = {}
     say("-- real kernels (per call; GB/s of the streams) --")
     for bf16 in (False, True):
-        for row in substep_rows(n, device, bf16):
-            rows[row.label] = row
-            say(line(row, device))
-    say("f32 without v1 streamed: not ported (the port has the stream_v1 layout only)")
+        for stream_v1 in (True, False):
+            for row in substep_rows(n, device, bf16, stream_v1=stream_v1):
+                rows[row.label] = row
+                say(line(row, device))
     say("packed p||w1: not ported (pallas_kernels.py:185-248 avoids a Mosaic penalty; "
         "the bf16 rows above are separate bf16 streams)")
     say("-- stream-only ceilings (stream_rw, direct float4 loads, 4 blocks/SM) --")

@@ -55,7 +55,7 @@ x, v, p, w, (m0, m1, m2, m3), sp = cs._inputs(main, 1 << 16, "cuda")
 subs = FusedSubsteps(main, sp)
 w1, v1, _ = subs.substep1(x, v, p, w, m0, m1)
 for name, fn in (("substep1", lambda: subs.substep1(x, v, p, w, m0, m1)),
-                 ("substep2", lambda: subs.substep2(x, v, p, w, w1, v1, m2, m3))):
+                 ("substep2", lambda: subs.substep2(x, v, p, w, w1, v1, m2, m3, m0, m1))):
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()

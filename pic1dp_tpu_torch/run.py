@@ -12,11 +12,14 @@ overrides, on an explicit device:
     python -m pic1dp_tpu_torch.run --resume run1/checkpoint.npz -s time_max=200
     python -m pic1dp_tpu_torch.run -s shape=1                # the EXPLICIT grid path
     python -m pic1dp_tpu_torch.run -s "rng={'backend': 'multirand'}" --emulate-ranks 4
+    python -m pic1dp_tpu_torch.run --phase-table             # per-phase ms/step, to stderr
+    python -m pic1dp_tpu_torch.run --profile trace_dir       # torch.profiler trace
+    PIC1DP_STREAM_V1=0 python -m pic1dp_tpu_torch.run        # substep 2 rebuilds v1
 
 A schedule of particle optimization (merge/remove/split) is part of the
 config: write one with --write-config, fill in `optimization`, run it with
--c.  Of the JAX package's command line, --phase-table, --profile, --mesh and
---distributed are not ported.
+-c.  Of the JAX package's command line, --mesh and --distributed are not
+ported.
 """
 
 from __future__ import annotations
@@ -24,9 +27,12 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
+import os
 import sys
 
 from pic1dp_tpu_torch import config as config_mod
+
+TRACE_FILE = "pic1dp_trace.json"   # what --profile writes into its directory
 
 _PRESETS = {
     "bump_on_tail": config_mod.bump_on_tail_default,
@@ -75,6 +81,12 @@ def main(argv=None) -> int:
                     "markers in the draw order of an npe-rank reference run")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
+    ap.add_argument("--profile", metavar="<trace dir>", default=None,
+                    help="write a torch.profiler trace of the run (CPU and, on a "
+                    f"CUDA device, CUDA activity) to <trace dir>/{TRACE_FILE}")
+    ap.add_argument("--phase-table", action="store_true",
+                    help="after the run, print the per-phase step decomposition "
+                    "(reference wtimer granularity) to stderr")
     args = ap.parse_args(argv)
 
     if args.config:
@@ -106,7 +118,21 @@ def main(argv=None) -> int:
                      emulate_ranks=args.emulate_ranks, device=device)
     if args.resume:
         sim.restore_checkpoint(args.resume)
-    sim.run()
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            sim.run()
+            sim._sync()
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, TRACE_FILE)
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")
+    else:
+        sim.run()
+    if args.phase_table:
+        print(sim.phase_table(), file=sys.stderr)
     return 0
 
 

@@ -98,3 +98,29 @@ CASES = {
     "bot_density_0": lambda m, dt: _species(
         _bot(m, dt, nx=64), m, dict(dataclasses.asdict(m.SpeciesConfig()), density=0.0)),
 }
+
+
+def _landau_species(m, dtype, count):
+    """Landau damping carried by `count` electron species of density
+    1/count: identical ones for 9, distinct masses, temperatures and drifts
+    otherwise (every species' constants differ, those past the parameter
+    table's eight included)."""
+    if count == 9:
+        params = [dict(charge=-1.0, mass=1.0, temperature=1.0, density=1.0 / 9, v0=0.0)] * 9
+    else:
+        params = [dict(charge=-1.0, mass=1.0 + 0.1 * s, temperature=0.5 + 0.1 * s,
+                       density=1.0 / count, v0=0.2 * (s - count // 2))
+                  for s in range(count)]
+    return _species(_lan(m, dtype), m, *params)
+
+
+# configs past what the kernels' parameters hold: more than 16 kept modes
+# (the wide bin) and more than 8 species (the species table)
+WIDE_CASES = {
+    "bot_17_modes": lambda m, dt: dataclasses.replace(
+        _bot(m, dt, nx=64, modes=tuple(range(1, 18)), init_modes=(1,)), nparticle_max=1024),
+    "bot_33_modes": lambda m, dt: dataclasses.replace(
+        _bot(m, dt, nx=64, modes=tuple(range(1, 34)), init_modes=(1,)), nparticle_max=1024),
+    "landau_9_species": lambda m, dt: _landau_species(m, dt, 9),
+    "landau_12_species": lambda m, dt: _landau_species(m, dt, 12),
+}

@@ -102,10 +102,9 @@ def test_generator_is_used_and_on_the_device():
     assert a.x.device.type == "cpu" and a.x.dtype == torch.float64
 
 
-def test_multirand_backend_not_ported():
-    """Once a refusal, now the positive case: the backend loads the same
-    markers whatever generator is passed, and other ones than the
-    generator's."""
+def test_multirand_backend_ignores_the_generator():
+    """The multirand backend loads the same markers whatever generator is
+    passed, and other ones than the generator's."""
     cfg = dataclasses.replace(_bot(tcfg_mod), rng=tcfg_mod.RngConfig(backend="multirand"))
     a = load_particles(cfg, "cpu")
     b = load_particles(cfg, "cpu", generator=torch.Generator().manual_seed(99))

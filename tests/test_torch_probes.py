@@ -118,13 +118,16 @@ def test_cuda_path_checks_its_inputs():
 def test_kernel_probe_runs_on_cpu(capsys):
     rows = kernel_probe.main(["12", "--device", "cpu"])
     labels = [lbl for lbl, *_ in kernel_probe.TPU_PATTERNS + kernel_probe.PORT_PATTERNS]
-    assert set(rows) == {f"{d} substep{s}" for d in ("f32", "bf16") for s in (1, 2)} | set(labels)
+    assert set(rows) == {f"{d} substep{s}{tag}" for d in ("f32", "bf16") for s in (1, 2)
+                         for tag in ("", " recompute")} | set(labels)
     assert all(r.ms > 0 for r in rows.values())
     assert rows["bf16 substep1"].bytes == 20 * 2**12
+    assert rows["f32 substep1 recompute"].bytes == 20 * 2**12
+    assert rows["bf16 substep2 recompute"].bytes == 28 * 2**12
     assert rows["port ss2 pattern 6r+3w aliased"].bytes == 9 * 4 * 2**12
     out = capsys.readouterr().out
     assert "host clock" in out and "GB/s" not in out.split("-- real kernels")[1].splitlines()[1]
-    assert out.count("not ported") == 2
+    assert out.count("not ported") == 1       # the packed p||w1 layout
 
 
 def test_pipeline_probe_runs_on_cpu():

@@ -135,9 +135,9 @@ def test_nonfinite_field_energy_raises():
         sim.output_snapshot()
 
 
-def test_optimization_schedule_not_ported():
-    """Once a refusal, now the positive case: a schedule is accepted, the
-    split takes place at its time and fills dead slots."""
+def test_optimization_schedule_splits_at_its_time():
+    """A schedule is accepted, the split takes place at its time and fills
+    dead slots."""
     cfg = bot(nx=64, nparticle_max=2048, time_max=0.5, output_interval=0.25, dtype="float64",
               verbosity=0,
               species=(dataclasses.replace(tcfg_mod.SpeciesConfig(), nparticle_init=1024),),

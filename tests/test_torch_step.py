@@ -120,26 +120,23 @@ def test_graph_steps_refuse_a_cpu_state():
     assert stepper._graphs == {}
 
 
-@pytest.mark.parametrize("change,what", [
-    (dict(shape=tcfg_mod.ParticleShape.EXPLICIT), "EXPLICIT"),
-], ids=["explicit"])
-def test_unported_paths_raise(change, what):
-    """Once a refusal, now the positive case: the EXPLICIT grid path builds
-    and steps (tests/test_torch_grid.py holds it against the JAX package)."""
+def test_explicit_grid_path_steps():
+    """The EXPLICIT grid path builds and steps (tests/test_torch_grid.py
+    holds it against the JAX package)."""
     cfg = dataclasses.replace(tcfg_mod.bump_on_tail_default(nparticle_max=1024,
-                                                            dtype="float64"), **change)
+                                                            dtype="float64"),
+                              shape=tcfg_mod.ParticleShape.EXPLICIT)
     stepper = Stepper(cfg, "cpu")
-    assert stepper.explicit, what
+    assert stepper.explicit
     from pic1dp_tpu_torch.core.loading import load_particles
 
     state = stepper.step(stepper.initial_field(load_particles(cfg, "cpu")))
     assert np.isfinite(host(state.w)).all() and np.isfinite(host(state.electric)).all()
 
 
-def test_multirand_loader_not_ported():
-    """Once a refusal, now the positive case: the multirand backend loads
-    (tests/test_torch_multirand.py holds it against the JAX package) and the
-    loaded state steps."""
+def test_multirand_loaded_state_steps():
+    """The multirand backend loads (tests/test_torch_multirand.py holds it
+    against the JAX package) and the loaded state steps."""
     from pic1dp_tpu_torch.core.loading import load_particles
 
     cfg = dataclasses.replace(tcfg_mod.bump_on_tail_default(nparticle_max=1024,

@@ -21,7 +21,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port import CASES, assert_bf16_close, assert_rel, host, to_port
+from _torch_port import CASES, WIDE_CASES, assert_bf16_close, assert_rel, host, to_port
 
 import pic1dp_tpu.config as jcfg_mod
 from pic1dp_tpu.core.loading import load_particles as jax_load
@@ -58,9 +58,9 @@ def _state(jcfg, seed=3):
     return JaxStepper(jcfg).initial_field(jax_load(jcfg, jax.random.PRNGKey(seed)))
 
 
-def _substeps(tcfg):
+def _substeps(tcfg, stream_v1=True):
     return sk.FusedSubsteps(tcfg, tdist.SpeciesParams.from_config(
-        tcfg, getattr(torch, tcfg.dtype), "cpu"))
+        tcfg, getattr(torch, tcfg.dtype), "cpu"), stream_v1=stream_v1)
 
 
 # f32: x and v absolute, w and each projection component (p_c, p_s)
@@ -150,21 +150,24 @@ def test_plain_substeps_match_pallas_interpret(name, dtype):
                 dtype != "float64" and name in _PAIR_SCALE_F32)
 
 
-def _kernel_model(prm, table, layout, x, v, p, w, modes, substep, w1=None, v1=None):
+def _kernel_model(subs, x, v, p, w, modes, substep, w1=None, v1=None):
     """The arithmetic of csrc/substep_kernels.cu in every layout, in numpy
-    float64 on (ns, n) arrays, driven by the SubstepParams and the angle
-    table (nmode, nx, 2) the wrapper passes: the (cos, sin) of each marker's
-    cell gathered from the table with the hat fold, the reciprocal wrap,
-    each species' host-folded -f0'/f0 and dt q/m.  `modes` is (re, im) in
-    substep 1, (re1, im1, re0, im0) in substep 2."""
+    float64 on (ns, n) arrays, driven by what the wrapper passes: the
+    SubstepParams, the angle table (nmode, nx, 2), the species table and the
+    mode table: the (cos, sin) of each marker's cell gathered from the table
+    with the hat fold, the reciprocal wrap, each species' host-folded
+    -f0'/f0 and dt q/m.  `modes` is (re, im) in substep 1, (re1, im1, re0,
+    im0) in substep 2."""
+    prm, layout = sk.kernel_params(subs.cfg), subs.layout
+    table, species, (cdm1, sd) = host(subs.angles), host(subs.species), host(subs.modes)
     nm, nx = prm.nmode, prm.nx
-    ns = x.shape[0]
+    assert species.shape == (x.shape[0], sk.SPECIES_FIELDS)
 
-    def col(name):
-        return np.array([getattr(prm, f"sp_{name}")[s] for s in range(ns)])[:, None]
+    def col(k):
+        return species[:, k][:, None]
 
-    kform = col("kform")
-    c = {k: col(k) for k in sk._SPECIES_FIELDS}
+    kform = col(0).astype(np.int64)
+    c = {name: col(1 + k) for k, name in enumerate(sk._SPECIES_FIELDS)}
 
     def hat_trig(xx):
         s = xx * prm.nx_over_lx
@@ -174,7 +177,7 @@ def _kernel_model(prm, table, layout, x, v, p, w, modes, substep, w1=None, v1=No
         out = []
         for j in range(nm):
             cs, sn = table[j, ix0, 0], table[j, ix0, 1]
-            a, b = 1.0 + f * prm.cdm1[j], f * prm.sd[j]
+            a, b = 1.0 + f * cdm1[j], f * sd[j]
             out.append((cs * a - sn * b, sn * a + cs * b))
         return out
 
@@ -214,7 +217,7 @@ def _kernel_model(prm, table, layout, x, v, p, w, modes, substep, w1=None, v1=No
         w_1 = w + c["dtqm_half"] * drive(e, w) * kern(v)
         v_1 = v + c["dtqm_half"] * e if layout == sk.NONLINEAR else None
         return w_1, v_1, project(x1, w_1)
-    if layout == sk.FULLF:
+    if layout in (sk.FULLF, sk.RECOMPUTE):
         v1 = v + c["dtqm_half"] * gather(x, *modes[2:])
     elif layout == sk.LINEAR:
         v1 = v
@@ -229,22 +232,38 @@ def _kernel_model(prm, table, layout, x, v, p, w, modes, substep, w1=None, v1=No
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_kernel_arithmetic_matches_plain(name):
-    """What the CUDA kernels compute, from the constants and the angle
-    table they are given, equals the plain versions in float64 for each
-    layout (the kernels' own
+    """What the CUDA kernels compute, from the constants and the tables
+    they are given, equals the plain versions in float64 for each layout,
+    nonlinear delta-f with v1 streamed and rebuilt (the kernels' own
     float64 build is held to the plain version on the card by
     chip_smoke.py)."""
     jcfg, tcfg = _configs(name, "float64")
-    ts = to_port(_state(jcfg))
-    subs = _substeps(tcfg)
-    prm = sk.kernel_params(tcfg)
-    table = host(subs.angles)
-    lay = sk.layout(tcfg)
+    js = _state(jcfg)
+    for stream_v1 in (True, False):
+        subs = _substeps(tcfg, stream_v1)
+        if not stream_v1 and subs.layout != sk.RECOMPUTE:
+            continue
+        _check_kernel_model(name, subs, to_port(js))
+
+
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_kernel_arithmetic_past_the_tables(name):
+    """The same past what SubstepParams holds: the wide mode bin's mode
+    table and the species table, both nonlinear delta-f layouts."""
+    jcfg, tcfg = (WIDE_CASES[name](m, "float64") for m in (jcfg_mod, tcfg_mod))
+    js = _state(jcfg)
+    for stream_v1 in (True, False):
+        _check_kernel_model(name, _substeps(tcfg, stream_v1), to_port(js))
+
+
+def _check_kernel_model(name, subs, ts):
+    """_kernel_model against the plain versions of subs on state ts, in
+    float64 at 1e-12 of each field's max."""
     a = {k: host(getattr(ts, k)) for k in ("x", "v", "p", "w")}
     mre, mim = host(ts.mode_re), host(ts.mode_im)
 
     w1, v1, (pc1, ps1) = subs.substep1_plain(ts.x, ts.v, ts.p, ts.w, ts.mode_re, ts.mode_im)
-    mw1, mv1, (mpc1, mps1) = _kernel_model(prm, table, lay, a["x"], a["v"], a["p"], a["w"],
+    mw1, mv1, (mpc1, mps1) = _kernel_model(subs, a["x"], a["v"], a["p"], a["w"],
                                            (mre, mim), substep=1)
     for label, got, want in (("w1", mw1, w1), ("v1", mv1, v1)):
         assert (got is None) == (want is None), label
@@ -254,7 +273,7 @@ def test_kernel_arithmetic_matches_plain(name):
 
     mre1, mim1 = -host(ps1) * 0.3, -host(pc1) * 0.3   # any midpoint modes
     mx2, mv2, mw2, (mpc2, mps2) = _kernel_model(
-        prm, table, lay, a["x"], a["v"], a["p"], a["w"], (mre1, mim1, mre, mim), substep=2,
+        subs, a["x"], a["v"], a["p"], a["w"], (mre1, mim1, mre, mim), substep=2,
         w1=None if w1 is None else host(w1), v1=None if v1 is None else host(v1))
     x2, v2, w2, (pc2, ps2) = subs.substep2_plain(
         ts.x, ts.v, ts.p, ts.w, w1, v1, torch.from_numpy(mre1), torch.from_numpy(mim1),
@@ -321,22 +340,48 @@ def test_fullf_substep2_needs_the_step_start_modes():
         subs.substep2_plain(x, x.clone(), x, x, None, None, modes, modes)
 
 
-@pytest.mark.parametrize("change,reason", [
-    (dict(modes=tuple(range(1, 18)), init_modes=(1,)), "17 kept modes"),
-    (dict(species=(tcfg_mod.SpeciesConfig(),) * 9), "9 species"),
+@pytest.mark.parametrize("change", [
+    dict(modes=tuple(range(1, 18)), init_modes=(1,)),
+    dict(species=(tcfg_mod.SpeciesConfig(),) * 9),
 ], ids=["17_modes", "9_species"])
-def test_variants_outside_the_kernel_set_raise(change, reason):
-    """Off the CPU, a variant the kernels do not cover raises; nothing falls
-    back to the plain version.  On the CPU the plain version still runs."""
+def test_variants_past_the_parameter_tables_run(change):
+    """More kept modes or species than SubstepParams holds: kernel_params
+    accepts the config (the first MAX_MODES modes and MAX_SPECIES species
+    in the parameters, all of them in the mode and species tables), a
+    launch off the CPU gets as far as the device check, and the CPU
+    dispatch runs the plain version."""
     cfg = dataclasses.replace(
         tcfg_mod.bump_on_tail_default(nx=64, nparticle_max=1024, dtype="float64"),
         **change)
-    with pytest.raises(NotImplementedError, match=reason):
+    prm = sk.kernel_params(cfg)
+    assert prm.nmode == cfg.nmode and prm.nspecies == cfg.nspecies
+    subs = _substeps(cfg)
+    assert tuple(subs.modes.shape) == (2, cfg.nmode)
+    assert tuple(subs.species.shape) == (cfg.nspecies, sk.SPECIES_FIELDS)
+    meta = [torch.empty((cfg.nspecies, 1024), dtype=torch.float64, device="meta")] * 4
+    modes = [torch.empty((cfg.nmode,), dtype=torch.float64, device="meta")] * 2
+    with pytest.raises(ValueError, match="no substep kernel for device meta"):
+        subs.substep1(*meta, *modes)
+    cpu = [torch.zeros((cfg.nspecies, 64), dtype=torch.float64) for _ in range(4)]
+    before = [k.launches for k in sk.KERNELS]
+    w1, _, _ = subs.substep1(*cpu, *[torch.zeros(cfg.nmode, dtype=torch.float64)] * 2)
+    assert w1.shape == (cfg.nspecies, 64)
+    assert [k.launches for k in sk.KERNELS] == before
+
+
+def test_variants_outside_the_kernel_set_raise():
+    """A config no kernel serves (a mode whose m nx overflows the kernels'
+    int cell index) raises off the CPU; nothing falls back to the plain
+    version.  On the CPU the plain version still runs."""
+    cfg = dataclasses.replace(
+        tcfg_mod.bump_on_tail_default(nx=64, nparticle_max=1024, dtype="float64"),
+        modes=(1, 2**25), init_modes=(1,))
+    with pytest.raises(NotImplementedError, match="modes"):
         sk.kernel_params(cfg)
     subs = _substeps(cfg)
     meta = [torch.empty((cfg.nspecies, 1024), dtype=torch.float64, device="meta")] * 4
     modes = [torch.empty((cfg.nmode,), dtype=torch.float64, device="meta")] * 2
-    with pytest.raises(NotImplementedError, match=reason):
+    with pytest.raises(NotImplementedError, match="modes"):
         subs.substep1(*meta, *modes)
     cpu = [torch.zeros((cfg.nspecies, 64), dtype=torch.float64) for _ in range(4)]
     w1, _, _ = subs.substep1(*cpu, *[torch.zeros(cfg.nmode, dtype=torch.float64)] * 2)
@@ -362,10 +407,14 @@ def test_supported_variant_off_cuda_raises():
      "S1_Li1ELi0ELb0EEEvN6ParamsIT_EE", "substep1_bf16"),
     ("_ZN38_GLOBAL__N__0a1b2c3d_18_substep_kernels_cu_115substep2_kernelIdddLi16ELi2ELb1EEEv",
      "substep2_fullf"),
+    ("void (anonymous namespace)::substep2_kernel<float, float, float, 16, 3, true, true>"
+     "((anonymous namespace)::Params<float>)", "substep2_recompute"),
+    ("_ZN38_GLOBAL__N__0a1b2c3d_18_substep_kernels_cu_115substep1_kernelIf13__nv_bfloat16"
+     "S1_Li1ELi3ELb0ELb0EEEvN6ParamsIT_EE", "substep1_recompute_bf16"),
     ("_ZN38_GLOBAL__N__0a1b2c3d_18_substep_kernels_cu_117grid_angle_kernelEPKiixPfS2_", None),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>", None),
 ], ids=["demangled", "demangled_linear_bf16", "mangled_bf16", "mangled_fullf_f64",
-        "grid_angle", "other"])
+        "demangled_recompute_wide", "mangled_recompute_bf16", "grid_angle", "other"])
 def test_profiler_kernel_names_map_to_counters(name, counter):
     """chip_smoke.py reads each substep kernel's launches off a profiler
     trace by its device name: the substep, the layout (template argument L)
