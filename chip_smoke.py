@@ -52,17 +52,20 @@ first failed check.  Phases, each printed:
      does not take (substep_kernels.layout) at the main shape in f32 and
      bf16_weights against their plain versions, both layouts stepped side
      by side bit for bit, and that layout (PIC1DP_STREAM_V1) through graph
-     = eager and a run to t = 100 against the root; 32 kept modes (the wide
-     bin) at full width against plain in f32 and f64, graph = eager, and a
-     run whose mode 1 grows at the root's rate; 64 modes against plain; nine
+     = eager and a run to t = 100 against the root; the grid bin (more than
+     4 kept modes): 16, 32 and 64 modes at full width against plain in f32
+     and in f64 at 2^16, bf16_weights at 32, nx 1024, 4096 and one past the
+     shared memory at 16 and 64 modes in f32 and f64, linear and full-f at
+     16, repeated launches, graph = eager and recompute = streamed bit for
+     bit, and a run with 32 modes whose mode 1 grows at the root's rate; nine
      species (the species table) against plain in f32 and f64, graph =
      eager, and Landau damping's root; the phase table at the main shape and
      the headline in both layouts, with the step minus its two kernels and
      the idle share of a graph replay; and run.py --profile, whose trace
      holds each substep kernel as often as the counters say
   6. timing: ms per call of each substep, unit and carry kernel and its
-     plain version (for each substep its bound, share, V, B and where the
-     angle table sat), ms/step of the plain, the eager kernel and the CUDA
+     plain version (for each substep its bound, share, V, B, the bin and
+     where the angle table or the grids sat), ms/step of the plain, the eager kernel and the CUDA
      graph Stepper at the main path's shape and at bench.py's headline
      shape (2^26 markers, nx 1024), and both nonlinear delta-f layouts per
      call and per graph step in turns on each side of the line that
@@ -298,8 +301,9 @@ def environment() -> str:
 
 def build() -> None:
     """Build every source at once and print the ptxas lines of the main
-    path's substep kernels (the one-species nonlinear instantiations), and
-    for the other kernels their count, most registers and any spill."""
+    path's substep kernels (the one-species nonlinear instantiations) and
+    of the grid bin's (registers, spills, shared memory), and for the other
+    kernels their count, most registers and any spill."""
     from pic1dp_tpu_torch.ops import stream_probes as sp
     from pic1dp_tpu_torch.ops import substep_kernels as sk
     from pic1dp_tpu_torch.utils import nvcc
@@ -316,14 +320,14 @@ def build() -> None:
                 entries[-1][1].append(ln)
         rest = []
         for entry, lines in entries:
-            if _substep_entry(entry) in ("main", "wide", "grid_angle"):
+            if _substep_entry(entry) in ("main", "grid", "grid_angle"):
                 for line in (entry, *lines):
                     say(f"[2 build] {line}")
             else:
                 rest.extend(lines)
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in rest if "Used " in ln]
         spills = [(entry, ln) for entry, lines in entries for ln in lines
-                  if _substep_entry(entry) not in ("main", "wide", "grid_angle")
+                  if _substep_entry(entry) not in ("main", "grid", "grid_angle")
                   and "spill" in ln and not ln.startswith("0 bytes")]
         say(f"[2 build] {built.path.name}: {len(regs)} other kernels, at most "
             f"{max(regs, default=0)} registers; lines with spills: {len(spills)}")
@@ -337,16 +341,16 @@ def build() -> None:
 
 def _substep_entry(name: str) -> str | None:
     """What a ptxas entry name is: "main" for a substep kernel of the main
-    path (nonlinear, v1 streamed or rebuilt, kSpecies false), "wide" for
-    one of the wide mode bin, "grid_angle", "substep" for another substep
-    kernel, None for another source's kernel."""
+    path (nonlinear, v1 streamed or rebuilt, kSpecies false), "grid" for
+    one of the grid bin (kGrid), "grid_angle", "substep" for another
+    substep kernel, None for another source's kernel."""
     if "grid_angle_kernel" in name:
         return "grid_angle"
     m = re.search(r"substep[12]_kernelI\w*?Li\d+ELi(\d+)ELb([01])ELb([01])E", name)
     if m is None:
         return None
     if m.group(3) == "1":
-        return "wide"
+        return "grid"
     return "main" if m.group(1) in ("0", "3") and m.group(2) == "0" else "substep"
 
 
@@ -410,7 +414,7 @@ def _loaded_inputs(cfg):
 
 
 def compare_substeps(cfg, n: int, tol: dict | None, inputs=None,
-                     stream_v1: bool | None = None) -> dict:
+                     stream_v1: bool | None = None, plain_f64: bool = False) -> dict:
     """Both kernels and both plain versions on the same inputs (default
     _inputs, one species of n markers); returns each kernel's largest
     absolute error; raises past the tolerance (tol None: F64_TOL relative to
@@ -419,19 +423,31 @@ def compare_substeps(cfg, n: int, tol: dict | None, inputs=None,
     by an ulp (FMA contraction), which flips the rounding of a few markers.
     Streams a layout does not write are compared where they come back.
     stream_v1 picks the nonlinear delta-f layout (None: the config's own,
-    substep_kernels.layout)."""
+    substep_kernels.layout).  plain_f64 runs the plain version in float64
+    on the same inputs (the f32 kernels against an f64 reference: full-f
+    with many modes, where the f32 plain version's own grid angles, ix0
+    times 2 pi m / nx rounded in f32, are off by more than the bound)."""
+    from pic1dp_tpu_torch import distributions as dist
     from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 
     x, v, p, w, (mre0, mim0, mre1, mim1), sp = inputs or _inputs(cfg, n, "cuda")
     subs = FusedSubsteps(cfg, sp, stream_v1=stream_v1)
     kw1, kv1, kproj1 = subs.substep1(x, v, p, w, mre0, mim0)
-    pw1, pv1, pproj1 = subs.substep1_plain(x, v, p, w, mre0, mim0)
     streams = [t.clone() for t in (x, v, w)]
     kx2, kv2, kw2, kproj2 = subs.substep2(*streams[:2], p, streams[2], kw1, kv1, mre1, mim1,
                                           mre0, mim0)
+    plain, up = subs, (lambda t: t)
+    if plain_f64:
+        check(not cfg.bf16_weights, "plain_f64 compares f32 or f64 streams")
+        c64 = dataclasses.replace(cfg, dtype="float64")
+        plain = FusedSubsteps(c64, dist.SpeciesParams.from_config(c64, torch.float64, "cuda"),
+                              stream_v1=stream_v1)
+        up = lambda t: None if t is None else t.double()   # noqa: E731
+    x, v, p, w, mre0, mim0, mre1, mim1 = map(up, (x, v, p, w, mre0, mim0, mre1, mim1))
+    pw1, pv1, pproj1 = plain.substep1_plain(x, v, p, w, mre0, mim0)
     streams = [t.clone() for t in (x, v, w)]
-    px2, pv2, pw2, pproj2 = subs.substep2_plain(*streams[:2], p, streams[2],
-                                               kw1, kv1, mre1, mim1, mre0, mim0)
+    px2, pv2, pw2, pproj2 = plain.substep2_plain(*streams[:2], p, streams[2],
+                                                up(kw1), up(kv1), mre1, mim1, mre0, mim0)
     torch.cuda.synchronize()
     bf16 = cfg.bf16_weights
     names = [k.name for k in subs.counters]
@@ -439,8 +455,8 @@ def compare_substeps(cfg, n: int, tol: dict | None, inputs=None,
                  torch.stack(kproj1), torch.stack(pproj1))),
              names[1]: dict(x=(kx2, px2), v=(kv2, pv2), w=(kw2, pw2), proj=(
                  torch.stack(kproj2), torch.stack(pproj2)))}
-    check((kw1 is None or kw1.dtype == pw1.dtype == p.dtype)
-          and (kv1 is None or kv1.dtype == x.dtype) and kx2.dtype == x.dtype,
+    check((kw1 is None or kw1.dtype == getattr(torch, cfg.p_dtype))
+          and (kv1 is None or kv1.dtype == kx2.dtype) and kx2.dtype == getattr(torch, cfg.dtype),
           f"substep output dtypes (w1 {getattr(kw1, 'dtype', None)}, "
           f"v1 {getattr(kv1, 'dtype', None)}, x2 {kx2.dtype})")
     worst = {}
@@ -466,7 +482,7 @@ def compare_substeps(cfg, n: int, tol: dict | None, inputs=None,
             limit = F64_TOL if tol is None else tol[field]
             measured = rel if (tol is None or field in ("w", "proj")) else ab
             say(f"[3 compare] {cfg.dtype}{'/bf16' if bf16 else ''} n={cfg.nspecies}x{n} "
-                f"nmode={cfg.nmode} {name} {field}: "
+                f"nmode={cfg.nmode} {name} {field}{' (plain in f64)' if plain_f64 else ''}: "
                 f"max abs err {ab:.3e}, rel to max {rel:.3e} (limit {limit:g})")
             check(measured <= limit, f"{name} {field} {cfg.dtype} within {limit}")
             errs.append(ab)
@@ -1448,21 +1464,33 @@ def stream_bytes(cfg, substep: int, lay: str) -> int:
     return sum(reads) + sum(writes)
 
 
-def substep_ops(cfg, substep: int, lay: str) -> int:
-    """Operations per marker that a substep kernel's CUDA body performs in
-    layout `lay`, an FMA counted as two: each gather of E or deposit at a
-    position takes 4 for its cell and 13 per kept mode (the table entry's
-    fold 9, the sum 4; the angles come from the table, so no transcendental
-    per mode); substep 1's push 32 (one wrap 8, the w update 5, the drive 17,
-    v 2), substep 2's 40 (two wraps), and where substep 2 rebuilds v1 one
-    gather at x0 and 2 more.  The wide bin's repeated pushes are the
-    design's, not the function's, and are not counted."""
-    from pic1dp_tpu_torch.ops.substep_kernels import FULLF, RECOMPUTE
+def substep_ops(cfg, substep: int, lay: str, n: int, blocks: int,
+                grid_bin: bool | None = None) -> int:
+    """Operations of one call of a substep kernel on n markers in `blocks`
+    blocks, layout `lay`, an FMA counted as two; the smaller of the two
+    forms of the function, whichever bin runs it.  Per marker: substep 1's
+    push 32 (one wrap 8, the w update 5, the drive 17, v 2), substep 2's 40
+    (two wraps), one gather of E at a position and one deposit, and where
+    substep 2 rebuilds v1 one gather at x0 and 2 more.  In the per-mode form
+    of the register bins (at most 4 modes) a gather or deposit takes 4 for
+    its cell and 13 per kept mode (the table entry's fold 9, the sum 4; no
+    transcendental, the angles come from the table).  In the grid form
+    (grid_bin, by default above 4 modes) a gather takes 4 for the cell and
+    3 for the lerp, a deposit 4 for the cell, 3 for the two hat weights and
+    2 adds, and each block forms each of its E grids and projects its
+    charge grid with 2 FMAs per cell and mode (4 nx nmode each)."""
+    from pic1dp_tpu_torch.ops.substep_kernels import FULLF, GRID_BIN, RECOMPUTE, mode_bin
 
-    position = 4 + 13 * cfg.nmode
-    if substep == 1:
-        return 2 * position + 32
-    return 2 * position + 40 + (position + 2 if lay in (FULLF, RECOMPUTE) else 0)
+    if grid_bin is None:
+        grid_bin = mode_bin(cfg.nmode) == GRID_BIN
+    rebuild = substep == 2 and lay in (FULLF, RECOMPUTE)
+    push = 32 if substep == 1 else 40
+    if not grid_bin:
+        position = 4 + 13 * cfg.nmode
+        return n * (2 * position + push + (position + 2 if rebuild else 0))
+    per_marker = 7 + 9 + push + (9 if rebuild else 0)
+    per_block = 4 * cfg.nx * cfg.nmode * ((2 if rebuild else 1) + 1)
+    return n * per_marker + blocks * per_block
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1472,14 +1500,17 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(cfg, inputs=None, stream_v1: bool | None = None) -> tuple[dict, dict]:
+def time_kernels(cfg, inputs=None, stream_v1: bool | None = None,
+                 with_plain: bool = True) -> tuple[dict, dict]:
     """ms per call of each substep kernel of cfg and of its plain version
-    at cfg's shape, on the card's clock: calls captured in a CUDA graph and
-    replayed (probes.graph_ms), so that a small case is not timed at the
-    host's launch rate (these launches come after the main paths' counts
-    were read); and each kernel's bound at that shape.  The line printed
-    gives the share of the bound, V, B, the grid and where the angle table
-    sat."""
+    (unless with_plain is False: many modes at 2^26 markers, where the
+    plain version's per-mode temporaries take tens of GB) at cfg's shape,
+    on the card's clock: calls captured in a CUDA graph and replayed
+    (probes.graph_ms), so that a small case is not timed at the host's
+    launch rate (these launches come after the main paths' counts were
+    read); and each kernel's bound at that shape.  The line printed gives
+    the share of the bound, V, B, the grid, the bin and where the angle
+    table or the grids sat."""
     from pic1dp_tpu_torch.ops import substep_kernels as sk
     from pic1dp_tpu_torch.probes import graph_ms
 
@@ -1494,23 +1525,31 @@ def time_kernels(cfg, inputs=None, stream_v1: bool | None = None) -> tuple[dict,
                      (k2, lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1, mre0, mim0)),
                      (f"{k2}_plain", lambda: subs.substep2_plain(x, v, p, w, w1, v1, mre1,
                                                                  mim1, mre0, mim0))):
-        out[name] = graph_ms(fn, x.device)
+        if with_plain or not name.endswith("_plain"):
+            out[name] = graph_ms(fn, x.device)
     n = x.numel()
-    nbytes = {ss: stream_bytes(cfg, ss, subs.layout) for ss in (1, 2)}
-    bounds = {name: bound(n * nbytes[ss], n * substep_ops(cfg, ss, subs.layout))
-              for name, ss in ((k1, 1), (k2, 2))}
     vec = sk.vector_width(cfg.nmode, x.element_size())
-    grid = sk.launch_grid(n, vec, torch.cuda.get_device_properties(0).multi_processor_count,
-                          subs.blocks_per_sm)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = {ss: subs.grid_size(n, sms, x.element_size(), ss) for ss in (1, 2)}
+    nbytes = {ss: stream_bytes(cfg, ss, subs.layout) for ss in (1, 2)}
+    bounds = {name: bound(n * nbytes[ss], substep_ops(cfg, ss, subs.layout, n, grid[ss]))
+              for name, ss in ((k1, 1), (k2, 2))}
     smem = sk.angle_smem_bytes(cfg.nmode, cfg.nx, x.element_size())
+    if subs.uses_grid_bin():
+        grids = [sk.grid_smem(cfg.nx, x.element_size(), sk.grid_egrids(ss)) for ss in (1, 2)]
+        where = "grid bin, grids in " + ", ".join(
+            f"substep {ss}: " + (f"shared memory ({b} B, {c} charge grids)" if b
+                                 else "the device buffer") for ss, (b, c) in zip((1, 2), grids))
+    else:
+        where = f"{cfg.nmode if cfg.nmode == 1 else 4}-mode bin, angle table in " + (
+            f"shared memory ({smem} B)" if smem else "device memory")
     say(f"[6 timing] {cfg.equilibrium.value} {'bf16_weights' if cfg.bf16_weights else cfg.dtype}"
         f" per call at {cfg.nspecies} x {cfg.nparticle_max} markers, nx {cfg.nx}, "
         f"{cfg.nmode} modes, {subs.layout}: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()) + "; bound "
         + ", ".join(f"{k} {b:.4f} ms ({by}, {nbytes[ss]} B/marker), share "
                     f"{b / out[k]:.1%}" for (k, (b, by)), ss in zip(bounds.items(), (1, 2)))
-        + f"; V {vec}, B {subs.blocks_per_sm}, grid {grid}, angle table in "
-        + (f"shared memory ({smem} B)" if smem else "device memory"))
+        + f"; V {vec}, B {subs.blocks_per_sm}, grid {grid[1]} / {grid[2]}, {where}")
     return out, bounds
 
 
@@ -1627,20 +1666,67 @@ def v1_layout_phase(main_cfg, bf16_cfg) -> tuple[dict, dict]:
     return launches, err
 
 
+def repeat_launches(cfg, stream_v1: bool) -> None:
+    """Each kernel launched twice on the same inputs: every output bit for
+    bit (no float atomic in any sum, a fixed grid)."""
+    from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+
+    x, v, p, w, (mre0, mim0, mre1, mim1), sp = _inputs(cfg, cfg.nparticle_max, "cuda")
+    subs = FusedSubsteps(cfg, sp, stream_v1=stream_v1)
+    one = [subs.substep1(x, v, p, w, mre0, mim0) for _ in range(2)]
+    outs = [[t for t in (one[k][0], one[k][1], *one[k][2]) if t is not None] for k in (0, 1)]
+    for _ in range(2):
+        st = [t.clone() for t in (x, v, w)]
+        x2, v2, w2, proj = subs.substep2(st[0], st[1], p, st[2], one[0][0], one[0][1], mre1,
+                                         mim1, mre0, mim0)
+        outs.append([x2, v2, w2, *proj])
+    torch.cuda.synchronize()
+    same = [all(torch.equal(a, b) for a, b in zip(outs[k], outs[k + 1])) for k in (0, 2)]
+    say(f"[7 modes] nmode={cfg.nmode} {subs.layout} n={cfg.nparticle_max}: each kernel "
+        f"launched twice on the same inputs, bitwise equal {same}")
+    check(all(same), "a repeated launch gives the same bits")
+
+
+# the grid bin's shared-memory cases (f32 and f64 at 16 and 64 modes): nx
+# 1024 (an opt-in past 48 KB in f64), 4096 (4 charge grids in f64) and one
+# nx whose grids do not fit even once (the device buffer)
+GRID_NX = (1024, 4096, 32768)
+
+
 def many_modes_phase() -> dict:
-    """32 kept modes at the main width in f32 (the wide bin, two passes):
-    the kernels of both nonlinear layouts against their plain versions, in
-    f64 at 2^16 markers at 1e-12, graph = eager, recompute = streamed, and
-    a run to t = 70 whose mode 1 grows at the dispersion root's rate (fit of
-    ln |mode 1| over the linear window); 64 modes kernels against plain.
-    Returns the run's launches."""
+    """The grid bin (more than 4 kept modes): the kernels of both nonlinear
+    layouts against their plain versions at 16, 32 and 64 modes at the main
+    width in f32 and at 2^16 markers in f64 (1e-12), bf16_weights at 32
+    modes, every GRID_NX at 16 and 64 modes in f32 and f64, linear and
+    full-f at 16 modes at their verification cases' shapes (full-f against
+    the plain version in f64); repeated launches, graph = eager and
+    recompute = streamed bit for bit at 32 modes; and a run to t = 70 with
+    32 modes whose mode 1 grows at the dispersion root's rate (fit of
+    ln |mode 1| over the linear window).  Returns the run's launches."""
     cfg = many_modes_cfg(32, time_max=GAMMA_WINDOW[1])
     check(cfg.nmode == 32 and cfg.nparticle_max == FULL_N and cfg.nx == 192,
           "32 modes at full width")
-    small = dataclasses.replace(cfg, dtype="float64", nparticle_max=2**16)
+    for nmode in (16, 32, 64):
+        full = many_modes_cfg(nmode)
+        small = dataclasses.replace(full, dtype="float64", nparticle_max=2**16)
+        for stream_v1 in (True, False):
+            compare_substeps(full, FULL_N, F32_TOL, stream_v1=stream_v1)
+            compare_substeps(small, 2**16, None, stream_v1=stream_v1)
+    compare_substeps(many_modes_cfg(32, bf16_weights=True), FULL_N, F32_TOL)
+    for nx in GRID_NX:
+        for nmode in (16, 64):
+            for dtype, tol in (("float32", F32_TOL), ("float64", None)):
+                c = dataclasses.replace(many_modes_cfg(nmode), nx=nx, nparticle_max=2**16,
+                                        dtype=dtype)
+                for stream_v1 in (True, False):
+                    compare_substeps(c, 2**16, tol, stream_v1=stream_v1)
+    for case in (landau_cfg(linear=True), two_stream_cfg(deltaf=False)):
+        c = dataclasses.replace(case, modes=tuple(range(1, 17)))
+        c64 = dataclasses.replace(c, dtype="float64")
+        compare_substeps(c, c.nparticle_max, F32_TOL, _loaded_inputs(c), plain_f64=not c.deltaf)
+        compare_substeps(c64, c64.nparticle_max, None, _loaded_inputs(c64))
     for stream_v1 in (True, False):
-        compare_substeps(cfg, FULL_N, F32_TOL, stream_v1=stream_v1)
-        compare_substeps(small, 2**16, None, stream_v1=stream_v1)
+        repeat_launches(many_modes_cfg(32), stream_v1)
     compare_graph(cfg)
     compare_v1_layouts(dataclasses.replace(cfg, nparticle_max=2**20))
     zero_substep_counts()
@@ -1655,10 +1741,6 @@ def many_modes_phase() -> dict:
         f"{gamma:.5f} vs {BOT_OMEGA.imag:.5f}, rel err {rel:.4f} (limit {GAMMA_REL_TOL}); "
         f"largest mode at the end: {top}")
     check(rel <= GAMMA_REL_TOL, "32 modes: mode 1's growth within 5% of the root")
-    wide = many_modes_cfg(64)
-    compare_substeps(wide, FULL_N, F32_TOL)
-    compare_substeps(dataclasses.replace(wide, dtype="float64", nparticle_max=2**16), 2**16,
-                     None)
     return launches
 
 
@@ -1906,6 +1988,12 @@ def main() -> int:
     head16 = dataclasses.replace(headline, bf16_weights=True)
     for cfg in (main_cfg, bf16_cfg, headline, head16):
         compare_v1_steps(cfg, smi)
+    # the grid bin at the headline's width and nx with 32 kept modes, the
+    # kernels alone in both layouts
+    head32 = many_modes_cfg(32, nparticle_max=BENCH_N, nx=BENCH_NX)
+    for stream_v1 in (True, False):
+        time_kernels(head32, None, stream_v1, with_plain=False)
+    torch.cuda.empty_cache()
     for cfg, inputs in (
             (many_modes_cfg(4), None), (many_modes_cfg(4, bf16_weights=True), None),
             (many_modes_cfg(16), None), (many_modes_cfg(32), None), (many_modes_cfg(64), None),

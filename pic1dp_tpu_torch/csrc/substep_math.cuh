@@ -15,14 +15,14 @@
 // species' constants in a device table as well (kSpeciesFields values of T
 // per species, ops/substep_kernels.species_table), from which the species
 // loop reads species kMaxSpecies and above.  HostParams holds the first
-// kMaxModes kept modes; the kernels of a run with more read every mode's
-// constants from a device table (ops/substep_kernels.mode_table).
+// kMaxModes kept modes; the register bins (at most 4 modes) read theirs
+// from it, and the grid bin (more than 4) needs no per-mode constant.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
-constexpr int kMaxModes = 16;    // modes in Params, and per deposit pass
+constexpr int kMaxModes = 16;    // modes in Params
 constexpr int kMaxSpecies = 8;   // species in the parameter table
 // values per species in the device table: kform, then Species<T>'s T fields
 // in their order
@@ -278,6 +278,74 @@ __device__ __forceinline__ void hat_table(const Params<T>& p, const Pair<T>* ang
     S[j] = T(0);
     if (j < p.nmode) hat_mode(ang, p.nx, j, ix0, f, p.cdm1[j], p.sd[j], &C[j], &S[j]);
   }
+}
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+
+// ---- the grid form (the many-mode kernels): the hat fold is linear, so
+// sum_m (C_m re_m - S_m im_m) at x is the hat lerp of E on the nx cells, and
+// sum_p val_p (C_m, S_m)(x_p) is the projection of the hat deposit of val.
+// Every rounding below is an explicit FMA or a lone add or multiply, so two
+// kernels that form the same grid from the same modes get the same bits. ----
+
+// E in cell j from the kept modes: 2 sum_m (cos th_mj re_m - sin th_mj im_m),
+// in mode order, with (cos, sin) th_mj from the angle table in device memory.
+template <typename T>
+__device__ __forceinline__ T grid_e(const Pair<T>* ang, int nx, int nmode, int j, const T* re,
+                                   const T* im) {
+  T e = T(0);
+#pragma unroll 16
+  for (int m = 0; m < nmode; ++m) {
+    const Pair<T> c = __ldg(ang + m * nx + j);
+    e = fma_t(c.x, __ldg(re + m), e);
+    e = fma_t(-c.y, __ldg(im + m), e);
+  }
+  return T(2) * e;
+}
+
+// E at a marker in cell ix0 at fraction f (hat_cell) from the E grid eg of
+// nx + 1 values (eg[nx] = eg[0]): (1 - f) eg[ix0] + f eg[ix0 + 1], as
+// eg[ix0] + f (eg[ix0 + 1] - eg[ix0]).  Substep 1's gather and both of
+// substep 2's use it, so a rebuilt v1 has the streamed v1's bits.
+template <typename T>
+__device__ __forceinline__ T grid_gather(const T* eg, int ix0, T f) {
+  const T a = eg[ix0];
+  return fma_t(f, eg[ix0 + 1] - a, a);
+}
+
+// rho[cell] += left and rho[nx + cell] += right for every lane of the warp
+// whose cell is >= 0 (a marker's two hat halves: rho[0, nx) holds the halves
+// deposited at their cell ix0, rho[nx, 2 nx) those that belong to ix0 + 1,
+// so one match serves both), in an order fixed by the lanes alone: the
+// lanes that share a cell (__match_any_sync) are summed by the lowest of
+// them, its own values first and then the others' in lane order, read from
+// stage (the warp's 64 values in shared memory), and that lane alone adds
+// the sums to rho.  No float atomic, so the result does not depend on how
+// the warps are scheduled.  Every lane of the warp must call it; it ends
+// with __syncwarp, so rho and stage may be used again at once.
+template <typename T>
+__device__ __forceinline__ void deposit_lanes(T* rho, int nx, T* stage, int cell, T left,
+                                              T right) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned peers = __match_any_sync(0xffffffffu, cell);
+  const bool lowest = (peers & ((1u << lane) - 1u)) == 0u;
+  const unsigned above = peers & ~((2u << lane) - 1u);
+  if (__any_sync(0xffffffffu, above != 0u)) {
+    stage[lane] = left;
+    stage[32 + lane] = right;
+    __syncwarp();
+    if (lowest)
+      for (unsigned rest = above; rest != 0u; rest &= rest - 1u) {
+        left += stage[__ffs(rest) - 1];
+        right += stage[32 + __ffs(rest) - 1];
+      }
+  }
+  if (lowest && cell >= 0) {
+    rho[cell] += left;
+    rho[nx + cell] += right;
+  }
+  __syncwarp();
 }
 
 // Periodic wrap into [0, lx) by a reciprocal multiply; the reciprocal's

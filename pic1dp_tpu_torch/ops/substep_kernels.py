@@ -30,19 +30,20 @@ holds
   * the CUDA kernels of csrc/substep_kernels.cu, built by nvcc at first use
     and bound through ctypes: one body per substep for every layout, any
     number of species and of kept modes and every equilibrium (the C side
-    picks the main path's instantiation for one bump-on-tail or Maxwellian
-    species in nonlinear delta-f with up to MAX_MODES modes, the species loop
-    otherwise, and above MAX_MODES modes the wide bin, one pass over the
-    markers per MAX_MODES modes); one launch counter per layout and build
-    (KERNELS).  What they take beside the streams is made here: the
-    grid-angle table (angle_table, staged into shared memory when it fits,
-    angle_smem_bytes), the species table (species_table: the species past
-    the MAX_SPECIES the parameters hold read their constants from it) and
-    the mode table (mode_table: the wide bin reads every mode's constants
-    from it), the grid (launch_grid: vector_width markers per thread and
-    iteration, at most BLOCKS_PER_SM blocks per SM), and the counter with
-    which the last block finds out that it sums the partials into the
-    projections;
+    picks the register bin of 1 or 4 modes, mode_bin, with the main path's
+    instantiation for one bump-on-tail or Maxwellian species in nonlinear
+    delta-f and the species loop otherwise; above 4 modes the grid bin,
+    which gathers E from a grid of the nx cells and deposits onto a charge
+    grid in shared memory, grid_smem); one launch counter per layout and
+    build (KERNELS).  What they take beside the streams is made here: the
+    grid-angle table (angle_table, staged into shared memory by the register
+    bins when it fits, angle_smem_bytes), the species table (species_table:
+    the species past the MAX_SPECIES the parameters hold read their
+    constants from it), the grid bin's device buffer where its grids do not
+    fit in shared memory, the grid (launch_grid: vector_width markers per
+    thread and iteration, at most BLOCKS_PER_SM blocks per SM), and the
+    counter with which the last block finds out that it sums the partials
+    into the projections;
   * the plain PyTorch version, FusedSubsteps.substep1_plain / substep2_plain,
     the same function written with the port's mode_trig / efield_at /
     project_modes and distributions.minus_dlnf0_dv, on any device;
@@ -58,6 +59,7 @@ Substep 2 updates x, v and w in place in both versions, as the kernel does
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -70,8 +72,8 @@ from pic1dp_tpu_torch.ops.spectral import efield_at, mode_trig, project_modes
 from pic1dp_tpu_torch.utils import nvcc
 from pic1dp_tpu_torch.utils.nvcc import CudaKernel
 
-# kMaxModes in csrc/substep_math.cuh: the modes SubstepParams holds, the
-# widest register bin and the modes of one pass of the wide bin
+# kMaxModes in csrc/substep_math.cuh: the modes SubstepParams holds (the
+# register bins read the first 4)
 MAX_MODES = 16
 # kMaxSpecies: the species SubstepParams holds
 MAX_SPECIES = 8
@@ -79,6 +81,18 @@ THREADS = 256           # kThreads in csrc/substep_kernels.cu
 # kAngleSmemMax in csrc/substep_kernels.cu: the 48 KB a launch gets without
 # an opt-in, less 4 KB kept for the kernels' static shared memory
 ANGLE_SMEM_MAX = 48 * 1024 - 4096
+# kGridSmemMax: the grid bin's dynamic shared memory at most, the 232,448
+# bytes a block may have with an opt-in less 8 KB for its static arrays
+GRID_SMEM_MAX = 232448 - 8192
+# kWarps: the charge grids a grid-bin block keeps when they fit, one per warp
+GRID_COPIES = THREADS // 32
+# mode_bin's value for the grid bin (kGridBin)
+GRID_BIN = 0
+# shared memory of one H100 SM for its blocks (228 KB), and what a block
+# takes beside its dynamic shared memory: the driver's 1 KB and the grid
+# bin's static arrays (2 THREADS values of T and a flag)
+SM_SMEM = 233472
+BLOCK_SMEM_RESERVED = 1024
 # blocks per SM at most (launch_grid), chosen by the blocks-per-SM sweep of
 # probes/kernel_probe.py
 BLOCKS_PER_SM = 4
@@ -169,20 +183,23 @@ def layout(cfg: Config, stream_v1: bool | None = None) -> str:
     return NONLINEAR if stream_v1 else RECOMPUTE
 
 
-# markers (all species) above which rebuilding v1 is faster with one kept mode
+# markers (all species) above which rebuilding v1 is faster in the 1-mode
+# bin and the grid bin
 REBUILD_V1_MIN_MARKERS = 2**20
 
 
 def rebuilds_v1_faster(cfg: Config) -> bool:
     """Whether nonlinear delta-f runs faster with substep 2 rebuilding v1
-    than with v1 streamed, on the H100 (PERF.md, graph steps of both layouts
-    in turns): with one kept mode and more than REBUILD_V1_MIN_MARKERS
-    markers, where the two streams it saves dominate (0.85-0.94x the
-    streamed step, one species or the species loop, f32 and bf16).  With 4
-    modes the extra gather costs more than the streams (1.02-1.06x), with 16
-    or more much more (1.44x), and at 1M markers or fewer the steps are
-    launch-bound and equal within 2%."""
-    return cfg.nmode == 1 and cfg.nspecies * cfg.nparticle_max > REBUILD_V1_MIN_MARKERS
+    than with v1 streamed, on the H100 (PERF.md, both layouts in turns):
+    above REBUILD_V1_MIN_MARKERS markers with one kept mode, where the two
+    streams it saves dominate (0.85-0.94x the streamed graph step, one
+    species or the species loop, f32 and bf16), and with more than 4, where
+    the grid bin rebuilds v1 from a second E grid in shared memory for two
+    shared-memory reads a marker.  With 2 to 4 modes the 4-mode bin's extra
+    per-mode gather costs more than the streams (1.02-1.06x), and at 1M
+    markers or fewer the steps are launch-bound and equal within 2%."""
+    return (cfg.nmode >= 1 and mode_bin(cfg.nmode) != 4
+            and cfg.nspecies * cfg.nparticle_max > REBUILD_V1_MIN_MARKERS)
 
 
 def _drive_constants(cfg: Config) -> list[dict]:
@@ -241,8 +258,8 @@ def mode_constants(cfg: Config) -> tuple[list[float], list[float]]:
 
 def kernel_params(cfg: Config) -> SubstepParams:
     """The kernels' constants for cfg (n is set per launch): the first
-    MAX_MODES modes and MAX_SPECIES species (mode_table and species_table
-    hold them all); NotImplementedError for a config no kernel serves."""
+    MAX_MODES modes and MAX_SPECIES species (species_table holds them all);
+    NotImplementedError for a config no kernel serves."""
     why = []
     if cfg.dtype not in ("float32", "float64"):
         why.append(f"dtype {cfg.dtype}")
@@ -279,13 +296,6 @@ def species_table(cfg: Config, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.float64).to(device=device, dtype=dtype)
 
 
-def mode_table(cfg: Config, dtype: torch.dtype, device) -> torch.Tensor:
-    """(2, nmode): mode_constants rounded once to dtype; the wide bin reads
-    every mode's constants from it."""
-    return torch.tensor(mode_constants(cfg), dtype=torch.float64).to(device=device,
-                                                                      dtype=dtype)
-
-
 _lib: ctypes.CDLL | None = None
 
 
@@ -293,43 +303,107 @@ def library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     global _lib
     if _lib is None:
-        lib = nvcc.load(SOURCE).lib
-        if lib.pic1dp_params_size() != ctypes.sizeof(SubstepParams):
-            raise RuntimeError(f"SubstepParams does not match HostParams in {_SRC}")
-        if lib.pic1dp_max_modes() != MAX_MODES:
-            raise RuntimeError("MAX_MODES does not match kMaxModes")
-        if lib.pic1dp_max_species() != MAX_SPECIES:
-            raise RuntimeError("MAX_SPECIES does not match kMaxSpecies")
-        if lib.pic1dp_species_fields() != SPECIES_FIELDS:
-            raise RuntimeError("SPECIES_FIELDS does not match kSpeciesFields")
-        if lib.pic1dp_angle_smem_max() != ANGLE_SMEM_MAX:
-            raise RuntimeError("ANGLE_SMEM_MAX does not match kAngleSmemMax")
-        if any(lib.pic1dp_vector_width(m, b) != vector_width(m, b)
-               for m in range(1, 4 * MAX_MODES + 1) for b in (4, 8)):
-            raise RuntimeError("vector_width does not match vec_width")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        prm = ctypes.POINTER(SubstepParams)
-        for suffix in _SUFFIX.values():
-            getattr(lib, f"pic1dp_substep1_{suffix}").argtypes = \
-                [prm, i32] + [ptr] * 14 + [i32, i32, ptr]
-            getattr(lib, f"pic1dp_substep2_{suffix}").argtypes = \
-                [prm, i32] + [ptr] * 16 + [i32, i32, ptr]
-        lib.pic1dp_grid_angle_f32.argtypes = [ptr, i32, i64, ptr, ptr, ptr]
-        for suffix in ("f32", "f64"):
-            getattr(lib, f"pic1dp_angle_gather_{suffix}").argtypes = [ptr, i32, ptr, i64, ptr, ptr]
-        lib.pic1dp_error_string.argtypes = [i32]
-        lib.pic1dp_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(nvcc.load(SOURCE).lib)
     return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Check a build of csrc/substep_kernels.cu against this module's
+    mirrors of its constants and declare its C signatures."""
+    if lib.pic1dp_params_size() != ctypes.sizeof(SubstepParams):
+        raise RuntimeError(f"SubstepParams does not match HostParams in {_SRC}")
+    if lib.pic1dp_max_modes() != MAX_MODES:
+        raise RuntimeError("MAX_MODES does not match kMaxModes")
+    if lib.pic1dp_max_species() != MAX_SPECIES:
+        raise RuntimeError("MAX_SPECIES does not match kMaxSpecies")
+    if lib.pic1dp_species_fields() != SPECIES_FIELDS:
+        raise RuntimeError("SPECIES_FIELDS does not match kSpeciesFields")
+    if lib.pic1dp_angle_smem_max() != ANGLE_SMEM_MAX:
+        raise RuntimeError("ANGLE_SMEM_MAX does not match kAngleSmemMax")
+    if any(lib.pic1dp_vector_width(m, b) != vector_width(m, b)
+           for m in range(1, 4 * MAX_MODES + 1) for b in (4, 8)):
+        raise RuntimeError("vector_width does not match vec_width")
+    if any(lib.pic1dp_mode_bin(m) != mode_bin(m) for m in range(1, 4 * MAX_MODES + 1)):
+        raise RuntimeError("mode_bin does not match the C mode_bin")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pic1dp_grid_smem.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+    if lib.pic1dp_grid_smem_max() != GRID_SMEM_MAX or any(
+            _c_grid_smem(lib, nx, b, e) != grid_smem(nx, b, e)
+            for nx in (*range(1, 20000, 37), 2**16)
+            for b in (4, 8) for e in (1, 2)):
+        raise RuntimeError("grid_smem does not match the C grid_smem")
+    prm = ctypes.POINTER(SubstepParams)
+    for suffix in _SUFFIX.values():
+        getattr(lib, f"pic1dp_substep1_{suffix}").argtypes = \
+            [prm, i32] + [ptr] * 14 + [i32, i32, i32, ptr]
+        getattr(lib, f"pic1dp_substep2_{suffix}").argtypes = \
+            [prm, i32] + [ptr] * 16 + [i32, i32, i32, ptr]
+    lib.pic1dp_grid_angle_f32.argtypes = [ptr, i32, i64, ptr, ptr, ptr]
+    for suffix in ("f32", "f64"):
+        getattr(lib, f"pic1dp_angle_gather_{suffix}").argtypes = [ptr, i32, ptr, i64, ptr, ptr]
+    lib.pic1dp_error_string.argtypes = [i32]
+    lib.pic1dp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _c_grid_smem(lib, nx: int, itemsize: int, egrids: int) -> tuple[int, int]:
+    copies = ctypes.c_int(0)
+    nbytes = lib.pic1dp_grid_smem(nx, itemsize, egrids, ctypes.byref(copies))
+    return nbytes, copies.value
+
+
+def mode_bin(nmode: int) -> int:
+    """The kernels' bin of nmode kept modes (mode_bin in
+    csrc/substep_kernels.cu): the register bins 1 and 4, GRID_BIN above 4."""
+    if nmode < 1:
+        raise ValueError(f"no kept mode: {nmode}")
+    return 1 if nmode == 1 else 4 if nmode <= 4 else GRID_BIN
 
 
 def vector_width(nmode: int, itemsize: int) -> int:
     """Markers per thread and iteration of the kernel that runs nmode kept
-    modes with arithmetic of `itemsize` bytes: one 16-byte load per stream
-    (4 in float, 2 in double) in the bins of at most 4 modes, 1 in the
-    16-mode bin and the wide bin, whose per-mode sums fill the registers
-    (vec_width in csrc/substep_kernels.cu)."""
-    return 1 if nmode > 4 else 16 // itemsize
+    modes with arithmetic of `itemsize` bytes: one 16-byte load per stream,
+    4 in float and 2 in double, in every bin (vec_width in
+    csrc/substep_kernels.cu)."""
+    return 16 // itemsize
+
+
+def grid_egrids(substep: int) -> int:
+    """E grids a grid-bin kernel has room for: substep 2 forms a second one
+    where it rebuilds v1 from the step-start modes (full-f, recompute) and
+    keeps the room in every layout, so that both nonlinear delta-f layouts
+    share charge grids and grid, and so their bits (egrids in
+    csrc/substep_kernels.cu)."""
+    return 2 if substep == 2 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def grid_smem(nx: int, itemsize: int, egrids: int) -> tuple[int, int]:
+    """(bytes, copies) of the grid bin's dynamic shared memory: `egrids` E
+    grids of nx + 1 values of `itemsize` bytes and `copies` charge grids of
+    2 nx values (a marker's two hat halves, at its cell), the most copies of
+    GRID_COPIES (one per warp), 4, 2, 1 that fit in GRID_SMEM_MAX; (0, 1)
+    when not even one fits, and the block's grids then lie in a device
+    buffer (grid_smem in csrc/substep_kernels.cu)."""
+    copies = GRID_COPIES
+    while copies >= 1:
+        nbytes = (egrids * (nx + 1) + copies * 2 * nx) * itemsize
+        if nbytes <= GRID_SMEM_MAX:
+            return nbytes, copies
+        copies //= 2
+    return 0, 1
+
+
+@functools.lru_cache(maxsize=None)
+def grid_blocks_per_sm(nx: int, itemsize: int, egrids: int,
+                       blocks_per_sm: int = BLOCKS_PER_SM) -> int:
+    """Blocks per SM of a grid-bin launch: blocks_per_sm, or fewer where
+    that many blocks' shared memory (grid_smem, the static arrays, the
+    driver's reserve) does not fit in an SM, so that the grid is one wave
+    of resident blocks (at nx 1024 in f32, 3 blocks of 72 KB)."""
+    dynamic = grid_smem(nx, itemsize, egrids)[0]
+    per_block = dynamic + 2 * THREADS * itemsize + 128 + BLOCK_SMEM_RESERVED
+    return max(1, min(blocks_per_sm, SM_SMEM // per_block))
 
 
 def launch_grid(markers: int, vec: int, sms: int, blocks_per_sm: int = BLOCKS_PER_SM) -> int:
@@ -409,14 +483,15 @@ class FusedSubsteps:
     the plain versions; the kernels' angle table and counters (one int per
     substep, 0 between launches) are made once on the same device, outside
     any CUDA graph capture, and a launch refuses streams on another device;
-    so are the species and mode tables.  stream_v1 picks the nonlinear
+    so is the species table.  stream_v1 picks the nonlinear
     delta-f layout: v1 streamed from substep 1 to substep 2 (True) or
     rebuilt by substep 2 (False, RECOMPUTE), by default the config's own
     (layout); the other layouts ignore it.  Streams a layout does not write come back as None from
     substep 1 and are ignored by substep 2 (full-f takes no w1 or v1, linear
     and recompute no v1); substep 2 takes the step-start modes as well where
     it rebuilds v1 from them (full-f and recompute).  blocks_per_sm caps the
-    grid (launch_grid)."""
+    grid (launch_grid); grid_bin set takes the grid bin at any nmode (the
+    probe of the bin line; a run leaves it False)."""
 
     def __init__(self, cfg: Config, sp: dist.SpeciesParams, stream_v1: bool | None = None):
         self.cfg = cfg
@@ -440,12 +515,13 @@ class FusedSubsteps:
             # raised again at the first CUDA launch; CPU runs need no kernel
             self._params, self._unsupported = None, exc
         self.blocks_per_sm = BLOCKS_PER_SM
-        self.angles = self._done = self.species = self.modes = None
+        self.grid_bin = False
+        self._many_modes = cfg.nmode >= 1 and mode_bin(cfg.nmode) == GRID_BIN
+        self.angles = self._done = self.species = None
         if self._unsupported is None:
             device = sp.charge.device
             self.angles = angle_table(cfg, dtype, device)
             self.species = species_table(cfg, dtype, device)
-            self.modes = mode_table(cfg, dtype, device)
             self._done = torch.zeros(2, dtype=torch.int32, device=device)
             self._vec = vector_width(cfg.nmode, self.angles.element_size())
             self._angle_smem = angle_smem_bytes(cfg.nmode, cfg.nx, self.angles.element_size())
@@ -527,15 +603,16 @@ class FusedSubsteps:
     def substep1(self, x, v, p, w, mode_re, mode_im):
         if x.device.type == "cpu":
             return self.substep1_plain(x, v, p, w, mode_re, mode_im)
-        prm, lib, grid = self._prepare(dict(x=x, v=v, p=p, w=w), (mode_re, mode_im))
+        prm, lib, grid = self._prepare(dict(x=x, v=v, p=p, w=w), (mode_re, mode_im), 1)
         w1 = torch.empty_like(w, dtype=p.dtype) if self.has_w else None
         v1 = torch.empty_like(v) if self.layout == NONLINEAR else None
         sums = self._sums(x, grid)
         rc = getattr(lib, f"pic1dp_substep1_{self._suffix}")(
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
-            *_pointers(x, v, p, w, mode_re, mode_im, self.species, self.modes, w1, v1, sums,
-                       sums[grid], self._done[0], self.angles),
-            self._angle_smem, grid, torch.cuda.current_stream(x.device).cuda_stream)
+            *_pointers(x, v, p, w, mode_re, mode_im, self.species, self._grids(x, grid, 1),
+                       w1, v1, sums, sums[grid], self._done[0], self.angles),
+            self._angle_smem, grid, int(self.grid_bin),
+            torch.cuda.current_stream(x.device).cuda_stream)
         self.counters[0].launched(rc, lib)
         return w1, v1, (sums[grid, 0], sums[grid, 1])
 
@@ -552,15 +629,16 @@ class FusedSubsteps:
         if self.rebuilds_v1:
             self._need_step_start_modes(mode_re0, mode_im0)
             modes += (mode_re0, mode_im0)
-        prm, lib, grid = self._prepare(streams, modes)
+        prm, lib, grid = self._prepare(streams, modes, 2)
         sums = self._sums(x, grid)
         start = (mode_re0, mode_im0) if self.rebuilds_v1 else (None, None)
         rc = getattr(lib, f"pic1dp_substep2_{self._suffix}")(
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
             *_pointers(x, v, p, w, streams.get("w1"), streams.get("v1"), mode_re1, mode_im1,
-                       *start, self.species, self.modes, sums, sums[grid], self._done[1],
-                       self.angles),
-            self._angle_smem, grid, torch.cuda.current_stream(x.device).cuda_stream)
+                       *start, self.species, self._grids(x, grid, 2), sums, sums[grid],
+                       self._done[1], self.angles),
+            self._angle_smem, grid, int(self.grid_bin),
+            torch.cuda.current_stream(x.device).cuda_stream)
         self.counters[1].launched(rc, lib)
         return x, v, w, (sums[grid, 0], sums[grid, 1])
 
@@ -569,19 +647,35 @@ class FusedSubsteps:
         sums, then the projections the last block writes."""
         return torch.empty((grid + 1, 2, self.cfg.nmode), dtype=x.dtype, device=x.device)
 
+    def uses_grid_bin(self) -> bool:
+        """Whether the kernels run the grid bin (above 4 kept modes, or
+        grid_bin set)."""
+        return self.grid_bin or self._many_modes
+
+    def _grids(self, x, grid: int, substep: int):
+        """The grid bin's device buffer, (grid, egrids (nx + 1) + 2 nx)
+        values, where its grids do not fit in shared memory (grid_smem);
+        else None."""
+        egrids = grid_egrids(substep)
+        if not self.uses_grid_bin() or grid_smem(self.cfg.nx, x.element_size(), egrids)[0]:
+            return None
+        return torch.empty((grid, egrids * (self.cfg.nx + 1) + 2 * self.cfg.nx),
+                           dtype=x.dtype, device=x.device)
+
     def check_scratch(self, device: torch.device) -> None:
-        """Refuse a launch on `device` unless the angle, species and mode
-        tables and the counters lie there."""
+        """Refuse a launch on `device` unless the angle and species tables
+        and the counters lie there."""
         for name, t in (("angle table", self.angles), ("counters", self._done),
-                        ("species table", self.species), ("mode table", self.modes)):
+                        ("species table", self.species)):
             if t.device != device:
                 raise ValueError(f"the substep kernels' {name} lies on {t.device}, the "
                                  f"streams on {device}: build FusedSubsteps with species "
                                  f"parameters on the streams' device")
 
-    def _prepare(self, streams: dict, modes):
+    def _prepare(self, streams: dict, modes, substep: int):
         """Check what the kernel is given; return its constants (n set to
-        the markers per species), the library and the grid."""
+        the markers per species), the library and the grid of substep
+        `substep`."""
         x = streams["x"]
         if self._unsupported is not None:
             raise NotImplementedError(str(self._unsupported))
@@ -603,8 +697,18 @@ class FusedSubsteps:
             raise ValueError(f"no substep kernel for device {x.device}")
         self.check_scratch(x.device)
         self._params.n = x.shape[-1]
-        grid = launch_grid(x.numel(), self._vec, nvcc.sm_count(x.device), self.blocks_per_sm)
+        grid = self.grid_size(x.numel(), nvcc.sm_count(x.device), x.element_size(), substep)
         return self._params, library(), grid
+
+    def grid_size(self, markers: int, sms: int, itemsize: int, substep: int) -> int:
+        """Blocks of a launch of substep `substep` over `markers` markers
+        (all species) on a card of `sms` SMs: launch_grid with
+        blocks_per_sm, capped in the grid bin at the blocks whose shared
+        memory fits in an SM (grid_blocks_per_sm)."""
+        b = self.blocks_per_sm
+        if self.uses_grid_bin():
+            b = grid_blocks_per_sm(self.cfg.nx, itemsize, grid_egrids(substep), b)
+        return launch_grid(markers, self._vec, sms, b)
 
 
 def _pointers(*tensors):

@@ -13,10 +13,16 @@ Port of bench/kernel_probe.py.  It times
      and 6r+3w with x, v, w overwritten;
   3. the compute overhang: kernel time minus the time its bytes take at the
      ceiling rate of its pattern (:217-220);
-  4. on cuda, the substep kernels of the layout the config takes
+  4. the grid bin: both substeps in the config's layout with 16, 32 and 64
+     kept modes at 6.4M markers (or n, if smaller), nx 192, and with 32
+     modes at n markers, nx 1024 (MANY_MODE_SHAPES), from CUDA-graph
+     replays;
+  5. on cuda, the substep kernels of the layout the config takes
      (substep_kernels.layout) again with their grid capped at each of
      SWEEP_BLOCKS_PER_SM blocks per SM (the sweep that chose
-     substep_kernels.BLOCKS_PER_SM).
+     substep_kernels.BLOCKS_PER_SM), and the bin line: 2 and 4 kept modes
+     at 6.4M markers in both nonlinear delta-f layouts, the 4-mode bin and
+     the grid bin (FusedSubsteps.grid_bin) in turns bin, grid, grid, bin.
 
 GB/s counts the streams' bytes only, (reads + writes) * bytes * n.  Timing
 is CUDA events after a warm-up (the TPU probe's scan-slope method existed
@@ -34,7 +40,7 @@ from pic1dp_tpu_torch.config import bump_on_tail_default
 from pic1dp_tpu_torch.ops.stream_probes import stream_rw
 from pic1dp_tpu_torch.ops.substep_kernels import NONLINEAR, FusedSubsteps
 from pic1dp_tpu_torch.probes import (Row, describe, device_from_arg, fresh_streams,
-                                     line, parser, time_ms)
+                                     graph_ms, line, parser, time_ms)
 
 # (label, reads, writes, alias)
 TPU_PATTERNS = (
@@ -55,6 +61,34 @@ PORT_PATTERNS = (
 SUBSTEP_BYTES = {("f32", "nonlinear"): (24, 36), ("bf16", "nonlinear"): (20, 32),
                  ("f32", "recompute"): (20, 32), ("bf16", "recompute"): (16, 28)}
 SWEEP_BLOCKS_PER_SM = (2, 4, 8, 16)
+# (kept modes, markers at most, nx) of the grid-bin rows: the main width
+# and, with n markers, the headline's nx
+MAIN_N, MAIN_NX = 6_400_000, 192
+MANY_MODE_SHAPES = ((16, MAIN_N, MAIN_NX), (32, MAIN_N, MAIN_NX), (64, MAIN_N, MAIN_NX),
+                    (32, None, 1024))
+BIN_LINE_MODES = (2, 4)
+
+
+def _state(cfg, device: torch.device):
+    """A marker state of cfg's width drawn on the device, and two sets of
+    mode components."""
+    n = cfg.nparticle_max
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand((1, n), generator=gen, device=device) * cfg.lx
+    v = torch.randn((1, n), generator=gen, device=device) * 2.0
+    p = (torch.randn((1, n), generator=gen, device=device).abs() * 1e-4).to(
+        getattr(torch, cfg.p_dtype))
+    w = torch.randn((1, n), generator=gen, device=device) * 1e-6
+    modes = [torch.rand(cfg.nmode, generator=gen, device=device) * 1e-4 for _ in range(4)]
+    return x, v, p, w, modes
+
+
+def _time_pair(subs, state, device, timer=time_ms) -> tuple[float, float]:
+    x, v, p, w, (mre0, mim0, mre1, mim1) = state
+    w1, v1, _ = subs.substep1(x, v, p, w, mre0, mim0)
+    t1 = timer(lambda: subs.substep1(x, v, p, w, mre0, mim0), device)
+    t2 = timer(lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1, mre0, mim0), device)
+    return t1, t2
 
 
 def substep_rows(n: int, device: torch.device, bf16: bool,
@@ -65,27 +99,64 @@ def substep_rows(n: int, device: torch.device, bf16: bool,
     streamed or rebuilt (by default as the config's layout)."""
     cfg = bump_on_tail_default(nx=1024, nparticle_max=n, dtype="float32",
                                bf16_weights=bf16, verbosity=0)
-    gen = torch.Generator(device=device).manual_seed(0)
-    x = torch.rand((1, n), generator=gen, device=device) * cfg.lx
-    v = torch.randn((1, n), generator=gen, device=device) * 2.0
-    p = (torch.randn((1, n), generator=gen, device=device).abs() * 1e-4).to(
-        getattr(torch, cfg.p_dtype))
-    w = torch.randn((1, n), generator=gen, device=device) * 1e-6
-    mre = torch.tensor([1e-4], device=device)
-    mim = torch.tensor([5e-5], device=device)
     subs = FusedSubsteps(cfg, dist.SpeciesParams.from_config(cfg, torch.float32, device),
                          stream_v1=stream_v1)
     if blocks_per_sm is not None:
         subs.blocks_per_sm = blocks_per_sm
-    w1, v1, _ = subs.substep1(x, v, p, w, mre, mim)
-    t1 = time_ms(lambda: subs.substep1(x, v, p, w, mre, mim), device)
-    t2 = time_ms(lambda: subs.substep2(x, v, p, w, w1, v1, mre, mim, mre, mim), device)
+    t1, t2 = _time_pair(subs, _state(cfg, device), device)
     name = "bf16" if bf16 else "f32"
     tag = ("" if subs.layout == NONLINEAR else f" {subs.layout}") + (
         "" if blocks_per_sm is None else f" B={blocks_per_sm}")
     b1, b2 = SUBSTEP_BYTES[name, subs.layout]
     return (Row(f"{name} substep1{tag}", t1, b1 * n),
             Row(f"{name} substep2{tag}", t2, b2 * n))
+
+
+def _modes_cfg(nmode: int, n: int, nx: int):
+    return bump_on_tail_default(nx=nx, nparticle_max=n, modes=tuple(range(1, nmode + 1)),
+                                init_modes=(1,), verbosity=0)
+
+
+def many_mode_rows(n: int, device: torch.device) -> list[Row]:
+    """ms per call of both f32 substeps in the config's layout at each of
+    MANY_MODE_SHAPES (markers capped at n), from CUDA-graph replays
+    (graph_ms: at 6.4M markers eager calls are paced by the host)."""
+    rows = []
+    for nmode, cap, nx in MANY_MODE_SHAPES:
+        cfg = _modes_cfg(nmode, n if cap is None else min(cap, n), nx)
+        subs = FusedSubsteps(cfg, dist.SpeciesParams.from_config(cfg, torch.float32, device))
+        t1, t2 = _time_pair(subs, _state(cfg, device), device, graph_ms)
+        b1, b2 = SUBSTEP_BYTES["f32", subs.layout]
+        tag = f"{nmode} modes nx {nx} n {cfg.nparticle_max}"
+        rows += [Row(f"{tag} substep1 {subs.layout}", t1, b1 * cfg.nparticle_max),
+                 Row(f"{tag} substep2 {subs.layout}", t2, b2 * cfg.nparticle_max)]
+    return rows
+
+
+def bin_line_rows(n: int, device: torch.device) -> list[Row]:
+    """The bin line: both f32 substeps with BIN_LINE_MODES kept modes at
+    min(n, 6.4M) markers, nx 192, in both nonlinear delta-f layouts, in
+    the 4-mode bin and in the grid bin (FusedSubsteps.grid_bin), in turns
+    bin, grid, grid, bin, from CUDA-graph replays; each row the mean of its
+    two turns."""
+    rows = []
+    for nmode in BIN_LINE_MODES:
+        cfg = _modes_cfg(nmode, min(MAIN_N, n), MAIN_NX)
+        state = _state(cfg, device)
+        for stream_v1 in (True, False):
+            times = {False: [], True: []}
+            for grid_bin in (False, True, True, False):
+                subs = FusedSubsteps(cfg, dist.SpeciesParams.from_config(
+                    cfg, torch.float32, device), stream_v1=stream_v1)
+                subs.grid_bin = grid_bin
+                times[grid_bin].append(_time_pair(subs, state, device, graph_ms))
+            b1, b2 = SUBSTEP_BYTES["f32", subs.layout]
+            for grid_bin, form in ((False, "4-mode bin"), (True, "grid bin")):
+                for k, b in ((0, b1), (1, b2)):
+                    ms = sum(t[k] for t in times[grid_bin]) / 2
+                    rows.append(Row(f"{nmode} modes substep{k + 1} {subs.layout} {form}", ms,
+                                    b * cfg.nparticle_max))
+    return rows
 
 
 def stream_row(label: str, n_read: int, n_write: int, alias, n: int,
@@ -119,6 +190,10 @@ def run(n: int, device: torch.device, say=print) -> dict[str, Row]:
             k, c = rows[f"{name} substep{ss}"], rows[pattern]
             parts.append(f"ss{ss}: {k.ms - k.bytes / (c.gbs * 1e6):+.4f} ms")
         say(f"{name:<5} " + "   ".join(parts))
+    say("-- the grid bin (more than 4 kept modes), f32, the config's layout --")
+    for row in many_mode_rows(n, device):
+        rows[row.label] = row
+        say(line(row, device, 44))
     if device.type != "cuda":
         return rows          # the plain versions have no grid
     say("-- substep kernels with the grid capped at B blocks per SM --")
@@ -127,6 +202,10 @@ def run(n: int, device: torch.device, say=print) -> dict[str, Row]:
             for row in substep_rows(n, device, bf16, b):
                 rows[row.label] = row
                 say(line(row, device))
+    say("-- the bin line: 2 and 4 kept modes in the 4-mode bin and the grid bin, in turns --")
+    for row in bin_line_rows(n, device):
+        rows[row.label] = row
+        say(line(row, device, 44))
     return rows
 
 

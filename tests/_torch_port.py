@@ -115,7 +115,7 @@ def _landau_species(m, dtype, count):
 
 
 # configs past what the kernels' parameters hold: more than 16 kept modes
-# (the wide bin) and more than 8 species (the species table)
+# and more than 8 species (the species table)
 WIDE_CASES = {
     "bot_17_modes": lambda m, dt: dataclasses.replace(
         _bot(m, dt, nx=64, modes=tuple(range(1, 18)), init_modes=(1,)), nparticle_max=1024),
@@ -124,3 +124,14 @@ WIDE_CASES = {
     "landau_9_species": lambda m, dt: _landau_species(m, dt, 9),
     "landau_12_species": lambda m, dt: _landau_species(m, dt, 12),
 }
+
+
+def _bot_modes(nmode):
+    return lambda m, dt: dataclasses.replace(
+        _bot(m, dt, nx=64, modes=tuple(range(1, nmode + 1)), init_modes=(1,)),
+        nparticle_max=1024)
+
+
+# the grid bin (more than 4 kept modes) at its edge and past the parameters
+GRID_CASES = {"bot_5_modes": _bot_modes(5), "bot_16_modes": _bot_modes(16),
+              "bot_64_modes": _bot_modes(64)}

@@ -7,7 +7,7 @@ FusedStepper(cfg, interpret=True, stream_v1=...) — the Pallas kernels in
 interpret mode — on the same arrays, in float64 at 1e-12 of each field's
 max: the recompute layout of nonlinear delta-f (substep 2 rebuilds v1 from
 the step-start modes, stream_v1=False), more kept modes than the kernels'
-parameters hold (17 and 33: the wide bin) and more species (9 and 12: the
+parameters hold (17 and 33: the grid bin) and more species (9 and 12: the
 species table).  The kernels' own arithmetic on those tables is held in
 tests/test_torch_substep.py; the CUDA kernels run on the card only
 (chip_smoke.py).  Then the Stepper's PIC1DP_STREAM_V1, bit for bit between
@@ -129,17 +129,17 @@ def test_wide_recompute_matches_pallas_interpret():
 
 
 def test_wrapper_refuses_species_or_mode_table_on_another_device():
-    """The species and mode tables, like the angle table and the counters
-    (tests/test_torch_substep_design.py), must lie on the streams' device."""
+    """The species table, like the angle table and the counters
+    (tests/test_torch_substep_design.py), must lie on the streams' device;
+    the grid bin needs no mode table, so after those nothing else does."""
     _, cfg = _configs("landau_9_species", "float64")
+    cfg = dataclasses.replace(cfg, modes=tuple(range(1, 18)))
     subs = sk.FusedSubsteps(cfg, tdist.SpeciesParams.from_config(cfg, torch.float64, "cpu"))
+    assert subs.uses_grid_bin() and not hasattr(subs, "modes")
     subs.angles, subs._done = subs.angles.to("meta"), subs._done.to("meta")
     with pytest.raises(ValueError, match="species table lies on cpu, the streams on meta"):
         subs.check_scratch(torch.device("meta"))
     subs.species = subs.species.to("meta")
-    with pytest.raises(ValueError, match="mode table lies on cpu, the streams on meta"):
-        subs.check_scratch(torch.device("meta"))
-    subs.modes = subs.modes.to("meta")
     subs.check_scratch(torch.device("meta"))
 
 
@@ -151,9 +151,10 @@ def _stepper(cfg, monkeypatch, value):
 
 
 def test_layout_follows_the_measured_line():
-    """Nonlinear delta-f rebuilds v1 with one kept mode above
-    REBUILD_V1_MIN_MARKERS markers (all species), and streams it otherwise;
-    an explicit stream_v1 wins; linear and full-f have one layout each."""
+    """Nonlinear delta-f rebuilds v1 above REBUILD_V1_MIN_MARKERS markers
+    (all species) with one kept mode or more than 4 (the grid bin), and
+    streams it otherwise; an explicit stream_v1 wins; linear and full-f
+    have one layout each."""
     cfg = tcfg_mod.bump_on_tail_default(nparticle_max=sk.REBUILD_V1_MIN_MARKERS)
     two = dataclasses.replace(_configs("two_species_bump_mixed", "float64")[1],
                               nparticle_max=sk.REBUILD_V1_MIN_MARKERS // 2)
@@ -163,6 +164,10 @@ def test_layout_follows_the_measured_line():
         assert sk.layout(more) == sk.RECOMPUTE and sk.rebuilds_v1_faster(more)
         assert sk.layout(more, stream_v1=True) == sk.NONLINEAR
         assert sk.layout(dataclasses.replace(more, modes=(1, 2, 3, 4))) == sk.NONLINEAR
+        for wide in (5, 16, 33):
+            modes = tuple(range(1, wide + 1))
+            assert sk.layout(dataclasses.replace(more, modes=modes)) == sk.RECOMPUTE
+            assert sk.layout(dataclasses.replace(c, modes=modes)) == sk.NONLINEAR
         assert sk.layout(c, stream_v1=False) == sk.RECOMPUTE
     big = dataclasses.replace(cfg, nparticle_max=2 * sk.REBUILD_V1_MIN_MARKERS)
     assert sk.layout(dataclasses.replace(big, linear=True), stream_v1=False) == sk.LINEAR

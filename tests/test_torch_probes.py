@@ -118,9 +118,12 @@ def test_cuda_path_checks_its_inputs():
 def test_kernel_probe_runs_on_cpu(capsys):
     rows = kernel_probe.main(["12", "--device", "cpu"])
     labels = [lbl for lbl, *_ in kernel_probe.TPU_PATTERNS + kernel_probe.PORT_PATTERNS]
+    grid_rows = {f"{m} modes nx {nx} n {2**12} substep{s} nonlinear"
+                 for m, _, nx in kernel_probe.MANY_MODE_SHAPES for s in (1, 2)}
     assert set(rows) == {f"{d} substep{s}{tag}" for d in ("f32", "bf16") for s in (1, 2)
-                         for tag in ("", " recompute")} | set(labels)
+                         for tag in ("", " recompute")} | set(labels) | grid_rows
     assert all(r.ms > 0 for r in rows.values())
+    assert rows[f"32 modes nx 1024 n {2**12} substep2 nonlinear"].bytes == 36 * 2**12
     assert rows["bf16 substep1"].bytes == 20 * 2**12
     assert rows["f32 substep1 recompute"].bytes == 20 * 2**12
     assert rows["bf16 substep2 recompute"].bytes == 28 * 2**12
@@ -150,3 +153,18 @@ def test_probe_without_cuda_refuses():
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+
+
+def test_grid_forms_variants_apply():
+    """probes/grid_forms.py finds in csrc/substep_kernels.cu each piece it
+    swaps: every variant is a source of its own, the kernel's unchanged."""
+    from pic1dp_tpu_torch.probes import grid_forms
+
+    src = (grid_forms.CSRC / "substep_kernels.cu").read_text()
+    variants = grid_forms.variant_sources()
+    assert list(variants) == list(grid_forms.FORMS)
+    assert variants["kernel"] == src
+    assert len({text for text in variants.values()}) == len(variants)
+    assert "deposit_lanes(r.rho" in src
+    assert all("deposit_lanes(r.rho" not in variants[k]
+               for k in ("match_half", "lane_serial", "atomic"))

@@ -21,7 +21,8 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port import CASES, WIDE_CASES, assert_bf16_close, assert_rel, host, to_port
+from _torch_port import (CASES, GRID_CASES, WIDE_CASES, assert_bf16_close, assert_rel, host,
+                         to_port)
 
 import pic1dp_tpu.config as jcfg_mod
 from pic1dp_tpu.core.loading import load_particles as jax_load
@@ -34,6 +35,7 @@ from pic1dp_tpu_torch.ops import substep_kernels as sk
 
 
 BF16_CASES = ("landau_linear", "two_species_maxwellian")
+ALL_CASES = {**CASES, **WIDE_CASES, **GRID_CASES}
 
 
 def _params():
@@ -153,14 +155,19 @@ def test_plain_substeps_match_pallas_interpret(name, dtype):
 def _kernel_model(subs, x, v, p, w, modes, substep, w1=None, v1=None):
     """The arithmetic of csrc/substep_kernels.cu in every layout, in numpy
     float64 on (ns, n) arrays, driven by what the wrapper passes: the
-    SubstepParams, the angle table (nmode, nx, 2), the species table and the
-    mode table: the (cos, sin) of each marker's cell gathered from the table
-    with the hat fold, the reciprocal wrap, each species' host-folded
+    SubstepParams, the angle table (nmode, nx, 2) and the species table.  In
+    the register bins (at most 4 modes) the (cos, sin) of each marker's cell
+    gathered from the table with the hat fold; in the grid bin (above 4, or
+    subs.grid_bin) E on the grid from the table and the modes, the hat lerp
+    of it at the marker, and the hat deposit onto a charge grid projected
+    with the table.  Then the reciprocal wrap, each species' host-folded
     -f0'/f0 and dt q/m.  `modes` is (re, im) in substep 1, (re1, im1, re0,
     im0) in substep 2."""
     prm, layout = sk.kernel_params(subs.cfg), subs.layout
-    table, species, (cdm1, sd) = host(subs.angles), host(subs.species), host(subs.modes)
+    table, species = host(subs.angles), host(subs.species)
+    cdm1, sd = sk.mode_constants(subs.cfg)
     nm, nx = prm.nmode, prm.nx
+    grid = subs.uses_grid_bin()
     assert species.shape == (x.shape[0], sk.SPECIES_FIELDS)
 
     def col(k):
@@ -169,11 +176,13 @@ def _kernel_model(subs, x, v, p, w, modes, substep, w1=None, v1=None):
     kform = col(0).astype(np.int64)
     c = {name: col(1 + k) for k, name in enumerate(sk._SPECIES_FIELDS)}
 
-    def hat_trig(xx):
+    def cell(xx):
         s = xx * prm.nx_over_lx
         fl = np.floor(s)
-        f = s - fl
-        ix0 = np.clip(fl.astype(np.int64), 0, nx - 1)
+        return s - fl, np.clip(fl.astype(np.int64), 0, nx - 1)
+
+    def hat_trig(xx):
+        f, ix0 = cell(xx)
         out = []
         for j in range(nm):
             cs, sn = table[j, ix0, 0], table[j, ix0, 1]
@@ -182,6 +191,11 @@ def _kernel_model(subs, x, v, p, w, modes, substep, w1=None, v1=None):
         return out
 
     def gather(xx, re, im):
+        if grid:
+            e = 2.0 * (re @ table[..., 0] - im @ table[..., 1])
+            f, ix0 = cell(xx)
+            a = e[ix0]
+            return a + f * (np.append(e, e[0])[ix0 + 1] - a)
         return 2.0 * sum(cc * re[j] - ss * im[j] for j, (cc, ss) in enumerate(hat_trig(xx)))
 
     def wrap(xx):
@@ -201,8 +215,14 @@ def _kernel_model(subs, x, v, p, w, modes, substep, w1=None, v1=None):
         return np.choose(np.broadcast_to(kform, vv.shape), forms)
 
     def project(xx, val):
-        cs = hat_trig(xx)
         val = c["charge"] * val
+        if grid:
+            f, ix0 = cell(xx)
+            rho = np.zeros(nx)
+            np.add.at(rho, ix0.ravel(), (val * (1.0 - f)).ravel())
+            np.add.at(rho, ((ix0 + 1) % nx).ravel(), (val * f).ravel())
+            return table[..., 0] @ rho, table[..., 1] @ rho
+        cs = hat_trig(xx)
         return (np.array([np.sum(val * cc) for cc, _ in cs]),
                 np.array([np.sum(val * ss) for _, ss in cs]))
 
@@ -246,11 +266,12 @@ def test_kernel_arithmetic_matches_plain(name):
         _check_kernel_model(name, subs, to_port(js))
 
 
-@pytest.mark.parametrize("name", list(WIDE_CASES))
+@pytest.mark.parametrize("name", list(WIDE_CASES) + ["bot_5_modes", "bot_16_modes"])
 def test_kernel_arithmetic_past_the_tables(name):
-    """The same past what SubstepParams holds: the wide mode bin's mode
-    table and the species table, both nonlinear delta-f layouts."""
-    jcfg, tcfg = (WIDE_CASES[name](m, "float64") for m in (jcfg_mod, tcfg_mod))
+    """The same past the register bins and what SubstepParams holds: the
+    grid bin (5 to 33 modes) and the species table, both nonlinear delta-f
+    layouts."""
+    jcfg, tcfg = (ALL_CASES[name](m, "float64") for m in (jcfg_mod, tcfg_mod))
     js = _state(jcfg)
     for stream_v1 in (True, False):
         _check_kernel_model(name, _substeps(tcfg, stream_v1), to_port(js))
@@ -347,16 +368,17 @@ def test_fullf_substep2_needs_the_step_start_modes():
 def test_variants_past_the_parameter_tables_run(change):
     """More kept modes or species than SubstepParams holds: kernel_params
     accepts the config (the first MAX_MODES modes and MAX_SPECIES species
-    in the parameters, all of them in the mode and species tables), a
-    launch off the CPU gets as far as the device check, and the CPU
-    dispatch runs the plain version."""
+    in the parameters, every species in the species table; the grid bin
+    needs no per-mode constant), a launch off the CPU gets as far as the
+    device check, and the CPU dispatch runs the plain version."""
     cfg = dataclasses.replace(
         tcfg_mod.bump_on_tail_default(nx=64, nparticle_max=1024, dtype="float64"),
         **change)
     prm = sk.kernel_params(cfg)
     assert prm.nmode == cfg.nmode and prm.nspecies == cfg.nspecies
     subs = _substeps(cfg)
-    assert tuple(subs.modes.shape) == (2, cfg.nmode)
+    assert subs.uses_grid_bin() == (cfg.nmode > 4)
+    assert tuple(subs.angles.shape) == (cfg.nmode, cfg.nx, 2)
     assert tuple(subs.species.shape) == (cfg.nspecies, sk.SPECIES_FIELDS)
     meta = [torch.empty((cfg.nspecies, 1024), dtype=torch.float64, device="meta")] * 4
     modes = [torch.empty((cfg.nmode,), dtype=torch.float64, device="meta")] * 2
@@ -407,14 +429,18 @@ def test_supported_variant_off_cuda_raises():
      "S1_Li1ELi0ELb0EEEvN6ParamsIT_EE", "substep1_bf16"),
     ("_ZN38_GLOBAL__N__0a1b2c3d_18_substep_kernels_cu_115substep2_kernelIdddLi16ELi2ELb1EEEv",
      "substep2_fullf"),
-    ("void (anonymous namespace)::substep2_kernel<float, float, float, 16, 3, true, true>"
+    ("_ZN51_GLOBAL__N__98291d35_18_substep_kernels_cu_bf26865015substep1_kernelIf13__nv_bfloat16"
+     "S1_Li0ELi0ELb1ELb1EEEvNS_6ParamsIT_EENS_4ArgsIS3_T0_T1_EENS_12SpeciesTableIS3_EE",
+     "substep1_bf16"),
+    ("void (anonymous namespace)::substep2_kernel<float, float, float, 0, 3, true, true>"
      "((anonymous namespace)::Params<float>)", "substep2_recompute"),
     ("_ZN38_GLOBAL__N__0a1b2c3d_18_substep_kernels_cu_115substep1_kernelIf13__nv_bfloat16"
      "S1_Li1ELi3ELb0ELb0EEEvN6ParamsIT_EE", "substep1_recompute_bf16"),
     ("_ZN38_GLOBAL__N__0a1b2c3d_18_substep_kernels_cu_117grid_angle_kernelEPKiixPfS2_", None),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>", None),
 ], ids=["demangled", "demangled_linear_bf16", "mangled_bf16", "mangled_fullf_f64",
-        "demangled_recompute_wide", "mangled_recompute_bf16", "grid_angle", "other"])
+        "mangled_grid_bf16", "demangled_recompute_grid", "mangled_recompute_bf16", "grid_angle",
+        "other"])
 def test_profiler_kernel_names_map_to_counters(name, counter):
     """chip_smoke.py reads each substep kernel's launches off a profiler
     trace by its device name: the substep, the layout (template argument L)

@@ -101,8 +101,11 @@ def test_launch_grid_values():
 
 
 @pytest.mark.parametrize("nmode,itemsize,vec", [
-    (1, 4, 4), (4, 4, 4), (5, 4, 1), (16, 4, 1), (1, 8, 2), (3, 8, 2), (16, 8, 1)])
+    (1, 4, 4), (4, 4, 4), (5, 4, 4), (16, 4, 4), (1, 8, 2), (3, 8, 2), (16, 8, 2),
+    (17, 4, 4), (33, 8, 2), (64, 4, 4)])
 def test_vector_width_by_mode_bin(nmode, itemsize, vec):
+    """16-byte loads in every bin: the grid bin keeps no per-mode sum in
+    registers."""
     assert sk.vector_width(nmode, itemsize) == vec
 
 
