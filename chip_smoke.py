@@ -12,7 +12,9 @@ first failed check.  Phases, each printed:
 
   1. environment: torch, CUDA, triton and nvcc versions, the card
   2. build: nvcc builds every kernel source of pic1dp_tpu_torch/csrc (each
-     hashed with the headers beside it), one process per source, all at once
+     hashed with the headers beside it), one process per source, all at
+     once; the ptxas lines of the main path's and the grid bin's substep
+     kernels and of every instantiation of the bulk-copy ring
   3. each kernel against its plain PyTorch version on the same inputs:
      the main substeps in f32 and bf16_weights at full width and in f64
      with three modes; the angle table as the kernels read it, bit for
@@ -21,8 +23,12 @@ first failed check.  Phases, each printed:
      and every variant of the reference's _pallas_cases in f64; five Stepper
      steps in f32 and bf16; k steps replayed from a CUDA graph against k
      eager steps, bit for bit; both stream kernels on every built pattern, both unit
-     kernels for every unit and K in {0, 1, 4} at eps = 1 and 1e-12, and the
-     carry kernel over 3 steps in every layout
+     kernels for every unit and K in {0, 1, 4} at eps = 1 and 1e-12, the
+     ring (stream_bulk, stream_bulk_units) in each of the overlap probe's
+     three rings at an odd n of many tiles a block, an n below one tile and
+     37 tiles (fewer than blocks), aliased and fresh, at the consumer warps
+     ring_consumers picks and at RING_WARPS, and the carry kernel over 3
+     steps in every layout
   4. the main paths, each with its launch counts set to 0 just before and
      read just after: Simulation.run to t = 100 in f32 and in bf16_weights
      (launch counts, the pic1dp.out size and read-back, the growth rate
@@ -110,6 +116,10 @@ F64_TOL = 1e-12                      # relative to each field's max
 # sum (float64 in both, summed in another order) within this relative bound
 STREAM_SUM_TOL = 1e-6
 UNIT_KS = (0, 1, 4)                  # K compared for every unit
+# consumer warps the ring is also compared at, beside ring_consumers' pick:
+# below every ring's chunk count, with the tile's chunks dealt in whole
+# rounds (a step of 0) and not, and 8 (a step of 0 at every ring)
+RING_WARPS = (4, 5, 8)
 CARRY_STEPS = 3
 PROBE_LOG2 = 26                      # 256 MB per stream: HBM, not the 50 MB L2
 TIMING_STEPS, WARMUP_STEPS = 50, 5
@@ -301,9 +311,10 @@ def environment() -> str:
 
 def build() -> None:
     """Build every source at once and print the ptxas lines of the main
-    path's substep kernels (the one-species nonlinear instantiations) and
-    of the grid bin's (registers, spills, shared memory), and for the other
-    kernels their count, most registers and any spill."""
+    path's substep kernels (the one-species nonlinear instantiations), of
+    the grid bin's and of the bulk-copy ring's (registers, spills, shared
+    memory), and for the other kernels their count, most registers and any
+    spill."""
     from pic1dp_tpu_torch.ops import stream_probes as sp
     from pic1dp_tpu_torch.ops import substep_kernels as sk
     from pic1dp_tpu_torch.utils import nvcc
@@ -323,6 +334,8 @@ def build() -> None:
             if _substep_entry(entry) in ("main", "grid", "grid_angle"):
                 for line in (entry, *lines):
                     say(f"[2 build] {line}")
+            elif ring_entry(entry):
+                say(f"[2 build] {ring_entry(entry)}: " + "; ".join(lines))
             else:
                 rest.extend(lines)
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in rest if "Used " in ln]
@@ -337,6 +350,13 @@ def build() -> None:
     sp.library()
     say(f"[2 build] all libraries built in parallel and loaded in "
         f"{time.perf_counter() - start:.1f} s")
+
+
+def ring_entry(name: str) -> str | None:
+    """stream_bulk_kernel<NR, NW, U, K> for a ptxas entry of the bulk-copy
+    ring, None for any other."""
+    m = re.search(r"stream_bulk_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", name)
+    return None if m is None else f"stream_bulk_kernel<{', '.join(m.groups())}>"
 
 
 def _substep_entry(name: str) -> str | None:
@@ -631,29 +651,66 @@ def stream_cases():
                 pipeline_probe.N_WRITE, alias, label
 
 
-def compare_streams(n: int) -> dict:
-    """Each stream kernel against stream_plain on fresh copies of the same
-    inputs (an odd n, so the masked tails run): outputs and inputs bitwise
-    equal after the call, the element sum within STREAM_SUM_TOL."""
+def ring_edges():
+    """(ring label, keyword arguments, n, what n is, alias) of the overlap
+    probe's three rings (4 KB x 4, 8 KB x 4, 16 KB x 3) at the sizes where
+    the ring's schedule has edges, with aliased and fresh outputs: an odd n
+    of many tiles a block and a tail, an n below one tile (no block has a
+    tile), and 37 tiles and a tail (fewer tiles than blocks)."""
+    from pic1dp_tpu_torch.ops import stream_probes as sp
+    from pic1dp_tpu_torch.probes import overlap_probe
+
+    for label, kernel, kw in overlap_probe.CASES:
+        if kernel is not sp.stream_bulk_units:
+            continue
+        tile = kw["tile_bytes"] // 4
+        for n, what in ((2**22 + 13, "odd n with a tail"), (tile - 3, "n below one tile"),
+                        (37 * tile + 5, "37 tiles and a tail")):
+            for alias in (sp.ALIAS, {}):
+                yield label, kw, n, what, alias
+
+
+def _compare_stream(kernel, kw: dict, nr: int, nw: int, alias: dict, n: int, seed: int):
+    """One stream kernel call against stream_plain on fresh copies of the
+    same inputs: (outputs and inputs bitwise equal, max abs err, sum rel
+    err)."""
     from pic1dp_tpu_torch.ops.stream_probes import stream_plain
     from pic1dp_tpu_torch.probes import fresh_streams
 
+    base = fresh_streams(nr, n, torch.device("cuda"), seed=seed)
+    a, b = [t.clone() for t in base], [t.clone() for t in base]
+    outs_k, sum_k = kernel(a, nw, alias, **kw)
+    outs_p, sum_p = stream_plain(b, nw, alias)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(outs_k + a, outs_p + b))
+    err = max(abs_err(x, y) for x, y in zip(outs_k, outs_p))
+    return same, err, abs(float(sum_k) - float(sum_p)) / abs(float(sum_p))
+
+
+def compare_streams(n: int) -> dict:
+    """Each stream kernel against stream_plain on fresh copies of the same
+    inputs (an odd n, so the masked tails run), then the ring on 4r+3w at
+    each of ring_edges(): outputs and inputs bitwise equal after the call,
+    the element sum within STREAM_SUM_TOL."""
+    from pic1dp_tpu_torch.ops.stream_probes import bulk_ring, stream_bulk
+
     worst = {"stream_rw": 0.0, "stream_bulk": 0.0}
     for k, (name, kernel, kw, nr, nw, alias, label) in enumerate(stream_cases()):
-        base = fresh_streams(nr, n, torch.device("cuda"), seed=k)
-        a, b = [t.clone() for t in base], [t.clone() for t in base]
-        outs_k, sum_k = kernel(a, nw, alias, **kw)
-        outs_p, sum_p = stream_plain(b, nw, alias)
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(outs_k + a, outs_p + b))
-        err = max(abs_err(x, y) for x, y in zip(outs_k, outs_p))
-        rel = abs(float(sum_k) - float(sum_p)) / abs(float(sum_p))
+        same, err, rel = _compare_stream(kernel, kw, nr, nw, alias, n, seed=k)
         say(f"[3 compare] {name} {kw or ''} {label} n={n}: outputs and inputs bitwise "
             f"equal {same}; sum rel err {rel:.3e} (limit {STREAM_SUM_TOL:g})")
         check(same, f"{name} {label} {kw} bitwise equal to stream_plain")
         check(rel <= STREAM_SUM_TOL, f"{name} {label} sum within {STREAM_SUM_TOL}")
         worst[name] = max(worst[name], err)
-        del base, a, b, outs_k, outs_p
+    for k, (label, kw, m, what, alias) in enumerate(ring_edges()):
+        same, err, rel = _compare_stream(stream_bulk, kw, 4, 3, alias, m, seed=600 + k)
+        tag = (f"stream_bulk {label} 4r+3w {'aliased' if alias else 'fresh'} n={m} ({what}; "
+               f"{bulk_ring(4, 3, **kw).consumers} consumer warps)")
+        say(f"[3 compare] {tag}: outputs and inputs bitwise equal {same}; sum rel err "
+            f"{rel:.3e} (limit {STREAM_SUM_TOL:g})")
+        check(same, f"{tag} bitwise equal to stream_plain")
+        check(rel <= STREAM_SUM_TOL, f"{tag} sum within {STREAM_SUM_TOL}")
+        worst["stream_bulk"] = max(worst["stream_bulk"], err)
     return worst
 
 
@@ -671,13 +728,45 @@ def _unit_streams(n: int, seed: int, cancel: bool):
     return ins
 
 
-def compare_units(n: int) -> dict:
-    """Both unit kernels against stream_units_plain on fresh copies of the
-    same inputs, for every unit and K in UNIT_KS (an odd n, so the masked
-    tails run): at eps = 1 with acc = 0 the units' sum within
+def _compare_unit(kernel, unit: str, k: int, n: int, seed: int, alias: dict,
+                  kw: dict) -> dict:
+    """One unit kernel against stream_units_plain on fresh copies of the
+    same inputs, checked: at eps = 1 with acc = 0 the units' sum within
     units_tolerance; at eps = 1e-12 every output within one float32 ulp of
     the plain value (the kernel may contract to FMA) and bitwise at K = 0,
-    the element sum within STREAM_SUM_TOL."""
+    the element sum within STREAM_SUM_TOL.  Returns the measures."""
+    from pic1dp_tpu_torch.ops import stream_probes as sp
+
+    name = f"{kernel.__name__} {unit} x{k} {kw or ''} n={n}"
+    base = _unit_streams(n, seed, cancel=True)
+    a, b = [t.clone() for t in base], [t.clone() for t in base]
+    (ek, *_), _ = kernel(a, alias, unit, k, eps=1.0, **kw)
+    (ep, *_), _ = sp.stream_units_plain(b, alias, unit, k, eps=1.0)
+    err = (ek.double() - ep.double()).abs()
+    tol = sp.units_tolerance(unit, k, ep).double()
+    over = float((err / tol.clamp_min(1e-30)).max())
+    torch.cuda.synchronize()
+    base = _unit_streams(n, seed, cancel=False)
+    a, b = [t.clone() for t in base], [t.clone() for t in base]
+    outs_k, sum_k = kernel(a, alias, unit, k, **kw)
+    outs_p, sum_p = sp.stream_units_plain(b, alias, unit, k)
+    torch.cuda.synchronize()
+    ulp = max(_ulps(x, y) for x, y in zip(outs_k, outs_p))
+    same = all(torch.equal(x, y) for x, y in zip(outs_k + a, outs_p + b))
+    rel = abs(float(sum_k) - float(sum_p)) / abs(float(sum_p))
+    check(over <= 1.0, f"{name} units' sum within units_tolerance")
+    check(ulp <= 1.0 and (same or k > 0), f"{name} outputs within one ulp, bitwise at K = 0")
+    check(rel <= STREAM_SUM_TOL, f"{name} sum within {STREAM_SUM_TOL}")
+    return dict(err=float(err.max()), over=over, bound=float(tol.max()), ulp=ulp, same=same,
+                rel=rel, worst=max(float(err.max()),
+                                   max(abs_err(x, y) for x, y in zip(outs_k, outs_p))))
+
+
+def compare_units(n: int) -> dict:
+    """Both unit kernels against stream_units_plain (_compare_unit) for
+    every unit and K in UNIT_KS at n (odd, so the masked tails run),
+    aliased; then the ring at each of ring_edges(), one line for each, and
+    there at each of RING_WARPS consumer warps at K = 0 and trig x4."""
     from pic1dp_tpu_torch.ops import stream_probes as sp
 
     worst = {"stream_units": 0.0, "stream_bulk_units": 0.0}
@@ -687,33 +776,45 @@ def compare_units(n: int) -> dict:
         for unit in sp.UNITS:
             for k in UNIT_KS:
                 case += 1
-                base = _unit_streams(n, case, cancel=True)
-                a, b = [t.clone() for t in base], [t.clone() for t in base]
-                (ek, *_), _ = kernel(a, sp.ALIAS, unit, k, eps=1.0)
-                (ep, *_), _ = sp.stream_units_plain(b, sp.ALIAS, unit, k, eps=1.0)
-                err = (ek.double() - ep.double()).abs()
-                tol = sp.units_tolerance(unit, k, ep).double()
-                over = float((err / tol.clamp_min(1e-30)).max())
-                torch.cuda.synchronize()
-                base = _unit_streams(n, case, cancel=False)
-                a, b = [t.clone() for t in base], [t.clone() for t in base]
-                outs_k, sum_k = kernel(a, sp.ALIAS, unit, k)
-                outs_p, sum_p = sp.stream_units_plain(b, sp.ALIAS, unit, k)
-                torch.cuda.synchronize()
-                ulp = max(_ulps(x, y) for x, y in zip(outs_k, outs_p))
-                same = all(torch.equal(x, y) for x, y in zip(outs_k + a, outs_p + b))
-                rel = abs(float(sum_k) - float(sum_p)) / abs(float(sum_p))
+                r = _compare_unit(kernel, unit, k, n, case, sp.ALIAS, {})
                 say(f"[3 compare] {name} {unit} x{k} n={n}: eps=1 units' sum max abs err "
-                    f"{float(err.max()):.3e} ({over:.2f} of its bound, max bound "
-                    f"{float(tol.max()):.3e}); eps=1e-12 outputs within {ulp:g} f32 ulp, "
-                    f"bitwise {same}; sum rel err {rel:.3e} (limit {STREAM_SUM_TOL:g})")
-                check(over <= 1.0, f"{name} {unit} x{k} units' sum within units_tolerance")
-                check(ulp <= 1.0 and (same or k > 0),
-                      f"{name} {unit} x{k} outputs within one ulp, bitwise at K = 0")
-                check(rel <= STREAM_SUM_TOL, f"{name} {unit} x{k} sum within {STREAM_SUM_TOL}")
-                worst[name] = max(worst[name], float(err.max()),
-                                  max(abs_err(x, y) for x, y in zip(outs_k, outs_p)))
-                del base, a, b, outs_k, outs_p, ek, ep, err, tol
+                    f"{r['err']:.3e} ({r['over']:.2f} of its bound, max bound "
+                    f"{r['bound']:.3e}); eps=1e-12 outputs within {r['ulp']:g} f32 ulp, "
+                    f"bitwise {r['same']}; sum rel err {r['rel']:.3e} "
+                    f"(limit {STREAM_SUM_TOL:g})")
+                worst[name] = max(worst[name], r["worst"])
+    for label, kw, m, what, alias in ring_edges():
+        rs = []
+        for unit in sp.UNITS:
+            for k in UNIT_KS:
+                case += 1
+                rs.append((k, _compare_unit(sp.stream_bulk_units, unit, k, m, case, alias, kw)))
+        say(f"[3 compare] stream_bulk_units {label} {'aliased' if alias else 'fresh'} n={m} "
+            f"({what}), every unit and K in {UNIT_KS}: units' sum at most "
+            f"{max(r['over'] for _, r in rs):.2f} of its bound; outputs within "
+            f"{max(r['ulp'] for _, r in rs):g} f32 ulp, bitwise at K = 0 "
+            f"{all(r['same'] for k, r in rs if k == 0)}; sum rel err at most "
+            f"{max(r['rel'] for _, r in rs):.3e} (limit {STREAM_SUM_TOL:g})")
+        worst["stream_bulk_units"] = max(worst["stream_bulk_units"],
+                                         max(r["worst"] for _, r in rs))
+    # K = 0 is the instantiation stream_bulk launches on 4r+3w
+    for label, kw, m, what, alias in ring_edges():
+        chunks = -(-kw["tile_bytes"] // 16 // 32)
+        for w in RING_WARPS:
+            rs = []
+            for k in (0, 4):
+                case += 1
+                rs.append((k, _compare_unit(sp.stream_bulk_units, "trig", k, m, case, alias,
+                                            dict(kw, consumer_warps=w))))
+            say(f"[3 compare] stream_bulk_units {label} {'aliased' if alias else 'fresh'} "
+                f"n={m} ({what}) at {w} consumer warps ({chunks} chunks a tile, step "
+                f"{chunks % w}), trig x0 and x4: units' sum at most "
+                f"{max(r['over'] for _, r in rs):.2f} of its bound; outputs within "
+                f"{max(r['ulp'] for _, r in rs):g} f32 ulp, bitwise at K = 0 "
+                f"{rs[0][1]['same']}; sum rel err at most "
+                f"{max(r['rel'] for _, r in rs):.3e} (limit {STREAM_SUM_TOL:g})")
+            worst["stream_bulk_units"] = max(worst["stream_bulk_units"],
+                                             max(r["worst"] for _, r in rs))
     return worst
 
 

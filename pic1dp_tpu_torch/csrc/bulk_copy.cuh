@@ -1,6 +1,6 @@
 // mbarrier and 1D bulk-copy primitives (PTX ISA 8.0, sm_90), shared by
-// csrc/stream_probes.cu (the stream_bulk ring) and csrc/substep_kernels.cu
-// (the grid-angle table staged into shared memory).
+// csrc/stream_probes.cu (the stream_bulk ring's full and empty barriers) and
+// csrc/substep_kernels.cu (the grid-angle table staged into shared memory).
 
 #pragma once
 
@@ -25,6 +25,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// one arrival (release at CTA scope: this thread's earlier accesses, and
+// those a __syncwarp ordered before it, happen before the phase completes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      "  .reg .b64 state;\n"
+      "  mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
@@ -52,8 +63,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// order this thread's earlier shared-memory accesses (made visible to it by
-// __syncthreads) before later async-proxy writes to the same memory
+// order the shared-memory accesses made visible to this thread (by
+// __syncthreads or an mbarrier wait) before its later async-proxy writes to
+// the same memory
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }

@@ -25,17 +25,27 @@
 //                takes n % 4.  On the TPU, stream_only and default_pipeline
 //                are the same kernel under the default grid pipeline, so
 //                here they are one template.
-//   stream_bulk  a manual pipeline (the counterpart of pltpu.emit_pipeline).
-//                A persistent grid; each block owns a ring of `stages`
-//                shared-memory slots, each holding one tile of every input.
-//                One thread fills a slot with one cp.async.bulk (1D bulk
-//                copy, no tensor map) per input, completing on the slot's
-//                mbarrier with expect_tx; all threads wait on the barrier,
-//                compute from shared memory and store float4 to global.  A
-//                slot is refilled `stages` tiles ahead once every thread has
-//                left it (__syncthreads, then fence.proxy.async before the
-//                async proxy writes it again).  Elements past the last whole
-//                tile are taken with plain loads.
+//   stream_bulk  a manual pipeline (the counterpart of pltpu.emit_pipeline),
+//                warp-specialized.  A persistent grid; each block owns a ring
+//                of `stages` shared-memory slots, each holding one tile of
+//                every input, and is one producer warp (the last) and
+//                `consumers` consumer warps.  One lane of the producer fills
+//                a slot with one cp.async.bulk (1D bulk copy, no tensor map)
+//                per input, completing on the slot's *full* mbarrier with
+//                expect_tx, and does no element work.  The consumers do all
+//                of it: the block's tiles, laid end to end as chunks of 32
+//                float4, are dealt to the consumer warps in turn; a warp
+//                waits on a slot's full barrier, computes its chunks of that
+//                tile from shared memory, stores float4 to global, and once
+//                the warp has left the slot (__syncwarp) one lane arrives on
+//                the slot's *empty* mbarrier (one arrival per consumer
+//                warp).  The producer refills a slot `stages` tiles ahead
+//                once its empty barrier completes.  No block-wide barrier
+//                stands in the tile loop, so a slow warp holds back only the
+//                refill of the slot it still reads.  Elements past the last
+//                whole tile are taken with plain loads by the consumers.
+//                The wrapper picks `consumers` from the blocks an SM holds
+//                at each count (ring_consumers in ops/stream_probes.py).
 //
 // The element sum: Hopper blocks run in no order, so each block reduces its
 // threads' sums (in double, each element added as its exact double value)
@@ -85,12 +95,15 @@
 #include "bulk_copy.cuh"
 #include "substep_math.cuh"
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;               // stream_rw and stream_carry
 constexpr int kWarps = kThreads / 32;
+constexpr int kBulkMaxThreads = 1024;       // stream_bulk: 1 + consumers warps
+constexpr int kBulkMaxWarps = kBulkMaxThreads / 32;
 constexpr int kMaxIn = 6;
 constexpr int kMaxOut = 4;
 constexpr int kMaxStages = 16;
-constexpr int kBarBytes = 8 * kMaxStages;  // the mbarriers, ahead of the ring
+// the full and the empty mbarriers of every slot, ahead of the ring
+constexpr int kBarBytes = 2 * 8 * kMaxStages;
 
 namespace {
 
@@ -191,17 +204,19 @@ __device__ __forceinline__ double one_element(const Streams& s, long long i,
   return static_cast<double>(a);
 }
 
-// Deterministic block sum, written as this block's partial.  Every thread of
-// the block must call it.
-__device__ __forceinline__ void block_sum_store(double v, double* partials) {
-  __shared__ double red[kWarps];
+// Deterministic block sum of `warps` <= W warps, in the order of their index,
+// written as this block's partial.  Every thread of the block must call it.
+template <int W>
+__device__ __forceinline__ void block_sum_store(double v, double* partials,
+                                                int warps = W) {
+  __shared__ double red[W];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
     double t = 0.0;
-    for (int w = 0; w < kWarps; ++w) t += red[w];
+    for (int w = 0; w < warps; ++w) t += red[w];
     partials[blockIdx.x] = t;
   }
 }
@@ -235,7 +250,7 @@ template <int NR, int NW, int U, int K>
 __global__ void __launch_bounds__(kThreads)
 stream_rw_kernel(const Streams s, long long n, const UnitArgs u,
                  double* __restrict__ partials) {
-  block_sum_store(rw_body<NR, NW, U, K>(s, n, n / 4, u), partials);
+  block_sum_store<kWarps>(rw_body<NR, NW, U, K>(s, n, n / 4, u), partials);
 }
 
 // The carry probe: the plain 4r+3w body on the buffers the wrapper chose.
@@ -255,7 +270,7 @@ stream_carry_kernel(const Streams s, long long n, long long half,
     for (int j = 0; j < 3; ++j) q.out[j] = s.out[j] + (1 - hv) * half;
     if (half % 4) n4 = 0;
   }
-  block_sum_store(rw_body<4, 3, kNone, 0>(q, n, n4, UnitArgs{}), partials);
+  block_sum_store<kWarps>(rw_body<4, 3, kNone, 0>(q, n, n4, UnitArgs{}), partials);
 }
 
 // Fill ring slot `slot` with tile `tile_index` of every input.
@@ -270,62 +285,111 @@ __device__ __forceinline__ void load_tile(const Streams& s, float* ring, uint64_
               s.in[r] + tile_index * tile, bytes, &bar[slot]);
 }
 
+// One block: warps 0 .. consumers - 1 consume, warp `consumers` produces.
 template <int NR, int NW, int U, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBulkMaxThreads)
 stream_bulk_kernel(const Streams s, long long n, int tile, int stages, const UnitArgs u,
                    double* __restrict__ partials) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
   float* ring = reinterpret_cast<float*>(smem + kBarBytes);
+  const int consumers = static_cast<int>(blockDim.x >> 5) - 1;
+  const int warp = static_cast<int>(threadIdx.x >> 5), lane = threadIdx.x & 31;
   const long long ntiles = n / tile;
   // this block's tiles: blockIdx.x, blockIdx.x + gridDim.x, ...
   const long long mine =
       blockIdx.x < ntiles ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  // the barriers are made anew at every launch (a CUDA graph replays it)
   if (threadIdx.x == 0) {
-    for (int st = 0; st < stages; ++st) mbar_init(&bar[st], 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], consumers);
+    }
     fence_mbarrier_init();
-    for (long long k = 0; k < stages && k < mine; ++k)
-      load_tile<NR>(s, ring, bar, static_cast<int>(k), tile, blockIdx.x + k * gridDim.x);
   }
   __syncthreads();
   double sum = 0.0;
-  for (long long k = 0; k < mine; ++k) {
-    const int slot = static_cast<int>(k % stages);
-    const uint32_t parity = static_cast<uint32_t>((k / stages) & 1);
-    while (!mbar_try_wait(&bar[slot], parity)) {
+  // slot and phase of tile k (slot k % stages, phase (k / stages) & 1) are
+  // counted, not divided: a warp with no chunk in a tile pays only its waits
+  if (warp == consumers) {
+    // the producer: tile k goes to slot k % stages; from the second round on
+    // it waits until every consumer warp has left the slot (the empty
+    // barrier's phase of the round before).  The consumers read the slot
+    // through the generic proxy and the copy writes it through the async
+    // proxy: the fence after the wait orders those reads, made visible to
+    // this thread by the barrier, before the copy's writes.
+    if (lane == 0) {
+      int slot = 0;
+      uint32_t phase = 0;
+      for (long long k = 0; k < mine; ++k) {
+        if (k >= stages) {
+          while (!mbar_try_wait(&empty[slot], phase ^ 1u)) {
+          }
+          fence_proxy_async();
+        }
+        load_tile<NR>(s, ring, full, slot, tile, blockIdx.x + k * gridDim.x);
+        if (++slot == stages) {
+          slot = 0;
+          phase ^= 1u;
+        }
+      }
     }
-    const float4* t = reinterpret_cast<const float4*>(
-        ring + static_cast<long long>(slot) * NR * tile);
-    const long long base = (blockIdx.x + k * gridDim.x) * static_cast<long long>(tile);
+    __syncwarp();
+  } else {
+    // the consumers: the block's tiles end to end are chunks of 32 float4,
+    // chunk g going to warp g % consumers (`first` takes chunk 0 of tile
+    // k).  Every warp waits on every tile, so that its arrival on the empty
+    // barrier falls in that tile's phase, and arrives once it has left it.
     const int tile4 = tile / 4;
-    for (int e = threadIdx.x; e < tile4; e += kThreads) {
-      float4 a = t[e];
+    const int chunks = (tile4 + 31) / 32;
+    const int step = chunks % consumers;
+    int slot = 0, first = 0;
+    uint32_t phase = 0;
+    long long base = static_cast<long long>(blockIdx.x) * tile;
+    for (long long k = 0; k < mine; ++k) {
+      while (!mbar_try_wait(&full[slot], phase)) {
+      }
+      const float4* t = reinterpret_cast<const float4*>(ring + slot * NR * tile);
+      for (int c = warp >= first ? warp - first : warp - first + consumers; c < chunks;
+           c += consumers) {
+        const int e = c * 32 + lane;
+        if (e < tile4) {
+          float4 a = t[e];
 #pragma unroll
-      for (int r = 1; r < NR; ++r) a = add4(a, t[r * tile4 + e]);
-      float4 ex = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if constexpr (U != kNone) ex = units4<U, K>(u.p, t[e]);
+          for (int r = 1; r < NR; ++r) a = add4(a, t[r * tile4 + e]);
+          float4 ex = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if constexpr (U != kNone) ex = units4<U, K>(u.p, t[e]);
 #pragma unroll
-      for (int j = 0; j < NW; ++j)
-        reinterpret_cast<float4*>(s.out[j] + base)[e] = emit4<U>(a, j, u.eps, ex);
-      sum += hsum(a);
+          for (int j = 0; j < NW; ++j)
+            reinterpret_cast<float4*>(s.out[j] + base)[e] = emit4<U>(a, j, u.eps, ex);
+          sum += hsum(a);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      if (++slot == stages) {
+        slot = 0;
+        phase ^= 1u;
+      }
+      first += step;
+      if (first >= consumers) first -= consumers;
+      base += static_cast<long long>(gridDim.x) * tile;
     }
-    __syncthreads();  // every thread has left this slot
-    if (threadIdx.x == 0 && k + stages < mine) {
-      fence_proxy_async();
-      load_tile<NR>(s, ring, bar, slot, tile, blockIdx.x + (k + stages) * gridDim.x);
-    }
+    const long long threads = static_cast<long long>(consumers) * 32;
+    for (long long i = ntiles * tile + blockIdx.x * threads + threadIdx.x; i < n;
+         i += gridDim.x * threads)
+      sum += one_element<NR, NW, U, K>(s, i, u);
   }
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = ntiles * tile + static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride)
-    sum += one_element<NR, NW, U, K>(s, i, u);
-  block_sum_store(sum, partials);
+  block_sum_store<kBulkMaxWarps>(sum, partials, consumers + 1);
 }
 
 size_t bulk_smem_bytes(int nr, int tile, int stages) {
   return kBarBytes + static_cast<size_t>(stages) * nr * tile * sizeof(float);
 }
+
+// the producer warp and `consumers` consumer warps
+int bulk_threads(int consumers) { return 32 * (consumers + 1); }
 
 template <int NR, int NW, int U = kNone, int K = 0>
 cudaError_t launch_rw(const Streams& s, long long n, const UnitArgs& u, double* partials,
@@ -335,26 +399,26 @@ cudaError_t launch_rw(const Streams& s, long long n, const UnitArgs& u, double* 
 }
 
 template <int NR, int NW, int U = kNone, int K = 0>
-cudaError_t bulk_blocks_per_sm(int tile, int stages, int* per_sm) {
+cudaError_t bulk_blocks_per_sm(int tile, int stages, int consumers, int* per_sm) {
   const size_t smem = bulk_smem_bytes(NR, tile, stages);
   cudaError_t e = cudaFuncSetAttribute(stream_bulk_kernel<NR, NW, U, K>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, stream_bulk_kernel<NR, NW, U, K>, kThreads, smem);
+      per_sm, stream_bulk_kernel<NR, NW, U, K>, bulk_threads(consumers), smem);
 }
 
 template <int NR, int NW, int U = kNone, int K = 0>
-cudaError_t launch_bulk(const Streams& s, long long n, int tile, int stages,
+cudaError_t launch_bulk(const Streams& s, long long n, int tile, int stages, int consumers,
                         const UnitArgs& u, double* partials, int grid, cudaStream_t st) {
   const size_t smem = bulk_smem_bytes(NR, tile, stages);
   cudaError_t e = cudaFuncSetAttribute(stream_bulk_kernel<NR, NW, U, K>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  stream_bulk_kernel<NR, NW, U, K><<<grid, kThreads, smem, st>>>(s, n, tile, stages, u,
-                                                                 partials);
+  stream_bulk_kernel<NR, NW, U, K><<<grid, bulk_threads(consumers), smem, st>>>(
+      s, n, tile, stages, u, partials);
   return cudaGetLastError();
 }
 
@@ -384,8 +448,9 @@ bool make_streams(int nr, int nw, const void* const* ins, void* const* outs,
   return true;
 }
 
-bool bulk_shape_ok(int tile, int stages) {
-  return tile >= 4 && tile % 4 == 0 && stages >= 1 && stages <= kMaxStages;
+bool bulk_shape_ok(int tile, int stages, int consumers) {
+  return tile >= 4 && tile % 4 == 0 && stages >= 1 && stages <= kMaxStages &&
+         consumers >= 1 && bulk_threads(consumers) <= kBulkMaxThreads;
 }
 
 }  // namespace
@@ -397,6 +462,29 @@ const char* pic1dp_error_string(int code) {
 }
 
 int pic1dp_params_size() { return static_cast<int>(sizeof(HostParams)); }
+
+// The ring's sizes, which ops/stream_probes.py copies to check a ring before
+// the card is asked, and checks against these at load: the dynamic shared
+// memory of a ring of `stages` slots of nr tiles of `tile` floats
+// (bulk_smem_bytes)...
+long long pic1dp_stream_bulk_smem(int nr, int tile, int stages) {
+  return static_cast<long long>(bulk_smem_bytes(nr, tile, stages));
+}
+
+// ... and the block sum's static shared memory, the shared memory one block
+// may opt in to on the current device, and the most threads a ring block has.
+int pic1dp_stream_bulk_limits(int* static_smem, int* optin_smem, int* max_threads) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, stream_bulk_kernel<4, 3, kNone, 0>);
+  if (e != cudaSuccess) return e;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(optin_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  *static_smem = static_cast<int>(a.sharedSizeBytes);
+  *max_threads = kBulkMaxThreads;
+  return 0;
+}
 
 int pic1dp_stream_rw(int nr, int nw, const void* const* ins, void* const* outs,
                      long long n, double* partials, int grid, void* stream) {
@@ -412,29 +500,31 @@ int pic1dp_stream_rw(int nr, int nw, const void* const* ins, void* const* outs,
 }
 
 // Blocks of stream_bulk that fit on one SM for this tile (floats per input
-// and slot) and stage count; 0 when one block does not fit.
-int pic1dp_stream_bulk_blocks_per_sm(int nr, int nw, int tile, int stages,
+// and slot), stage count and number of consumer warps; 0 when one block does
+// not fit.
+int pic1dp_stream_bulk_blocks_per_sm(int nr, int nw, int tile, int stages, int consumers,
                                      int* per_sm) {
   *per_sm = 0;
-  if (!bulk_shape_ok(tile, stages)) return cudaErrorInvalidValue;
+  if (!bulk_shape_ok(tile, stages, consumers)) return cudaErrorInvalidValue;
 #define PIC1DP_CASE(R, W) \
-  if (nr == R && nw == W) return bulk_blocks_per_sm<R, W>(tile, stages, per_sm);
+  if (nr == R && nw == W) return bulk_blocks_per_sm<R, W>(tile, stages, consumers, per_sm);
   PIC1DP_PATTERNS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;
 }
 
 int pic1dp_stream_bulk(int nr, int nw, const void* const* ins, void* const* outs,
-                       long long n, int tile, int stages, double* partials, int grid,
-                       void* stream) {
+                       long long n, int tile, int stages, int consumers, double* partials,
+                       int grid, void* stream) {
   Streams s;
-  if (grid <= 0 || n < 0 || !bulk_shape_ok(tile, stages) ||
+  if (grid <= 0 || n < 0 || !bulk_shape_ok(tile, stages, consumers) ||
       !make_streams(nr, nw, ins, outs, &s))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PIC1DP_CASE(R, W)                                                        \
-  if (nr == R && nw == W)                                                        \
-    return launch_bulk<R, W>(s, n, tile, stages, UnitArgs{}, partials, grid, st);
+#define PIC1DP_CASE(R, W)                                                         \
+  if (nr == R && nw == W)                                                         \
+    return launch_bulk<R, W>(s, n, tile, stages, consumers, UnitArgs{}, partials, grid, \
+                             st);
   PIC1DP_PATTERNS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;
@@ -459,13 +549,14 @@ int pic1dp_stream_units(int unit, int k, const void* const* ins, void* const* ou
 }
 
 int pic1dp_stream_bulk_units_blocks_per_sm(int unit, int k, int tile, int stages,
-                                           int* per_sm) {
+                                           int consumers, int* per_sm) {
   *per_sm = 0;
-  if (!bulk_shape_ok(tile, stages) || unit < kTrig || unit > kWrap)
+  if (!bulk_shape_ok(tile, stages, consumers) || unit < kTrig || unit > kWrap)
     return cudaErrorInvalidValue;
-  if (k == 0) return bulk_blocks_per_sm<4, 3>(tile, stages, per_sm);
-#define PIC1DP_CASE(U, K) \
-  if (unit == U && k == K) return bulk_blocks_per_sm<4, 3, U, K>(tile, stages, per_sm);
+  if (k == 0) return bulk_blocks_per_sm<4, 3>(tile, stages, consumers, per_sm);
+#define PIC1DP_CASE(U, K)                                                        \
+  if (unit == U && k == K)                                                       \
+    return bulk_blocks_per_sm<4, 3, U, K>(tile, stages, consumers, per_sm);
   PIC1DP_BULK_UNITS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;
@@ -474,17 +565,18 @@ int pic1dp_stream_bulk_units_blocks_per_sm(int unit, int k, int tile, int stages
 // stream_bulk on 4 reads and 3 writes with K copies of a compute unit.
 int pic1dp_stream_bulk_units(int unit, int k, const void* const* ins, void* const* outs,
                              long long n, const HostParams* h, float eps, int tile,
-                             int stages, double* partials, int grid, void* stream) {
+                             int stages, int consumers, double* partials, int grid,
+                             void* stream) {
   Streams s;
-  if (grid <= 0 || n < 0 || !bulk_shape_ok(tile, stages) || unit < kTrig ||
+  if (grid <= 0 || n < 0 || !bulk_shape_ok(tile, stages, consumers) || unit < kTrig ||
       unit > kWrap || !make_streams(4, 3, ins, outs, &s))
     return cudaErrorInvalidValue;
   const UnitArgs u{to_params<float>(*h), eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k == 0) return launch_bulk<4, 3>(s, n, tile, stages, u, partials, grid, st);
-#define PIC1DP_CASE(U, K)                                                         \
-  if (unit == U && k == K)                                                        \
-    return launch_bulk<4, 3, U, K>(s, n, tile, stages, u, partials, grid, st);
+  if (k == 0) return launch_bulk<4, 3>(s, n, tile, stages, consumers, u, partials, grid, st);
+#define PIC1DP_CASE(U, K)                                                          \
+  if (unit == U && k == K)                                                         \
+    return launch_bulk<4, 3, U, K>(s, n, tile, stages, consumers, u, partials, grid, st);
   PIC1DP_BULK_UNITS(PIC1DP_CASE)
 #undef PIC1DP_CASE
   return cudaErrorInvalidValue;

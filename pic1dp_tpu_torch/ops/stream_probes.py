@@ -27,8 +27,8 @@ This module holds, for the kernels of csrc/stream_probes.cu (built by nvcc
 at first use, bound through ctypes), each with its launch counter:
 
   * stream_rw, direct float4 loads (stream_only and default_pipeline);
-  * stream_bulk, a shared-memory ring filled by cp.async.bulk
-    (manual_pipeline);
+  * stream_bulk, a shared-memory ring filled by cp.async.bulk from one
+    producer warp and emptied by consumer warps (manual_pipeline);
   * stream_units, stream_rw with K units (make_call, default_call);
   * stream_bulk_units, stream_bulk with K units (manual_call);
   * stream_carry, the carry layouts (flat_call, pingpong_call);
@@ -44,7 +44,9 @@ a float64 0-d tensor on the streams' device, summed in float64.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,6 +71,17 @@ KERNELS = (STREAM_RW, STREAM_BULK, STREAM_UNITS, STREAM_BULK_UNITS, STREAM_CARRY
 PATTERNS = frozenset({(3, 1), (4, 1), (4, 2), (4, 3), (4, 4), (6, 3)})
 MAX_IN, MAX_OUT = 6, 4
 MAX_STAGES = 16
+# the ring's block: one producer warp and 1 to MAX_CONSUMER_WARPS consumer
+# warps (ring_consumers picks the count), at most MAX_BULK_THREADS threads;
+# its shared memory, bulk_smem_bytes, is the full and empty mbarriers of
+# MAX_STAGES slots ahead of the ring, plus the block sum's BLOCK_SUM_BYTES,
+# within the SMEM_PER_BLOCK one block may opt in to on sm_90 (227 KB).  The
+# library is checked against these sizes at load.
+MAX_BULK_THREADS = 1024
+MAX_CONSUMER_WARPS = MAX_BULK_THREADS // 32 - 1
+BAR_BYTES = 2 * 8 * MAX_STAGES
+BLOCK_SUM_BYTES = 8 * MAX_BULK_THREADS // 32
+SMEM_PER_BLOCK = 232_448
 # the unit and carry kernels' pattern: the substep-2 stream roles
 N_READ, N_WRITE = 4, 3
 ALIAS = {0: 0, 1: 1, 3: 2}
@@ -238,19 +251,23 @@ def stream_units(ins, alias: dict[int, int], unit: str, k: int, eps: float = EPS
 
 
 def stream_bulk_units(ins, alias: dict[int, int], unit: str, k: int, eps: float = EPS,
-                      tile_bytes: int = 8192, stages: int = 4):
-    """stream_bulk on 4 reads and 3 writes with k copies of a unit."""
+                      tile_bytes: int = 8192, stages: int = 4,
+                      consumer_warps: int | None = None):
+    """stream_bulk on 4 reads and 3 writes with k copies of a unit;
+    consumer_warps overrides ring_consumers' count (overlap_probe's
+    sweep)."""
     if ins[0].device.type == "cpu":
         return stream_units_plain(ins, alias, unit, k, eps)
     _check_units(ins, unit, k, BULK_UNIT_KS)
-    grid = bulk_units_blocks_per_sm(unit, k, tile_bytes, stages) * nvcc.sm_count(ins[0].device)
+    ring = bulk_units_ring(unit, k, tile_bytes, stages, consumer_warps)
+    grid = ring.blocks_per_sm * nvcc.sm_count(ins[0].device)
     lib = library().lib
     outs = outputs(ins, N_WRITE, alias)
     partials = torch.empty(grid, dtype=torch.float64, device=ins[0].device)
     rc = lib.pic1dp_stream_bulk_units(
         UNITS[unit], k, _ptrs(ins, N_READ), _ptrs(outs, N_WRITE), ins[0].numel(),
         ctypes.byref(unit_params(ins[0].numel())), eps, tile_bytes // 4, stages,
-        partials.data_ptr(), grid, _stream(ins[0]))
+        ring.consumers, partials.data_ptr(), grid, _stream(ins[0]))
     STREAM_BULK_UNITS.launched(rc, lib)
     return outs, partials.sum()
 
@@ -320,55 +337,104 @@ def stream_rw(ins, n_write: int, alias: dict[int, int], blocks_per_sm: int = 4):
 def stream_bulk(ins, n_write: int, alias: dict[int, int], tile_bytes: int = 8192,
                 stages: int = 4):
     """The manual pipeline: a persistent grid, each block with a ring of
-    `stages` slots of tile_bytes per input stream."""
+    `stages` slots of tile_bytes per input stream, filled by one producer
+    warp and emptied by the consumer warps ring_consumers picks."""
     if ins[0].device.type == "cpu":
         return stream_plain(ins, n_write, alias)
     _check(ins, n_write)
-    grid = bulk_blocks_per_sm(len(ins), n_write, tile_bytes, stages) \
-        * nvcc.sm_count(ins[0].device)
+    ring = bulk_ring(len(ins), n_write, tile_bytes, stages)
+    grid = ring.blocks_per_sm * nvcc.sm_count(ins[0].device)
     lib = library().lib
     outs = outputs(ins, n_write, alias)
     partials = torch.empty(grid, dtype=torch.float64, device=ins[0].device)
     rc = lib.pic1dp_stream_bulk(len(ins), n_write, _ptrs(ins, MAX_IN),
                                 _ptrs(outs, MAX_OUT), ins[0].numel(), tile_bytes // 4,
-                                stages, partials.data_ptr(), grid, _stream(ins[0]))
+                                stages, ring.consumers, partials.data_ptr(), grid,
+                                _stream(ins[0]))
     STREAM_BULK.launched(rc, lib)
     return outs, partials.sum()
 
 
-def bulk_blocks_per_sm(n_read: int, n_write: int, tile_bytes: int, stages: int) -> int:
-    """Blocks of stream_bulk resident per SM for this ring (raises if none
-    fits in shared memory)."""
-    _check_ring(tile_bytes, stages)
-    return _per_sm(n_read, tile_bytes, stages, "pic1dp_stream_bulk_blocks_per_sm",
-                   n_read, n_write)
+def bulk_smem_bytes(n_read: int, tile_bytes: int, stages: int) -> int:
+    """Dynamic shared memory of one ring block (bulk_smem_bytes in
+    csrc/stream_probes.cu): the mbarriers, then `stages` slots of one tile
+    per input."""
+    return BAR_BYTES + stages * n_read * tile_bytes
 
 
-def bulk_units_blocks_per_sm(unit: str, k: int, tile_bytes: int, stages: int) -> int:
-    """Blocks of stream_bulk_units resident per SM for this unit, K and ring
-    (the units' registers count as well as the ring)."""
-    _check_ring(tile_bytes, stages)
-    return _per_sm(N_READ, tile_bytes, stages, "pic1dp_stream_bulk_units_blocks_per_sm",
-                   UNITS[unit], k)
+class Ring(NamedTuple):
+    """A ring block's consumer warps and the blocks of it an SM holds."""
+    consumers: int
+    blocks_per_sm: int
 
 
-def _check_ring(tile_bytes: int, stages: int) -> None:
+def ring_consumers(per_sm: dict[int, int], compute: bool) -> int:
+    """The consumer warps of a ring block, from the blocks an SM holds at
+    each count (per_sm[c], the occupancy query's).  With compute units the
+    units' instructions set the pace, so the most consumer warps a block
+    of which one fits; without, the bytes in flight do, so the most
+    blocks, then the most consumer warps at that many blocks (the sweep in
+    PERF.md section 6).  A ring that fits at no count keeps 0 blocks, which
+    the wrapper refuses."""
+    if compute:
+        return max(per_sm, key=lambda c: (per_sm[c] > 0, c))
+    return max(per_sm, key=lambda c: (per_sm[c], c))
+
+
+def bulk_ring(n_read: int, n_write: int, tile_bytes: int, stages: int) -> Ring:
+    """stream_bulk's block on this ring (raises if none fits an SM)."""
+    _check_ring(n_read, tile_bytes, stages)
+    return _ring("pic1dp_stream_bulk_blocks_per_sm", n_read, n_write, n_read, tile_bytes,
+                 stages, None, False, torch.cuda.current_device())
+
+
+def bulk_units_ring(unit: str, k: int, tile_bytes: int, stages: int,
+                    consumer_warps: int | None = None) -> Ring:
+    """stream_bulk_units' block for this unit, K and ring (the units'
+    registers count as well as the ring), at consumer_warps where given."""
+    _check_ring(N_READ, tile_bytes, stages, consumer_warps)
+    return _ring("pic1dp_stream_bulk_units_blocks_per_sm", UNITS[unit], k, N_READ,
+                 tile_bytes, stages, consumer_warps, k > 0, torch.cuda.current_device())
+
+
+def _check_ring(n_read: int, tile_bytes: int, stages: int,
+                consumer_warps: int | None = None) -> None:
+    """What the ring takes, checked before the card is asked."""
     if tile_bytes < 16 or tile_bytes % 16 or not 1 <= stages <= MAX_STAGES:
         raise ValueError(f"stream_bulk takes tiles of a multiple of 16 bytes and 1 to "
                          f"{MAX_STAGES} stages, got {tile_bytes} bytes x {stages}")
+    if consumer_warps is not None and not 1 <= consumer_warps <= MAX_CONSUMER_WARPS:
+        raise ValueError(f"stream_bulk takes 1 to {MAX_CONSUMER_WARPS} consumer warps, "
+                         f"got {consumer_warps}")
+    smem = bulk_smem_bytes(n_read, tile_bytes, stages)
+    if smem + BLOCK_SUM_BYTES > SMEM_PER_BLOCK:
+        raise ValueError(f"a ring of {stages} stages x {n_read} inputs x {tile_bytes} bytes "
+                         f"needs {smem + BLOCK_SUM_BYTES} bytes of shared memory, more than "
+                         f"the {SMEM_PER_BLOCK} bytes one block of an SM may have")
 
 
-def _per_sm(n_read: int, tile_bytes: int, stages: int, entry: str, a: int, b: int) -> int:
+@functools.lru_cache(maxsize=None)
+def _ring(entry: str, a: int, b: int, n_read: int, tile_bytes: int, stages: int,
+          consumer_warps: int | None, compute: bool, device: int) -> Ring:
+    """The occupancy query at every consumer count (or at consumer_warps),
+    and ring_consumers' pick; once per ring, kernel and device."""
     lib = library().lib
-    per_sm = ctypes.c_int(0)
-    rc = getattr(lib, entry)(a, b, tile_bytes // 4, stages, ctypes.byref(per_sm))
-    if rc != 0:
-        raise RuntimeError(f"stream_bulk setup failed: "
-                           f"{lib.pic1dp_error_string(rc).decode()} ({rc})")
-    if per_sm.value < 1:
-        raise ValueError(f"a ring of {stages} x {n_read} x {tile_bytes} bytes does not "
-                         "fit in one SM's shared memory")
-    return per_sm.value
+
+    def per_sm(c: int) -> int:
+        out = ctypes.c_int(0)
+        rc = getattr(lib, entry)(a, b, tile_bytes // 4, stages, c, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"stream_bulk setup failed: "
+                               f"{lib.pic1dp_error_string(rc).decode()} ({rc})")
+        return out.value
+
+    counts = range(1, MAX_CONSUMER_WARPS + 1) if consumer_warps is None else (consumer_warps,)
+    blocks = {c: per_sm(c) for c in counts}
+    c = ring_consumers(blocks, compute)
+    if blocks[c] < 1:
+        raise ValueError(f"a ring of {stages} stages x {n_read} inputs x {tile_bytes} bytes "
+                         f"with {c} consumer warps does not fit on one SM")
+    return Ring(c, blocks[c])
 
 
 _lib: nvcc.Library | None = None
@@ -386,16 +452,31 @@ def library() -> nvcc.Library:
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         prm = ctypes.POINTER(SubstepParams)
         lib.pic1dp_stream_rw.argtypes = [i32, i32, ptr, ptr, i64, ptr, i32, ptr]
-        lib.pic1dp_stream_bulk.argtypes = [i32, i32, ptr, ptr, i64, i32, i32, ptr, i32, ptr]
+        lib.pic1dp_stream_bulk.argtypes = [i32, i32, ptr, ptr, i64, i32, i32, i32, ptr, i32,
+                                           ptr]
         for entry in ("pic1dp_stream_bulk_blocks_per_sm",
                       "pic1dp_stream_bulk_units_blocks_per_sm"):
-            getattr(lib, entry).argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+            getattr(lib, entry).argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
         lib.pic1dp_stream_units.argtypes = [i32, i32, ptr, ptr, i64, prm, f32, ptr, i32, ptr]
         lib.pic1dp_stream_bulk_units.argtypes = [i32, i32, ptr, ptr, i64, prm, f32, i32, i32,
-                                                 ptr, i32, ptr]
+                                                 i32, ptr, i32, ptr]
         lib.pic1dp_stream_carry.argtypes = [ptr, ptr, i64, i64, ptr, ptr, i32, ptr]
         lib.pic1dp_error_string.argtypes = [i32]
         lib.pic1dp_error_string.restype = ctypes.c_char_p
+        lib.pic1dp_stream_bulk_smem.argtypes = [i32, i32, i32]
+        lib.pic1dp_stream_bulk_smem.restype = i64
+        limits = [ctypes.c_int(0) for _ in range(3)]
+        rc = lib.pic1dp_stream_bulk_limits(*(ctypes.byref(v) for v in limits))
+        if rc != 0:
+            raise RuntimeError(f"stream_bulk setup failed: "
+                               f"{lib.pic1dp_error_string(rc).decode()} ({rc})")
+        if [v.value for v in limits] != [BLOCK_SUM_BYTES, SMEM_PER_BLOCK, MAX_BULK_THREADS] \
+                or any(lib.pic1dp_stream_bulk_smem(nr, tb // 4, st) != bulk_smem_bytes(nr, tb, st)
+                       for nr in (3, 4, 6) for tb in (16, 4096, 8192, 16384)
+                       for st in (1, 3, 4, MAX_STAGES)):
+            raise RuntimeError("the ring's sizes (BLOCK_SUM_BYTES, SMEM_PER_BLOCK, "
+                               "MAX_BULK_THREADS, bulk_smem_bytes) do not match "
+                               "csrc/stream_probes.cu and the card")
         _lib = built
     return _lib
 

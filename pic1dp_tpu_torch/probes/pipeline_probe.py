@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from pic1dp_tpu_torch.ops.stream_probes import bulk_blocks_per_sm, stream_bulk, stream_rw
+from pic1dp_tpu_torch.ops.stream_probes import bulk_ring, stream_bulk, stream_rw
 from pic1dp_tpu_torch.probes import (Row, describe, device_from_arg, fresh_streams,
                                      line, parser, time_ms)
 
@@ -45,7 +45,8 @@ def run(n: int, device: torch.device, say=print) -> dict[str, Row]:
         rows[label] = Row(label, ms, (N_READ + N_WRITE) * 4 * n)
         extra = ""
         if kernel is stream_bulk and device.type == "cuda":
-            extra = f"  ({bulk_blocks_per_sm(N_READ, N_WRITE, **kw)} blocks/SM)"
+            ring = bulk_ring(N_READ, N_WRITE, **kw)
+            extra = f"  ({ring.consumers} consumer warps, {ring.blocks_per_sm} blocks/SM)"
         say(line(rows[label], device) + extra)
         del ins
     return rows

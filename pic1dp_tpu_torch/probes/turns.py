@@ -1,6 +1,7 @@
-"""Time the substep kernels and the Stepper of two checkouts in turns.
+"""Time the substep kernels and the Stepper, or the bulk-copy ring, of two
+checkouts in turns.
 
-    python -m pic1dp_tpu_torch.probes.turns OTHER_ROOT [THIS_ROOT=.]
+    python -m pic1dp_tpu_torch.probes.turns OTHER_ROOT [THIS_ROOT=.] [--ring]
 
 Each turn is one process started in a checkout's root, which times that
 checkout's own code with its own chip_smoke.py and kernel probe: every
@@ -20,6 +21,14 @@ means, beside the spread between a checkout's own turns.  Both checkouts
 build their kernels first, at once, and the substep source's ptxas lines
 (registers, spills, shared memory) of every entry function the two builds
 share by name are compared first.  Needs a CUDA card.
+
+With --ring the turns time the stream kernels' ring instead, at 2^26
+elements: overlap_probe's three ring rows (4 KB x 4, 8 KB x 4, 16 KB x 3)
+at trig x0 and x4 and their compute rows, and pipeline_probe's rings
+(stream_bulk at K = 0; "bulk 8 KB x 4 aliased" is the one the kernels line
+reports), each at the checkout's own defaults, beside the direct-load rows
+of the same probes as a control; only the stream source is built, and its
+ptxas lines are compared.
 """
 
 from __future__ import annotations
@@ -93,11 +102,39 @@ for label, cfg in (("main f32", main), ("32 modes f32", cs.many_modes_cfg(32)),
 print(json.dumps({"card": smi, "rows": rows}))
 """
 
+# what one turn of --ring runs: the ring rows and their direct-load controls
+_RING_TURN = r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from pic1dp_tpu_torch.ops import stream_probes as sp
+from pic1dp_tpu_torch.probes import fresh_streams, overlap_probe, pipeline_probe, time_ms
+from pic1dp_tpu_torch.probes.compute_probe import compute_ms, unit_row
+
+smi = cs.card()
+dev, n, k4 = torch.device("cuda"), 2**26, overlap_probe.K_TRIG
+rows = {}
+for c, (label, kernel, kw) in enumerate(overlap_probe.CASES):
+    if kernel is sp.stream_bulk_units or label == "direct 4 blocks/SM":
+        for k in (0, k4):
+            rows[f"overlap {label} trig x{k}"] = unit_row(
+                label, "trig", k, n, dev, 200 + 10 * k + c, kernel, **kw).ms
+        rows[f"overlap {label} compute"] = compute_ms("trig", k4, n, dev, 220 + c, kernel, **kw)
+for c, (label, kernel, kw, alias) in enumerate(pipeline_probe.CASES):
+    if kernel is sp.stream_bulk or label == "default 4 blocks/SM aliased":
+        ins = fresh_streams(pipeline_probe.N_READ, n, dev, seed=100 + c)
+        rows[f"pipeline {label}"] = time_ms(
+            lambda: kernel(ins, pipeline_probe.N_WRITE, alias, **kw), dev)
+        del ins
+print(json.dumps({"card": smi, "rows": rows}))
+"""
+
 _BUILD = r"""
 import json, re, sys
 sys.path.insert(0, ".")
 from pic1dp_tpu_torch.utils import nvcc
-built = nvcc.load_all(["substep_kernels", "stream_probes"])
+built = nvcc.load_all(sys.argv[1:])
 for lib in built:
     print(lib.path.name, "nvcc", round(lib.build_seconds, 1), file=sys.stderr)
 entries, name = {}, None
@@ -119,8 +156,8 @@ def ptxas_diff(other: dict, this: dict) -> tuple[int, list]:
     return sum(other[k] == this[k] for k in both), [k for k in both if other[k] != this[k]]
 
 
-def turn(root: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _TURN], cwd=root, capture_output=True,
+def turn(root: str, script: str = _TURN) -> dict:
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,
                           text=True, check=False)
     if proc.returncode != 0:
         raise SystemExit(f"turn in {root} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
@@ -128,24 +165,28 @@ def turn(root: str) -> dict:
 
 
 def main(argv=None) -> dict:
-    argv = sys.argv[1:] if argv is None else argv
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ring = "--ring" in argv
+    argv = [a for a in argv if a != "--ring"]
     if not argv:
         raise SystemExit(__doc__)
     other = os.path.abspath(argv[0])
     this = os.path.abspath(argv[1] if len(argv) > 1 else ".")
-    builds = [subprocess.Popen([sys.executable, "-c", _BUILD], cwd=root, stdout=subprocess.PIPE,
-                               text=True) for root in (other, this)]
+    sources = ["stream_probes"] if ring else ["substep_kernels", "stream_probes"]
+    script = _RING_TURN if ring else _TURN
+    builds = [subprocess.Popen([sys.executable, "-c", _BUILD, *sources], cwd=root,
+                               stdout=subprocess.PIPE, text=True) for root in (other, this)]
     logs = [b.communicate()[0] for b in builds]
     if any(b.returncode != 0 for b in builds):
         raise SystemExit("a build failed")
     ptxas = [json.loads(log.strip().splitlines()[-1]) for log in logs]
     equal, differ = ptxas_diff(*ptxas)
-    print(f"ptxas, substep_kernels: {len(ptxas[0])} entry functions in {other}, "
+    print(f"ptxas, {sources[0]}: {len(ptxas[0])} entry functions in {other}, "
           f"{len(ptxas[1])} in {this}; of the {equal + len(differ)} they share by name "
           f"{equal} have equal lines, {len(differ)} differ: {differ}", flush=True)
     runs = {"other": [], "this": []}
     for name, root in (("other", other), ("this", this), ("this", this), ("other", other)):
-        runs[name].append(turn(root))
+        runs[name].append(turn(root, script))
         print(f"turn {name} ({root}) done on {runs[name][-1]['card']}", flush=True)
     out = {}
     for row in runs["this"][0]["rows"]:

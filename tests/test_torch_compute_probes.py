@@ -143,15 +143,26 @@ def _unit_inputs(seed=0):
     return [_x(seed=seed)] + [rng.standard_normal(N).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("kernel", [sp.stream_units, sp.stream_bulk_units],
-                         ids=["stream_units", "stream_bulk_units"])
+# (kernel, keyword arguments): each kernel at its defaults (the ring 8 KB x
+# 4) and the ring's other keywords, which the CPU ignores as it should
+KERNEL_CASES = {
+    "stream_units": (sp.stream_units, {}),
+    "stream_bulk_units": (sp.stream_bulk_units, {}),
+    "stream_bulk_units 4 KB x 4, 4 consumer warps":
+        (sp.stream_bulk_units, dict(tile_bytes=4096, stages=4, consumer_warps=4)),
+    "stream_bulk_units 16 KB x 3": (sp.stream_bulk_units, dict(tile_bytes=16384, stages=3)),
+}
+
+
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
 @pytest.mark.parametrize("k", [0, 1, 4])
 @pytest.mark.parametrize("unit", UNITS)
-def test_unit_kernels_plain_match_numpy_transcription(kernel, unit, k):
+def test_unit_kernels_plain_match_numpy_transcription(case, unit, k):
+    kernel, kw = KERNEL_CASES[case]
     ins = _unit_inputs(seed=k)
     want, want_total = numpy_unit_body(ins, unit, k)
     tins = [torch.from_numpy(a.copy()) for a in ins]
-    outs, total = kernel(tins, sp.ALIAS, unit, k)
+    outs, total = kernel(tins, sp.ALIAS, unit, k, **kw)
     assert [o is tins[i] for o, i in zip(outs, (0, 1, 3))] == [True] * 3
     for j, (o, w) in enumerate(zip(outs, want)):
         o = o.numpy()
@@ -303,10 +314,31 @@ def test_compute_probe_runs_on_cpu(capsys):
 
 def test_overlap_probe_runs_on_cpu(capsys):
     rows = overlap_probe.main(["12", "--device", "cpu"])
+    sweep = [f"{lbl} {w} consumer warps trig x{k}"
+             for lbl, kernel, _ in overlap_probe.CASES if kernel is sp.stream_bulk_units
+             for w in overlap_probe.SWEEP_WARPS for k in (0, overlap_probe.K_TRIG)]
     assert list(rows) == [f"{lbl} {what}" for lbl, *_ in overlap_probe.CASES
-                          for what in ("trig x0", "trig x4", "compute")]
+                          for what in ("trig x0", "trig x4", "compute")] + sweep
     assert all(r.ms > 0 for r in rows.values())
-    assert "no verdict" in capsys.readouterr().out
+    assert len(sweep) == 3 * len(overlap_probe.SWEEP_WARPS) * 2
+    assert max(overlap_probe.SWEEP_WARPS) == sp.MAX_CONSUMER_WARPS
+    out = capsys.readouterr().out
+    assert "no verdict" in out and "consumer-warp sweep" in out and "SASS" not in out
+
+
+def test_turns_ring_rows_name_rows_of_both_probes():
+    """probes/turns.py --ring picks its rows from the probes' own tables by
+    kernel and label: the labels it names exist, and every ring of both
+    probes is among its rows."""
+    from pic1dp_tpu_torch.probes import pipeline_probe, turns
+
+    assert "direct 4 blocks/SM" in [lbl for lbl, *_ in overlap_probe.CASES]
+    assert "default 4 blocks/SM aliased" in [lbl for lbl, *_ in pipeline_probe.CASES]
+    assert "bulk 8 KB x 4 aliased" in [lbl for lbl, k, *_ in pipeline_probe.CASES
+                                       if k is sp.stream_bulk]
+    assert "sp.stream_bulk_units" in turns._RING_TURN and "sp.stream_bulk " in turns._RING_TURN
+    with pytest.raises(SystemExit):
+        turns.main(["--ring"])
 
 
 def test_pingpong_probe_runs_as_a_module_on_cpu():

@@ -77,18 +77,22 @@ def test_stream_plain_matches_numpy_transcription(name):
     assert abs(float(total) - want_total) <= 1e-6 * abs(want_total)
 
 
+@pytest.mark.parametrize("name", sorted(PATTERNS))
 @pytest.mark.parametrize("kernel", [sp.stream_rw, sp.stream_bulk],
                          ids=["stream_rw", "stream_bulk"])
-def test_cpu_dispatch_takes_plain_and_launches_nothing(kernel):
-    n_read, n_write, alias = PATTERNS["ss2_4r3w_aliased"]
+def test_cpu_dispatch_takes_plain_and_launches_nothing(kernel, name):
+    """On CPU tensors either stream kernel, at its defaults and at every
+    grid or ring of the pipeline probe, is stream_plain bit for bit."""
+    n_read, n_write, alias = PATTERNS[name]
     ins = _inputs(n_read, n=4099)          # not a multiple of 4 or of a tile
-    a = [torch.from_numpy(x.copy()) for x in ins]
-    b = [torch.from_numpy(x.copy()) for x in ins]
     before = [k.launches for k in sp.KERNELS]
-    outs_a, total_a = kernel(a, n_write, alias)
-    outs_b, total_b = sp.stream_plain(b, n_write, alias)
-    assert all(torch.equal(x, y) for x, y in zip(outs_a + a, outs_b + b))
-    assert torch.equal(total_a, total_b)
+    for kw in [{}] + [kw for _, k, kw, _ in pipeline_probe.CASES if k is kernel]:
+        a = [torch.from_numpy(x.copy()) for x in ins]
+        b = [torch.from_numpy(x.copy()) for x in ins]
+        outs_a, total_a = kernel(a, n_write, alias, **kw)
+        outs_b, total_b = sp.stream_plain(b, n_write, alias)
+        assert all(torch.equal(x, y) for x, y in zip(outs_a + a, outs_b + b)), kw
+        assert torch.equal(total_a, total_b)
     assert [k.launches for k in sp.KERNELS] == before == [0] * len(sp.KERNELS)
 
 
@@ -108,11 +112,86 @@ def test_cuda_path_checks_its_inputs():
     with pytest.raises(ValueError, match="distinct"):
         sp.stream_plain([torch.zeros(8)] * 4, 3, {0: 0, 1: 0})
     with pytest.raises(ValueError, match="multiple of 16"):
-        sp.bulk_blocks_per_sm(4, 3, 4100, 4)
+        sp.bulk_ring(4, 3, 4100, 4)
     with pytest.raises(ValueError, match="stages"):
-        sp.bulk_blocks_per_sm(4, 3, 4096, 0)
+        sp.bulk_ring(4, 3, 4096, 0)
     built = {(nr, nw) for _, nr, nw, _ in kernel_probe.TPU_PATTERNS + kernel_probe.PORT_PATTERNS}
     assert built <= sp.PATTERNS
+
+
+# ---- the ring's sizing, checked before the card is asked ----
+
+# (reads, tile bytes, stages, consumer warps): shared memory
+RINGS = {
+    "4 KB x 4": ((4, 4096, 4, 31), 256 + 4 * 4 * 4096),
+    "8 KB x 4": ((4, 8192, 4, 31), 256 + 4 * 4 * 8192),
+    "16 KB x 3": ((4, 16384, 3, 8), 256 + 3 * 4 * 16384),
+    "6r 8 KB x 4": ((6, 8192, 4, 1), 256 + 4 * 6 * 8192),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RINGS))
+def test_ring_sizing(name):
+    """One ring block: the full and empty mbarriers of MAX_STAGES slots,
+    then `stages` slots of one tile per input, within what a block may
+    have at any consumer count.  (The library checks these sizes against
+    its own at load.)"""
+    (n_read, tile_bytes, stages, warps), smem = RINGS[name]
+    assert sp.bulk_smem_bytes(n_read, tile_bytes, stages) == smem
+    assert sp.BAR_BYTES == 2 * 8 * sp.MAX_STAGES
+    sp._check_ring(n_read, tile_bytes, stages, warps)       # fits: no error
+
+
+def test_ring_too_large_or_too_many_warps_raises():
+    """A ring larger than one SM's shared memory for a block, or a block
+    past 1024 threads, raises before any library is loaded."""
+    with pytest.raises(ValueError, match=r"3 stages x 6 inputs x 16384 bytes needs "
+                                         r"295424 bytes"):
+        sp.bulk_ring(6, 3, 16384, 3)
+    with pytest.raises(ValueError, match=r"16 stages x 4 inputs x 4096 bytes needs \d+ bytes"):
+        sp.bulk_units_ring("trig", 4, 4096, 16)
+    for warps in (0, 32):
+        with pytest.raises(ValueError, match="1 to 31 consumer warps"):
+            sp.bulk_units_ring("trig", 4, 8192, 4, consumer_warps=warps)
+    assert 32 * (sp.MAX_CONSUMER_WARPS + 1) == sp.MAX_BULK_THREADS
+    # the largest ring the probes take fits, with the block sum beside it
+    largest = max(sp.bulk_smem_bytes(pipeline_probe.N_READ, kw["tile_bytes"], kw["stages"])
+                  for _, kernel, kw, _ in pipeline_probe.CASES if kernel is sp.stream_bulk)
+    assert largest + sp.BLOCK_SUM_BYTES <= sp.SMEM_PER_BLOCK
+
+
+def _occupancy(smem_blocks: int, registers: int) -> dict[int, int]:
+    """Blocks an H100 SM holds at each consumer count: at most smem_blocks
+    by shared memory and 64 warps, and as many warps as the four schedulers'
+    16,384 registers each hold, allocated 256 a warp at a time."""
+    warps = 4 * (16384 // (-(-registers * 32 // 256) * 256))
+    return {c: min(smem_blocks, 64 // (c + 1), warps // (c + 1))
+            for c in range(1, sp.MAX_CONSUMER_WARPS + 1)}
+
+
+# (blocks by shared memory, registers, compute): consumer warps, blocks per
+# SM; the registers are ptxas' for the ring's instantiations
+PICKS = {
+    "8 KB x 4, stream": ((1, 48, False), (31, 1)),
+    "8 KB x 4, trig x4": ((1, 56, True), (31, 1)),
+    "4 KB x 4, stream": ((3, 48, False), (12, 3)),
+    "4 KB x 4, trig x4": ((3, 56, True), (31, 1)),
+    "4 KB x 2, stream": ((5, 48, False), (7, 5)),
+    "none fits": ((0, 48, False), (31, 0)),
+    "none fits, compute": ((0, 56, True), (31, 0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PICKS))
+def test_ring_consumers_picks_blocks_or_warps(name):
+    """ring_consumers: with compute, the most consumer warps of which a
+    block fits; without, the most blocks, then the most consumer warps at
+    that many blocks (a ring that fits nowhere keeps 0 blocks, which the
+    wrapper refuses)."""
+    (smem_blocks, registers, compute), want = PICKS[name]
+    per_sm = _occupancy(smem_blocks, registers)
+    c = sp.ring_consumers(per_sm, compute)
+    assert (c, per_sm[c]) == want
 
 
 def test_kernel_probe_runs_on_cpu(capsys):
