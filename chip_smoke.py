@@ -182,15 +182,15 @@ def ion_acoustic_cfg():
         output_interval=1.0, verbosity=0).validate()
 
 
-def nine_species_cfg(dtype: str = "float32", n: int = 102_400):
-    """Landau k = 0.5 (examples/landau_damping.py:21-22) as nine identical
-    electron species of density 1/9, n markers each: the plasma and its
-    dispersion root are the one-species case's."""
+def nine_species_cfg(dtype: str = "float32", n: int = 102_400, ns: int = 9):
+    """Landau k = 0.5 (examples/landau_damping.py:21-22) as ns (nine)
+    identical electron species of density 1/ns, n markers each: the plasma
+    and its dispersion root are the one-species case's."""
     from pic1dp_tpu_torch.config import SpeciesConfig
 
-    sp = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=1.0 / 9.0, v0=0.0)
+    sp = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=1.0 / ns, v0=0.0)
     return dataclasses.replace(
-        landau_damping_cfg(n), species=(sp,) * 9, dtype=dtype).validate()
+        landau_damping_cfg(n), species=(sp,) * ns, dtype=dtype).validate()
 
 
 def landau_damping_cfg(n: int = 102_400):
@@ -1845,20 +1845,37 @@ def many_modes_phase() -> dict:
     return launches
 
 
+# markers per species whose species starts are not V-aligned (V = 4 in f32,
+# 2 in f64): the species loop's blocks walk single-marker heads and tails
+ODD_N = 102_401
+
+
 def nine_species_phase() -> dict:
     """Landau k = 0.5 as nine identical species (nine_species_cfg): the
     kernels against their plain versions in f32 and f64 (species 8 takes its
-    constants from the species table), graph = eager, and Simulation.run
-    to t = 20, gamma from the energy peaks within the example's 5% of the
-    one-species root.  Returns the run's launches."""
+    constants from the species table) at 102,400 markers each and at ODD_N,
+    and at 17 species in f64 (species 8-16 from the table); the grid bin's
+    species loop, two species with 16 kept modes, against the plain versions
+    in f32 and f64 and recompute = streamed bit for bit; graph = eager, and
+    Simulation.run to t = 20, gamma from the energy peaks within the
+    example's 5% of the one-species root.  Returns the run's launches."""
     from pic1dp_tpu_torch.analysis.dispersion import Dispersion, species_for_config
 
     cfg = nine_species_cfg()
-    compare_substeps(cfg, cfg.nparticle_max, F32_TOL, _loaded_inputs(cfg))
-    small = nine_species_cfg("float64", 2**14)
-    for stream_v1 in (True, False):
-        compare_substeps(small, small.nparticle_max, None, _loaded_inputs(small),
-                         stream_v1=stream_v1)
+    for n in (cfg.nparticle_max, ODD_N):
+        c = nine_species_cfg(n=n)
+        compare_substeps(c, n, F32_TOL, _loaded_inputs(c))
+    for c in (nine_species_cfg("float64", 2**14), nine_species_cfg("float64", ODD_N),
+              nine_species_cfg("float64", 2**14 + 1, ns=17)):
+        for stream_v1 in (True, False):
+            compare_substeps(c, c.nparticle_max, None, _loaded_inputs(c), stream_v1=stream_v1)
+    wide = dataclasses.replace(two_species_cfg(), modes=tuple(range(1, 17)))
+    for c, tol in ((wide, F32_TOL),
+                   (dataclasses.replace(wide, dtype="float64", nparticle_max=2**16), None)):
+        for stream_v1 in (True, False):
+            compare_substeps(c, c.nparticle_max, tol, _loaded_inputs(c), stream_v1=stream_v1)
+    compare_v1_layouts(wide)
+    compare_graph(wide)
     compare_graph(cfg)
     zero_substep_counts()
     snaps, launches = run_case("7 species", "nine species", cfg)

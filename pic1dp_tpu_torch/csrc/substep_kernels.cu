@@ -37,14 +37,19 @@
 //          or rebuilt, up to kMaxModes modes;
 //   true   the port of pallas_kernels._make_sel (:71-89): the state is
 //          (ns, n) and contiguous, so species s is the slice [s n, (s + 1) n).
-//          Each thread walks the species in order, and within one species the
-//          same positions as for one species: the species loop is outside the
-//          marker loop, so no marker pays for a 64-bit division.  Each
-//          species' constants (dt q/m, charge, the -f0'/f0 form and its
-//          constants) are selected once per species (with_species), and every
-//          form is compiled in, the two-stream drives and the mixed-degenerate
-//          clamp included.  Species kMaxSpecies and above take their
-//          constants from a device table instead of the parameter bank.
+//          As the TPU kernel's grid gives each block one species (:36-39),
+//          the launch is a (bps, ns) grid (the wrapper's species_grid gives
+//          ns bps blocks; a count that is not a multiple of ns is refused):
+//          block (b, s) walks species s alone, over the positions block b
+//          of a one-species launch of bps blocks walks, so every block has
+//          markers at any species count and no index costs a division (the
+//          loop over species stays, from blockIdx.y in steps of gridDim.y:
+//          at this grid it runs once).  The
+//          block's constants (dt q/m, charge, the -f0'/f0 form and its
+//          constants) are selected once (with_species), and every form is
+//          compiled in, the two-stream drives and the mixed-degenerate clamp
+//          included.  Species kMaxSpecies and above take their constants
+//          from a device table instead of the parameter bank.
 //
 // The kept modes come in bins, the template parameters NM and kGrid.  Up
 // to 4 modes (NM = 1 or 4) each thread keeps NM projection sums, NM mode
@@ -122,9 +127,11 @@
 //     stream that is not 16-byte aligned, is walked with single-marker
 //     iterations at its head and ragged tail (or entirely).
 //   * A grid sized to the work and the projection sum in the kernel.  The
-//     wrapper launches min(B * SMs, ceil(markers / (256 V))) blocks.  Hopper
-//     blocks run in no order, so each block reduces its threads' sums (over
-//     every species, in order) with warp shuffles and shared memory in a
+//     wrapper launches min(B * SMs, ceil(markers / (256 V))) blocks, and in
+//     the species loop (bps, ns) with bps = min(B * SMs / ns, ceil(n /
+//     (256 V))) (the same grid at one species).  Hopper
+//     blocks run in no order, so each block reduces its threads' sums (of
+//     its one species) with warp shuffles and shared memory in a
 //     fixed tree and writes one (2, nmode) row of a (grid, 2, nmode)
 //     partials buffer; the last block to finish (a __threadfence and an
 //     atomicAdd on an int counter) sums the rows, thread t taking rows t,
@@ -164,6 +171,19 @@ constexpr int kGridStaticSmem = 8192;
 constexpr int kGridSmemMax = 232448 - kGridStaticSmem;
 static_assert(2 * kThreads * sizeof(double) + 64 <= kGridStaticSmem,
               "the grid bin's static arrays outgrew kGridStaticSmem");
+
+// The most species a species-loop launch takes: its grid's y extent.
+constexpr int kMaxGridSpecies = 65535;
+
+// Blocks of kThreads an SM whose registers the grid bin's float kernels
+// leave room for (0: no bound): its grid holds up to 4 an SM
+// (ops/substep_kernels.grid_blocks_per_sm), so they keep to 64 registers.
+// Unbound, ptxas gave its substep 2 up to 80 once each block walked one
+// species, and a quarter of the grid then ran as a second wave.  The
+// register bins stay unbound: bound, their species-loop substep 2 ran
+// slower at the small verification shapes (PERF.md, PR 10).
+template <typename T, bool kGrid>
+constexpr int kMinBlocks = kGrid && sizeof(T) == 4 ? 4 : 0;
 
 // The layouts; ops/substep_kernels.py passes these ints.
 enum Layout { kNonlinear = 0, kLinear = 1, kFullf = 2, kRecompute = 3 };
@@ -401,23 +421,41 @@ __device__ __forceinline__ void block_sum_store(const Params<T>& p,
   __syncthreads();
 }
 
+// A block's partials row and the launch's block count: the species loop's
+// grid is (bps, ns), its rows species by species; the main path's is 1D.
+template <bool kSpecies>
+__device__ __forceinline__ unsigned block_row() {
+  if constexpr (kSpecies)
+    return blockIdx.y * gridDim.x + blockIdx.x;
+  else
+    return blockIdx.x;
+}
+
+template <bool kSpecies>
+__device__ __forceinline__ unsigned grid_blocks() {
+  if constexpr (kSpecies)
+    return gridDim.x * gridDim.y;
+  else
+    return gridDim.x;
+}
+
 // After this block's partials row is written: the last block to finish sums
 // the rows into the projections and sets the counter back to 0.  Every
 // thread of the block must call it.
-template <typename T, typename PT, typename WT, int NM>
+template <typename T, typename PT, typename WT, int NM, bool kSpecies>
 __device__ __forceinline__ void finish(const Params<T>& p, const Args<T, PT, WT>& a) {
   __shared__ bool last;
   const int m = 2 * p.nmode;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.done, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(a.done, 1u) == grid_blocks<kSpecies>() - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
   T acc_c[NM], acc_s[NM];
 #pragma unroll
   for (int k = 0; k < NM; ++k) acc_c[k] = acc_s[k] = T(0);
-  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads) {
+  for (int b = threadIdx.x; b < static_cast<int>(grid_blocks<kSpecies>()); b += kThreads) {
     const T* row = a.partials + static_cast<long long>(b) * m;
 #pragma unroll
     for (int k = 0; k < NM; ++k) {
@@ -523,10 +561,11 @@ __device__ __forceinline__ void push(const Params<T>& q, const Pair<T>* ang,
     push2<L, kSpecies>(q, ang, md, g, acc_c, acc_s);
 }
 
-// The markers [base, base + n) of one species, whose constants q holds:
-// single markers up to the first V-aligned element and after the last whole
-// group (every marker when a stream is not 16-byte aligned), V-marker groups
-// between them, each group's loads all issued before its arithmetic.
+// The markers [base, base + n) of one species, whose constants q holds, as
+// block blockIdx.x of the gridDim.x that walk it: single markers up to the
+// first V-aligned element and after the last whole group (every marker when
+// a stream is not 16-byte aligned), V-marker groups between them, each
+// group's loads all issued before its arithmetic.
 template <int SUB, int L, bool kSpecies, int NM, typename T, typename PT, typename WT>
 __device__ __forceinline__ void walk(const Params<T>& q, const Pair<T>* ang,
                                      const Args<T, PT, WT>& a, const Modes<T, NM>& md,
@@ -554,9 +593,9 @@ __device__ __forceinline__ void walk(const Params<T>& q, const Pair<T>* ang,
   }
 }
 
-// The register bins' body for both substeps: stage the table, walk every
-// species in order, write this block's sums to its partials row, then
-// finish the projection sum.
+// The register bins' body for both substeps: stage the table, walk the
+// markers (in the species loop, those of the block's species), write this
+// block's sums to its partials row, then finish the projection sum.
 template <int SUB, typename T, typename PT, typename WT, int NM, int L, bool kSpecies>
 __device__ __forceinline__ void substep_body(const Params<T>& p, const Args<T, PT, WT>& a,
                                              const SpeciesTable<T>& tab) {
@@ -569,15 +608,15 @@ __device__ __forceinline__ void substep_body(const Params<T>& p, const Args<T, P
 #pragma unroll
   for (int j = 0; j < NM; ++j) acc_c[j] = acc_s[j] = T(0);
   if constexpr (kSpecies) {
-    for (int s = 0; s < tab.ns; ++s)
+    for (int s = blockIdx.y; s < tab.ns; s += gridDim.y)
       walk<SUB, L, kSpecies>(with_species(p, tab, a.species, s), ang, a, md, acc_c, acc_s,
                              s * p.n);
   } else {
     walk<SUB, L, kSpecies>(p, ang, a, md, acc_c, acc_s, 0);
   }
   block_sum_store(p, acc_c, acc_s,
-                  a.partials + static_cast<long long>(blockIdx.x) * 2 * p.nmode);
-  finish<T, PT, WT, NM>(p, a);
+                  a.partials + static_cast<long long>(block_row<kSpecies>()) * 2 * p.nmode);
+  finish<T, PT, WT, NM, kSpecies>(p, a);
 }
 
 // ---- the grid bin ----
@@ -729,13 +768,13 @@ __device__ __forceinline__ void project_grid(const Params<T>& p, const Pair<T>* 
 // component c0 + l, warp w rows w, w + kWarps, ... in order (coalesced
 // reads), then the warps are summed in order (red: kThreads values); it
 // sets the counter back to 0.  Every thread of the block must call it.
-template <typename T, typename PT, typename WT>
+template <bool kSpecies, typename T, typename PT, typename WT>
 __device__ __forceinline__ void grid_finish(const Params<T>& p, const Args<T, PT, WT>& a,
                                             T* red) {
   __shared__ bool last;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.done, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(a.done, 1u) == grid_blocks<kSpecies>() - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
@@ -745,7 +784,7 @@ __device__ __forceinline__ void grid_finish(const Params<T>& p, const Args<T, PT
     T s = T(0);
     if (k < m2) {
 #pragma unroll 16
-      for (int b = warp; b < static_cast<int>(gridDim.x); b += kWarps)
+      for (int b = warp; b < static_cast<int>(grid_blocks<kSpecies>()); b += kWarps)
         s += __ldcg(a.partials + static_cast<long long>(b) * m2 + k);
     }
     red[threadIdx.x] = s;
@@ -762,7 +801,7 @@ __device__ __forceinline__ void grid_finish(const Params<T>& p, const Args<T, PT
 
 // The grid bin's body on its grids at g (shared memory or the block's slice
 // of Args::grids): eg, [eg0,] then `copies` charge grids of 2 nx values.
-// Build the E grids and zero the charge grids; walk every species in order;
+// Build the E grids and zero the charge grids; walk the block's species;
 // sum the copies in order, rho[j] + rho[nx + j - 1] of each, into the
 // first's rho[0, nx); project it into the partials row; finish.
 template <int SUB, typename T, typename PT, typename WT, int L, bool kSpecies>
@@ -790,7 +829,7 @@ __device__ __forceinline__ void grid_run(const Params<T>& p, const Args<T, PT, W
   const GridRefs<T> r{eg, eg0, rho + (warp % copies) * 2 * nx, red + 64 * warp, warp / copies,
                       kWarps / copies};
   if constexpr (kSpecies) {
-    for (int s = 0; s < tab.ns; ++s)
+    for (int s = blockIdx.y; s < tab.ns; s += gridDim.y)
       grid_walk<SUB, L, kSpecies>(with_species(p, tab, a.species, s), a, r, s * p.n);
   } else {
     grid_walk<SUB, L, kSpecies>(p, a, r, 0);
@@ -804,8 +843,8 @@ __device__ __forceinline__ void grid_run(const Params<T>& p, const Args<T, PT, W
   }
   __syncthreads();
   project_grid(p, a.angles, rho,
-               a.partials + static_cast<long long>(blockIdx.x) * 2 * p.nmode);
-  grid_finish(p, a, red);
+               a.partials + static_cast<long long>(block_row<kSpecies>()) * 2 * p.nmode);
+  grid_finish<kSpecies>(p, a, red);
 }
 
 // The grid bin's body for both substeps: its grids in dynamic shared memory
@@ -825,7 +864,8 @@ __device__ __forceinline__ void grid_body(const Params<T>& p, const Args<T, PT, 
                                           red);
   } else {
     grid_run<SUB, T, PT, WT, L, kSpecies>(
-        p, a, tab, a.grids + static_cast<long long>(blockIdx.x) * (eg + 2 * nx), 1, red);
+        p, a, tab, a.grids + static_cast<long long>(block_row<kSpecies>()) * (eg + 2 * nx), 1,
+        red);
   }
 }
 
@@ -833,7 +873,7 @@ __device__ __forceinline__ void grid_body(const Params<T>& p, const Args<T, PT, 
 // where the layout streams them, and the projections at x1).  PT and WT are
 // the storage types of p and w1 (T, or bfloat16 with T float).
 template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies, bool kGrid>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, kGrid>))
 substep1_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T> tab) {
   if constexpr (kGrid)
     grid_body<1, T, PT, WT, L, kSpecies>(p, a, tab);
@@ -845,7 +885,7 @@ substep1_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T
 // step-start modes where it rebuilds v1; writes x2, v2, w2 over x0, v0, w0
 // where the layout updates them, and the projections at x2).
 template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies, bool kGrid>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, kGrid>))
 substep2_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T> tab) {
   if constexpr (kGrid)
     grid_body<2, T, PT, WT, L, kSpecies>(p, a, tab);
@@ -888,7 +928,9 @@ template <int SUB, typename T, typename PT, typename WT, int NM, int L, bool kSp
           bool kGrid>
 void launch(const HostParams& h, const Args<T, PT, WT>& a, int grid, cudaStream_t st) {
   const auto kernel = kernel_of<SUB, T, PT, WT, NM, L, kSpecies, kGrid>();
-  kernel<<<grid, kThreads, a.angle_smem, st>>>(to_params<T>(h), a, to_species<T>(h));
+  // the species loop: grid / ns blocks for each species (block_row)
+  const dim3 blocks = kSpecies ? dim3(grid / h.nspecies, h.nspecies) : dim3(grid);
+  kernel<<<blocks, kThreads, a.angle_smem, st>>>(to_params<T>(h), a, to_species<T>(h));
 }
 
 // The species mode of a register bin: the main path's kernel for nonlinear
@@ -954,12 +996,15 @@ int launch_modes(const HostParams& h, const Args<T, PT, WT>& a, int grid, cudaSt
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
-// Check the launch, note whether every stream is 16-byte aligned, and launch
-// the layout's instantiation (full-f only where p is stored at T).
+// Check the launch (the species loop's block count must be a multiple of
+// ns: its grid is (grid / ns, ns)), note whether every stream is 16-byte
+// aligned, and launch the layout's instantiation (full-f only where p is
+// stored at T).
 template <int SUB, typename T, typename PT, typename WT>
 int substep(const HostParams* h, int layout, Args<T, PT, WT> a, int grid, int grid_bin,
             void* stream) {
   if (grid <= 0 || mode_bin(h->nmode) < 0 || h->nspecies < 1 ||
+      h->nspecies > kMaxGridSpecies || grid % h->nspecies != 0 ||
       (h->nspecies > kMaxSpecies && a.species == nullptr) || a.angle_smem < 0 ||
       a.angle_smem > kAngleSmemMax || a.angle_smem % 16 != 0 || !aligned16(a.angles) ||
       a.partials == nullptr || a.proj == nullptr || a.done == nullptr)

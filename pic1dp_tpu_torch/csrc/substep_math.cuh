@@ -124,11 +124,11 @@ SpeciesTable<T> to_species(const HostParams& h) {
 }
 
 // p with species s's constants in place of its own (the port of
-// pallas_kernels._make_sel).  s is the same for every thread.  Below
-// kMaxSpecies the entry is picked by a chain of selects over constant
+// pallas_kernels._make_sel).  s is the same for every thread of the block.
+// Below kMaxSpecies the entry is picked by a chain of selects over constant
 // indices, so the table stays in the parameter bank instead of being copied
 // to local memory for a run-time index; above, it is read from the device
-// table `dev` (uniform loads, once per species and thread).
+// table `dev` (uniform loads of one row, once per block).
 template <typename T>
 __device__ __forceinline__ Params<T> with_species(const Params<T>& p,
                                                   const SpeciesTable<T>& tab,

@@ -41,7 +41,8 @@ holds
     the species past the MAX_SPECIES the parameters hold read their
     constants from it), the grid bin's device buffer where its grids do not
     fit in shared memory, the grid (launch_grid: vector_width markers per
-    thread and iteration, at most BLOCKS_PER_SM blocks per SM), and the
+    thread and iteration, at most BLOCKS_PER_SM blocks per SM; species_grid
+    in the species loop, one species per block), and the
     counter with which the last block finds out that it sums the partials
     into the projections;
   * the plain PyTorch version, FusedSubsteps.substep1_plain / substep2_plain,
@@ -77,6 +78,8 @@ from pic1dp_tpu_torch.utils.nvcc import CudaKernel
 MAX_MODES = 16
 # kMaxSpecies: the species SubstepParams holds
 MAX_SPECIES = 8
+# kMaxGridSpecies: the species a launch takes, its grid's y extent
+MAX_GRID_SPECIES = 65535
 THREADS = 256           # kThreads in csrc/substep_kernels.cu
 # kAngleSmemMax in csrc/substep_kernels.cu: the 48 KB a launch gets without
 # an opt-in, less 4 KB kept for the kernels' static shared memory
@@ -269,6 +272,8 @@ def kernel_params(cfg: Config) -> SubstepParams:
         why.append("no kept mode")
     if any(m < 1 or m * cfg.nx >= 2**31 for m in cfg.modes):
         why.append(f"modes {cfg.modes} with nx {cfg.nx}")
+    if cfg.nspecies > MAX_GRID_SPECIES:
+        why.append(f"{cfg.nspecies} species (at most {MAX_GRID_SPECIES})")
     if why:
         raise NotImplementedError("no CUDA substep kernel for this config: "
                                   + "; ".join(why))
@@ -415,6 +420,19 @@ def launch_grid(markers: int, vec: int, sms: int, blocks_per_sm: int = BLOCKS_PE
     return max(1, min(blocks_per_sm * sms, -(-markers // (THREADS * vec))))
 
 
+def species_grid(nspecies: int, n: int, vec: int, sms: int,
+                 blocks_per_sm: int = BLOCKS_PER_SM) -> int:
+    """Blocks of a species-loop launch over nspecies species of n markers:
+    nspecies runs of bps blocks, each run walking one species alone (the
+    kernels launch them as a (bps, nspecies) grid), with bps enough for one
+    iteration per thread over a species, at most blocks_per_sm * sms //
+    nspecies, and at least 1.  So every block has markers at any species
+    count, and at one species it is launch_grid's grid.  A pure function of
+    its arguments, as launch_grid."""
+    bps = max(1, min(blocks_per_sm * sms // nspecies, -(-n // (THREADS * vec))))
+    return nspecies * bps
+
+
 def angle_table(cfg: Config, dtype: torch.dtype, device) -> torch.Tensor:
     """The kernels' grid-angle table, (nmode, nx, 2): (cos, sin) of
     2 pi (m_j ix mod nx) / nx for each kept mode m_j and cell ix, the angle
@@ -490,7 +508,7 @@ class FusedSubsteps:
     substep 1 and are ignored by substep 2 (full-f takes no w1 or v1, linear
     and recompute no v1); substep 2 takes the step-start modes as well where
     it rebuilds v1 from them (full-f and recompute).  blocks_per_sm caps the
-    grid (launch_grid); grid_bin set takes the grid bin at any nmode (the
+    grid (species_grid); grid_bin set takes the grid bin at any nmode (the
     probe of the bin line; a run leaves it False)."""
 
     def __init__(self, cfg: Config, sp: dist.SpeciesParams, stream_v1: bool | None = None):
@@ -702,13 +720,15 @@ class FusedSubsteps:
 
     def grid_size(self, markers: int, sms: int, itemsize: int, substep: int) -> int:
         """Blocks of a launch of substep `substep` over `markers` markers
-        (all species) on a card of `sms` SMs: launch_grid with
-        blocks_per_sm, capped in the grid bin at the blocks whose shared
-        memory fits in an SM (grid_blocks_per_sm)."""
+        (all species) on a card of `sms` SMs: species_grid with
+        blocks_per_sm (at one species launch_grid's grid, which the main
+        path's kernel takes), capped in the grid bin at the blocks whose
+        shared memory fits in an SM (grid_blocks_per_sm)."""
         b = self.blocks_per_sm
         if self.uses_grid_bin():
             b = grid_blocks_per_sm(self.cfg.nx, itemsize, grid_egrids(substep), b)
-        return launch_grid(markers, self._vec, sms, b)
+        ns = self.cfg.nspecies
+        return species_grid(ns, markers // ns, self._vec, sms, b)
 
 
 def _pointers(*tensors):

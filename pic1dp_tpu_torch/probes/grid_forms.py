@@ -97,9 +97,9 @@ _EGRID = ("    const T e = grid_e(a.angles, nx, p.nmode, j, a.re, a.im);",
 _EGRID0 = ("      const T e0 = grid_e(a.angles, nx, p.nmode, j, a.re0, a.im0);",
            "      const T e0 = T(0);")
 _PROJECT = ("""  project_grid(p, a.angles, rho,
-               a.partials + static_cast<long long>(blockIdx.x) * 2 * p.nmode);""",
+               a.partials + static_cast<long long>(block_row<kSpecies>()) * 2 * p.nmode);""",
             """  for (int k = threadIdx.x; k < 2 * p.nmode; k += kThreads)
-    a.partials[static_cast<long long>(blockIdx.x) * 2 * p.nmode + k] = T(0);""")
+    a.partials[static_cast<long long>(block_row<kSpecies>()) * 2 * p.nmode + k] = T(0);""")
 
 # variant -> what it is
 FORMS = {

@@ -7,14 +7,21 @@ Each turn is one process started in a checkout's root, which times that
 checkout's own code with its own chip_smoke.py and kernel probe: every
 substep kernel per call at the main case (6.4M markers, nx 192, f32 and
 bf16_weights) and at each layout's verification case
-(chip_smoke.time_kernels, CUDA-graph replays), with 16, 32 and 64 kept
+(chip_smoke.time_kernels, CUDA-graph replays), at nine Landau species of
+102,400 markers and at two of 102,400 (the species loop, one species per
+block), with 16, 32 and 64 kept
 modes at the main case in both nonlinear delta-f layouts, at bench.py's
 headline (2^26 markers, nx 1024, f32 and bf16_weights;
 kernel_probe.substep_rows) and with 32 kept modes there (the config's
 layout, CUDA events), and the eager and graph Stepper at the main case,
-with 32 kept modes and at the headline (chip_smoke.time_steppers); and
+with 32 kept modes, at the headline and at the nine and two species
+(chip_smoke.time_steppers); and
 the host's ms per wrapper call of each
-substep at 2^16 markers (enqueue only: the card finishes each call first).  The turns run OTHER, THIS, THIS, OTHER on one
+substep at 2^16 markers (enqueue only: the card finishes each call first).
+Each turn also hashes what both substeps write from one fresh state for
+every timed case (SHA-256 of the outputs' bytes): a checksum equal in all
+four turns shows the two checkouts' kernels give the same bits there.
+The turns run OTHER, THIS, THIS, OTHER on one
 card, so a drift of the card over the call falls on both; the last lines
 give each row's two turns per checkout and the ratio THIS / OTHER of their
 means, beside the spread between a checkout's own turns.  Both checkouts
@@ -40,11 +47,11 @@ import sys
 
 # what one turn runs, from the root of the checkout it times
 _TURN = r"""
-import dataclasses, json, sys, time
+import dataclasses, hashlib, json, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
-from pic1dp_tpu_torch.config import bump_on_tail_default
+from pic1dp_tpu_torch.config import SpeciesConfig, bump_on_tail_default
 from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
 from pic1dp_tpu_torch.probes import kernel_probe, time_ms
 
@@ -52,21 +59,46 @@ cs.say = lambda *a: print(*a, file=sys.stderr, flush=True)
 smi = cs.card()
 main = bump_on_tail_default(time_max=100.0, verbosity=0)
 head = bump_on_tail_default(nparticle_max=cs.BENCH_N, nx=cs.BENCH_NX, verbosity=0)
-rows = {}
+electron = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=0.5, v0=0.0)
+two = dataclasses.replace(cs.landau_damping_cfg(), species=(electron,) * 2).validate()
+rows, sums = {}, {}
+
+
+def checksum(cfg, inputs, stream_v1=None):
+    # both substeps from one fresh state: SHA-256 of every output's bytes
+    x, v, p, w, (m0, m1, m2, m3), sp = inputs
+    subs = FusedSubsteps(cfg, sp, stream_v1=stream_v1)
+    w1, v1, proj1 = subs.substep1(x, v, p, w, m0, m1)
+    x2, v2, w2, proj2 = subs.substep2(x.clone(), v.clone(), p, w.clone(), w1, v1, m2, m3, m0, m1)
+    h = hashlib.sha256()
+    for t in (w1, v1, *proj1, x2, v2, w2, *proj2):
+        if t is not None:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 cases = [("main f32", main, None), ("main bf16", dataclasses.replace(main, bf16_weights=True), None)]
 for c in (cs.landau_cfg(linear=True), cs.landau_cfg(linear=True, bf16=True),
           cs.two_stream_cfg(), cs.two_stream_cfg(deltaf=False), cs.two_species_cfg(),
-          cs.two_species_cfg(bf16=True)):
+          cs.two_species_cfg(bf16=True), cs.nine_species_cfg(), two):
     cases.append((f"{c.nspecies}x{c.nparticle_max}", c, "loaded"))
 for label, cfg, inputs in cases:
-    ms, _ = cs.time_kernels(cfg, cs._loaded_inputs(cfg) if inputs else None)
+    make = (lambda: cs._loaded_inputs(cfg)) if inputs else (
+        lambda: cs._inputs(cfg, cfg.nparticle_max, "cuda"))
+    ms, _ = cs.time_kernels(cfg, make())
     rows.update({f"{label} {k}": v for k, v in ms.items() if not k.endswith("_plain")})
+    sums[f"{label} {'bf16_weights' if cfg.bf16_weights else cfg.dtype} ns={cfg.nspecies}"] = \
+        checksum(cfg, make())
+    torch.cuda.empty_cache()
 for nmode in (16, 32, 64):
     for stream_v1, lay in ((True, "streamed"), (False, "recompute")):
-        ms, _ = cs.time_kernels(cs.many_modes_cfg(nmode), None, stream_v1)
+        cfg = cs.many_modes_cfg(nmode)
+        ms, _ = cs.time_kernels(cfg, None, stream_v1)
         for k, v in ms.items():
             if not k.endswith("_plain"):
                 rows[f"{nmode} modes {lay} substep{k[7]}"] = v
+        sums[f"{nmode} modes {lay} ns=1"] = checksum(
+            cfg, cs._inputs(cfg, cfg.nparticle_max, "cuda"), stream_v1)
 for bf16 in (False, True):
     for r in kernel_probe.substep_rows(cs.BENCH_N, torch.device("cuda"), bf16):
         rows[f"headline {r.label}"] = r.ms
@@ -96,10 +128,11 @@ for name, fn in (("substep1", lambda: subs.substep1(x, v, p, w, m0, m1)),
     torch.cuda.synchronize()
 for label, cfg in (("main f32", main), ("32 modes f32", cs.many_modes_cfg(32)),
                    ("headline f32", head),
-                   ("headline bf16", dataclasses.replace(head, bf16_weights=True))):
+                   ("headline bf16", dataclasses.replace(head, bf16_weights=True)),
+                   ("9x102400 f32", cs.nine_species_cfg()), ("2x102400 f32", two)):
     mean = cs.time_steppers(cfg, smi)
     rows.update({f"{label} step {k}": mean[k] for k in ("eager", "graph")})
-print(json.dumps({"card": smi, "rows": rows}))
+print(json.dumps({"card": smi, "rows": rows, "checksums": sums}))
 """
 
 # what one turn of --ring runs: the ring rows and their direct-load controls
@@ -180,6 +213,10 @@ def main(argv=None) -> dict:
     if any(b.returncode != 0 for b in builds):
         raise SystemExit("a build failed")
     ptxas = [json.loads(log.strip().splitlines()[-1]) for log in logs]
+    for root, entries in zip((other, this), ptxas):
+        if not entries:
+            print(f"ptxas: no lines from {root}: its {sources[0]} library was built before this "
+                  f"run (remove its pic1dp_tpu_torch/_build/ to compare)", flush=True)
     equal, differ = ptxas_diff(*ptxas)
     print(f"ptxas, {sources[0]}: {len(ptxas[0])} entry functions in {other}, "
           f"{len(ptxas[1])} in {this}; of the {equal + len(differ)} they share by name "
@@ -199,7 +236,13 @@ def main(argv=None) -> dict:
         out[row] = dict(other=o, this=t, ratio=ratio, spread=spread)
         print(f"{row:<36} other {o[0]:.4f} {o[1]:.4f}  this {t[0]:.4f} {t[1]:.4f} ms  "
               f"this/other {ratio:.4f}  spread {spread:.2%}", flush=True)
-    print(json.dumps(out))
+    sums = {}
+    for row in runs["this"][0].get("checksums", {}):
+        turns = [r.get("checksums", {}).get(row) for r in runs["other"] + runs["this"]]
+        sums[row] = dict(other=turns[:2], this=turns[2:], equal=len(set(turns)) == 1)
+        print(f"checksum {row:<36} other {turns[0]} {turns[1]}  this {turns[2]} {turns[3]}  "
+              f"{'equal in all four turns' if sums[row]['equal'] else 'DIFFER'}", flush=True)
+    print(json.dumps({"rows": out, "checksums": sums}))
     return out
 
 
