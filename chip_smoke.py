@@ -3,10 +3,12 @@
 Drives pic1dp_tpu_torch's main paths — the default bump-on-tail run at its
 full width of 6.4M markers, in f32 and with bf16_weights, through the
 hand-written CUDA substep kernels, in both nonlinear delta-f layouts, with
-32 kept modes and with nine species; the reference's verification cases
-(Landau damping nonlinear and linear, two-stream in delta-f and full-f, two
-species, ion-acoustic) through the substep kernels of their layouts; and
-the five probes through the stream kernels — and checks them.  It imports
+32 kept modes and with nine species, and split over a one-rank NCCL mesh
+and two gloo ranks; the reference's verification cases (Landau damping
+nonlinear and linear, two-stream in delta-f and full-f, two species,
+ion-acoustic) through the substep kernels of their layouts, configured and
+fitted by the port's example scripts; the analysis tools on the main run's
+output; and the five probes through the stream kernels — and checks them.  It imports
 neither jax nor pic1dp_tpu, catches nothing, and exits non-zero at the
 first failed check.  Phases, each printed:
 
@@ -31,9 +33,14 @@ first failed check.  Phases, each printed:
      steps in every layout
   4. the main paths, each with its launch counts set to 0 just before and
      read just after: Simulation.run to t = 100 in f32 and in bf16_weights
-     (launch counts, the pic1dp.out size and read-back, the growth rate
-     against theory), each verification case through Simulation.run against
-     its dispersion root, each run under torch.profiler, whose substep
+     as examples/bump_on_tail_pre83 configures it (launch counts, the
+     pic1dp.out size and read-back, the growth rate by the example's fit
+     against theory), runinfo and ptcldist on the f32 run's pic1dp.out
+     (runinfo's gamma against the fit, ptcldist's files against the stream,
+     the viewer's ImportError without matplotlib), each verification case
+     through Simulation.run against its dispersion root by the config, root
+     and fit of its example script where it has one, each run under
+     torch.profiler, whose substep
      kernels by name must equal the counters, then the kernel, pipeline, compute, overlap and
      pingpong probes at 2^26, each with the stream kernels' counts set to 0
      just before it
@@ -69,6 +76,14 @@ first failed check.  Phases, each printed:
      the headline in both layouts, with the step minus its two kernels and
      the idle share of a graph replay; and run.py --profile, whose trace
      holds each substep kernel as often as the counters say
+  8. (run after 7, before 6) multi-device runs on the one card: the main
+     case in f32 and bf16_weights through Simulation(mesh=1) on a one-rank
+     NCCL job, its CUDA graphs holding the all_reduces, bit for bit the run
+     without a mesh, with the launch counts set to 0 just before and read
+     just after, and gamma against the root; the graph step with and
+     without the all_reduces in turns; then two gloo ranks on the one card,
+     each in its own process, eager steps within the f32 bounds of the run
+     without a mesh, and their ms/step
   6. timing: ms per call of each substep, unit and carry kernel and its
      plain version (for each substep its bound, share, V, B, the bin and
      where the angle table or the grids sat), ms/step of the plain, the eager kernel and the CUDA
@@ -146,6 +161,19 @@ OPT_F64_FLIPS, OPT_F32_LIVE, OPT_F32_SUM = 2, 5e-4, 1e-3
 # PHYSICS_r05.json two_stream_k0.2_fullf, tests/test_physics.py:130-146,
 # examples/ion_acoustic.py:47-58) ----
 
+def examples():
+    """The port's example scripts (pic1dp_tpu_torch/examples/): their
+    configs, dispersion roots and fits are phase 4's."""
+    from pic1dp_tpu_torch.examples import (bump_on_tail_pre83, ion_acoustic,
+                                           landau_damping, two_stream)
+
+    return bump_on_tail_pre83, landau_damping, two_stream, ion_acoustic
+
+
+def quiet(cfg):
+    return dataclasses.replace(cfg, verbosity=0)
+
+
 def landau_cfg(linear: bool = False, bf16: bool = False):
     return dataclasses.replace(landau_damping_cfg(), linear=linear, bf16_weights=bf16)
 
@@ -153,9 +181,8 @@ def landau_cfg(linear: bool = False, bf16: bool = False):
 def two_stream_cfg(deltaf: bool = True):
     from pic1dp_tpu_torch.config import two_stream
 
-    if deltaf:
-        return two_stream(nparticle=1_000_448, time_max=80.0, output_interval=0.5,
-                          verbosity=0)
+    if deltaf:   # the example's config, 1e6 markers rounded up to 1,000,448
+        return quiet(examples()[2].config(1_000_000, 80.0, "cuda"))
     return two_stream(nparticle=2**24, deltaf=False, time_max=30.0, verbosity=0)
 
 
@@ -170,16 +197,7 @@ def two_species_cfg(bf16: bool = False):
 
 
 def ion_acoustic_cfg():
-    from pic1dp_tpu_torch.config import Config, Equilibrium, MarkerLoading, SpeciesConfig
-
-    return Config(
-        linear=False, deltaf=True, lx=2.0 * np.pi / 0.5, equilibrium=Equilibrium.MAXWELLIAN,
-        species=(SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=1.0, v0=0.0),
-                 SpeciesConfig(charge=1.0, mass=25.0, temperature=0.05, density=1.0,
-                               v0=0.0)),
-        nx=64, nparticle_max=2**22, time_max=320.0, dt=0.05, marker=MarkerLoading.PHYSICAL,
-        v_max=8.0, modes=(1,), init_modes=(1,), init_amp_cos=(0.0,), init_amp_sin=(3e-4,),
-        output_interval=1.0, verbosity=0).validate()
+    return quiet(examples()[3].config(2**22, 320.0, "cuda"))
 
 
 def nine_species_cfg(dtype: str = "float32", n: int = 102_400, ns: int = 9):
@@ -194,10 +212,7 @@ def nine_species_cfg(dtype: str = "float32", n: int = 102_400, ns: int = 9):
 
 
 def landau_damping_cfg(n: int = 102_400):
-    from pic1dp_tpu_torch.config import landau_damping
-
-    return landau_damping(nx=64, nparticle=n, k=0.5, amp=1e-4, time_max=20.0,
-                          output_interval=0.1, verbosity=0)
+    return quiet(examples()[1].config(n))
 
 
 def many_modes_cfg(nmode: int, **kw):
@@ -859,7 +874,7 @@ def compare_carry(n: int) -> dict:
     return {"stream_carry": worst}
 
 
-def run_case(phase: str, label: str, cfg) -> tuple[list, dict]:
+def run_case(phase: str, label: str, cfg, out_dir: str | None = None) -> tuple[list, dict]:
     """Simulation.run of cfg on the card, through the CUDA graph, with every
     substep kernel's count set to 0 just before and read just after: only
     the config's own two kernels, once per step, in the counters and in a
@@ -868,7 +883,8 @@ def run_case(phase: str, label: str, cfg) -> tuple[list, dict]:
     PROFILER_TRIES times, while the profiler sees fewer); the step and
     snapshot counts; pic1dp.out of the expected size, its last snapshot read
     back; a finite final state of the configured shape and dtypes with x in
-    [0, lx).  Returns the snapshots and the counts."""
+    [0, lx).  pic1dp.out goes to out_dir where given (kept), else to a
+    temporary directory.  Returns the snapshots and the counts."""
     from pic1dp_tpu_torch import Simulation
     from pic1dp_tpu_torch.io import petsc_binary as pb
     from pic1dp_tpu_torch.ops import substep_kernels as sk
@@ -879,7 +895,8 @@ def run_case(phase: str, label: str, cfg) -> tuple[list, dict]:
             + ns * 8 * 3 * (nxo * nvo + nvo))
     for attempt in range(1, PROFILER_TRIES + 1):
         snaps = []
-        with tempfile.TemporaryDirectory() as out:
+        with (contextlib.nullcontext(out_dir) if out_dir else tempfile.TemporaryDirectory()) \
+                as out:
             sim = Simulation(cfg, out_path=out, device="cuda")
             for k in sk.KERNELS:
                 k.launches = 0
@@ -939,16 +956,17 @@ def run_case(phase: str, label: str, cfg) -> tuple[list, dict]:
     return snaps, launches
 
 
-def main_path(cfg, phase: str = "4 main path") -> tuple[dict, float]:
+def main_path(cfg, phase: str = "4 main path", out_dir: str | None = None
+              ) -> tuple[dict, float]:
     """The default case to time_max (run_case); returns the counts and
-    gamma against the dispersion root."""
+    gamma, fitted as the example fits it (examples/bump_on_tail_pre83:
+    over [25, 70] at time_max 100), against the dispersion root."""
     label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
-    snaps, launches = run_case(phase, label, cfg)
-    t = np.array([q["time"] for q in snaps])
-    e = np.array([q["field_energy"] for q in snaps])
-    m = (t >= GAMMA_WINDOW[0]) & (t <= GAMMA_WINDOW[1])
-    gamma = float(np.polyfit(t[m], np.log(e[m]), 1)[0] / 2.0)
+    snaps, launches = run_case(phase, label, cfg, out_dir)
+    bump = examples()[0]
+    gamma = bump.fit_gamma(snaps, cfg.time_max)
     rel = abs(gamma - BOT_OMEGA.imag) / BOT_OMEGA.imag
+    e = np.array([q["field_energy"] for q in snaps])
     say(f"[{phase}] {label} gamma {gamma:.5f} vs theory {BOT_OMEGA.imag:.5f}: "
         f"rel err {rel:.4f} (limit {GAMMA_REL_TOL}); int E^2 dx at t=100: {e[-1]:.4e}")
     check(rel <= GAMMA_REL_TOL, "growth rate within 5% of the dispersion root")
@@ -961,28 +979,13 @@ def _energy_gamma(t, e, lo: float, hi: float) -> float:
     return float(np.polyfit(t[m], np.log(e[m]), 1)[0] / 2.0)
 
 
-def _peaks_gamma(t, e, lo: float, hi: float) -> float:
-    """The same through the local maxima of a damped oscillation."""
-    pk = [i for i in range(1, len(e) - 1)
-          if e[i] > e[i - 1] and e[i] > e[i + 1] and lo <= t[i] <= hi]
-    return float(np.polyfit(t[pk], np.log(e[pk]), 1)[0] / 2.0)
-
-
 def physics_path() -> dict:
-    """Each verification case against its dispersion root from the port's
-    copy of analysis/dispersion.py; returns the launches of each kernel on
-    the path of its own case."""
-    from pic1dp_tpu_torch.analysis.dispersion import (Dispersion, fit_mode_omega,
-                                                      species_for_config)
-
-    def root(cfg, k, guesses=None):
-        d = Dispersion(species_for_config(cfg), k)
-        if guesses:
-            d._guesses = guesses
-        return d.solve_omega()
-
-    def series(snaps, key):
-        return np.array([s[key] for s in snaps])
+    """Each verification case against its dispersion root, through the
+    port's example scripts (pic1dp_tpu_torch/examples/): their configs (the
+    full-f two-stream and two-species cases excepted: no example has them),
+    their dispersion roots and their fits, held to phase 4's tolerances;
+    returns the launches of each kernel on the path of its own case."""
+    _, landau, two_stream, ion_acoustic = examples()
 
     def row(label, value, want, limit):
         rel = abs(value - want) / abs(want)
@@ -996,43 +999,38 @@ def physics_path() -> dict:
         for n, v in counts.items():
             launches[n] = launches.get(n, 0) + v
 
-    ts_guess = [0.01 + 0.3j, 0.02 + 0.5j, 0.05 + 0.4j]
-    landau_root = root(landau_cfg(), 0.5)
+    landau_root = landau.theory(landau_cfg())
     snaps, counts = run_case("4 physics", "Landau, nonlinear delta-f", landau_cfg())
     add(counts)
-    t, e = series(snaps, "time"), series(snaps, "field_energy")
-    g_nl = _peaks_gamma(t, e, 1.0, 15.0)
+    g_nl = landau.fit_gamma(snaps)
     row("Landau nonlinear gamma (energy peaks, t in [1, 15]) vs root", g_nl,
         landau_root.imag, 0.05)
     for bf16 in (False, True):
         name = "Landau, linear" + (", bf16_weights" if bf16 else "")
         snaps, counts = run_case("4 physics", name, landau_cfg(linear=True, bf16=bf16))
         add(counts)
-        g_li = _peaks_gamma(series(snaps, "time"), series(snaps, "field_energy"), 1.0, 15.0)
+        g_li = landau.fit_gamma(snaps)
         row(f"{name} gamma vs the nonlinear run's", g_li, g_nl, 0.02)
         row(f"{name} gamma vs root", g_li, landau_root.imag, 0.06)
 
     cfg = two_stream_cfg()
-    ts_root = root(cfg, 0.2, ts_guess)
+    ts_root = two_stream.theory(cfg)
     snaps, counts = run_case("4 physics", "two-stream, TWO_STREAM2", cfg)
     add(counts)
-    t, e = series(snaps, "time"), series(snaps, "field_energy")
-    row("two-stream gamma (t in [15, 35]) vs root", _energy_gamma(t, e, 15.0, 35.0),
+    row("two-stream gamma (t in [15, 35]) vs root", two_stream.fit_gamma(snaps),
         ts_root.imag, 0.08)
-    ipk = next((i for i in range(1, len(e) - 1)
-                if t[i] > 35.0 and e[i] >= e[i - 1] and e[i] > e[i + 1]), int(np.argmax(e)))
-    ke = np.array([float(np.sum(s["total"])) for s in snaps])
-    drift = float(np.max(np.abs(0.5 * ke + 0.5 * e - (0.5 * ke[0] + 0.5 * e[0]))) / ke[0])
-    say(f"[4 physics] two-stream saturation peak at t = {t[ipk]:.1f} (limit "
-        f"{cfg.time_max - 2.0}); total-energy drift {drift:.3e} of KE (limit 2e-3)")
-    check(t[ipk] < cfg.time_max - 2.0 and drift < 2e-3, "two-stream saturation and energy")
+    t_pk, _, drift = two_stream.saturation(snaps)
+    say(f"[4 physics] two-stream saturation peak at t = {t_pk:.1f} (limit "
+        f"{cfg.time_max - 2.0}); total-energy drift {drift:.3e} of KE (limit "
+        f"{two_stream.DRIFT_LIMIT})")
+    check(t_pk < cfg.time_max - 2.0 and drift < two_stream.DRIFT_LIMIT,
+          "two-stream saturation and energy")
 
     cfg = two_stream_cfg(deltaf=False)
     snaps, counts = run_case("4 physics", "two-stream, full-f", cfg)
     add(counts)
     row("two-stream full-f gamma (t in [10, 25]) vs root",
-        _energy_gamma(series(snaps, "time"), series(snaps, "field_energy"), 10.0, 25.0),
-        ts_root.imag, 0.05)
+        two_stream.fit_gamma(snaps, (10.0, 25.0)), ts_root.imag, 0.05)
 
     for bf16 in (False, True):
         name = "two species" + (", bf16_weights" if bf16 else "")
@@ -1040,19 +1038,16 @@ def physics_path() -> dict:
         snaps, counts = run_case("4 physics", name, cfg)
         add(counts)
         row(f"{name} gamma (t in [10, 25]) vs 0.28451",
-            _energy_gamma(series(snaps, "time"), series(snaps, "field_energy"), 10.0, 25.0),
-            0.28451, 0.09)
+            two_stream.fit_gamma(snaps, (10.0, 25.0)), 0.28451, 0.09)
 
     cfg = ion_acoustic_cfg()
-    ia_root = root(cfg, 0.5, [0.098 - 0.008j, 0.118 - 0.010j, 0.078 - 0.006j])
+    ia_root = ion_acoustic.theory(cfg)
     snaps, counts = run_case("4 physics", "ion-acoustic", cfg)
     add(counts)
-    t = series(snaps, "time")
-    fit = fit_mode_omega(t, series(snaps, "mode_re")[:, 0], series(snaps, "mode_im")[:, 0],
-                         window=(60.0, 300.0))
+    fit = ion_acoustic.fit_omega(snaps, cfg.time_max)
     row("ion-acoustic omega (fit_mode_omega over (60, 300)) vs root", fit.real,
-        abs(ia_root.real), 0.02)
-    row("ion-acoustic gamma vs root", fit.imag, ia_root.imag, 0.08)
+        abs(ia_root.real), ion_acoustic.OMEGA_TOLERANCE)
+    row("ion-acoustic gamma vs root", fit.imag, ia_root.imag, ion_acoustic.GAMMA_TOLERANCE)
     return launches
 
 
@@ -1859,7 +1854,6 @@ def nine_species_phase() -> dict:
     in f32 and f64 and recompute = streamed bit for bit; graph = eager, and
     Simulation.run to t = 20, gamma from the energy peaks within the
     example's 5% of the one-species root.  Returns the run's launches."""
-    from pic1dp_tpu_torch.analysis.dispersion import Dispersion, species_for_config
 
     cfg = nine_species_cfg()
     for n in (cfg.nparticle_max, ODD_N):
@@ -1879,9 +1873,9 @@ def nine_species_phase() -> dict:
     compare_graph(cfg)
     zero_substep_counts()
     snaps, launches = run_case("7 species", "nine species", cfg)
-    root = Dispersion(species_for_config(landau_damping_cfg()), 0.5).solve_omega()
-    t = np.array([q["time"] for q in snaps])
-    gamma = _peaks_gamma(t, np.array([q["field_energy"] for q in snaps]), 1.0, 15.0)
+    landau = examples()[1]
+    root = landau.theory(landau_damping_cfg())
+    gamma = landau.fit_gamma(snaps)
     rel = abs(gamma - root.imag) / abs(root.imag)
     say(f"[7 species] nine species: gamma (energy peaks, t in [1, 15]) {gamma:.5f} vs the "
         f"one-species root {root.imag:.5f}, rel err {rel:.4f} (limit 0.05)")
@@ -2016,6 +2010,248 @@ def compare_v1_steps(cfg, smi: str) -> dict:
     return mean
 
 
+# ---- phase 4 (continued): the analysis tools on the card's own output ----
+
+RUNINFO_GAMMA_TOL = 0.02   # runinfo's window takes one snapshot before 25 and none at 70
+
+
+def analysis_phase(cfg, out_dir: str, gamma: float) -> None:
+    """runinfo and ptcldist (pic1dp_tpu_torch/analysis/, no -vis) on the
+    pic1dp.out of phase 4's f32 main run: runinfo's growth rate over the
+    example's window against phase 4's gamma; ptcldist's x-v and v files
+    equal to what OutputData reads, the v-space marker distribution summing
+    to the markers inside v_max (at least 99% of them); and the viewer, which needs matplotlib,
+    failing with its ImportError where the card's machine has none (built
+    headless where it has)."""
+    import io
+
+    from pic1dp_tpu_torch.analysis import output_data, ptcldist, runinfo, visual
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        runinfo.main(["-gr", str(GAMMA_WINDOW[0]), str(GAMMA_WINDOW[1]),
+                      "-sr", "0", str(cfg.time_max), out_dir])
+    for line in text.getvalue().strip().splitlines():
+        say(f"[4 analysis] runinfo: {line}")
+    found = re.search(r"growth rate = (\S+)", text.getvalue())
+    check(found is not None, "runinfo reports a growth rate")
+    g = float(found.group(1))
+    rel = abs(g - gamma) / gamma
+    say(f"[4 analysis] runinfo gamma {g:.5f} against phase 4's {gamma:.5f}: rel {rel:.4f} "
+        f"(limit {RUNINFO_GAMMA_TOL})")
+    check(rel <= RUNINFO_GAMMA_TOL, "runinfo's gamma matches phase 4's")
+
+    data = output_data.OutputData(out_dir)
+    last = data.ntime - 1
+    with tempfile.TemporaryDirectory() as d:
+        for xv, dist in ((0, "2"), (1, "0")):
+            with contextlib.redirect_stdout(io.StringIO()):
+                ptcldist.main([out_dir, "-xv", str(xv), "-d", dist, "-o", d])
+        xv_file = np.loadtxt(os.path.join(d, "ptcldist_xv.dat"))
+        v_file = np.loadtxt(os.path.join(d, "ptcldist_v.dat"))
+        v_axis = np.loadtxt(os.path.join(d, "ptcldist_v_v.dat"))
+    check(xv_file.shape == (cfg.nv_opd, cfg.nx_opd + 1) and v_file.shape == (cfg.nv_opd,),
+          "ptcldist file shapes")
+    check(np.array_equal(xv_file, data.get_ptcldist_xv(last, 0, 2))
+          and np.array_equal(v_file, data.get_ptcldist_v(last, 0, 0))
+          and np.array_equal(v_axis, data.v_pd), "ptcldist files equal the stream's records")
+    # markr_v is the marker histogram times (nv - 1) / (2 v_max)
+    markers = float(np.sum(v_file)) * 2.0 * cfg.v_max / (cfg.nv_opd - 1)
+    say(f"[4 analysis] ptcldist: delta f (x, v) {xv_file.shape}, max |delta f| "
+        f"{np.abs(xv_file).max():.4e}; markers in g(v) {markers:.1f} of {cfg.nparticle_max}")
+    check(bool(np.isfinite(xv_file).all()) and np.abs(xv_file).max() > 0,
+          "delta f (x, v) finite and not zero")
+    # markers at |v| >= v_max are left out of the histograms (deposit_xv)
+    check(0.99 * cfg.nparticle_max <= markers <= cfg.nparticle_max * (1 + 1e-9),
+          "g(v) sums to the markers inside v_max")
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            visual.VisualApp(out_dir)
+        except ImportError as exc:
+            say(f"[4 analysis] visual: no matplotlib here; VisualApp raised {exc!r}")
+        else:
+            check(False, "VisualApp without matplotlib raises ImportError")
+    else:
+        import matplotlib
+
+        matplotlib.use("Agg", force=True)
+        app = visual.VisualApp(out_dir)
+        app.update_all()
+        say(f"[4 analysis] visual: VisualApp built headless over {data.ntime} snapshots")
+
+
+# ---- phase 8: multi-device runs on the one card ----
+
+GLOO_STEPS = 5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(cfg, smi: str) -> dict:
+    """A one-rank NCCL job on the card (the card check of particle
+    data-parallelism; NCCL refuses two ranks on one GPU): Simulation(mesh=1)
+    of the main case at full width to time_max, its steps replayed from CUDA
+    graphs that hold the two all_reduces of each step, against the same
+    run without a mesh: x, v, w, E and every other field bit for bit, the
+    launches, and gamma against the root.  Then the graph step of Stepper
+    and of ShardedStepper over the same state in turns (single, mesh, mesh,
+    single): the price of the all_reduces.  Returns the run's launches."""
+    import torch.distributed as dist
+
+    from pic1dp_tpu_torch import Simulation
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.state import FIELDS
+    from pic1dp_tpu_torch.core.step import Stepper
+    from pic1dp_tpu_torch.parallel import launch
+    from pic1dp_tpu_torch.parallel import mesh as pmesh
+
+    launch.initialize(f"tcp://localhost:{free_port()}", 1, 0, "cuda")
+    try:
+        mesh = launch.global_mesh("cuda")
+        check(mesh.size == 1 and dist.get_backend(mesh.group) == "nccl",
+              "a one-rank NCCL mesh")
+        label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+        single = Simulation(cfg, device="cuda")
+        single.run()
+        zero_substep_counts()
+        sharded = Simulation(cfg, device="cuda", mesh=mesh)
+        snaps = []
+        sharded.run(snapshot_callback=snaps.append)
+        torch.cuda.synchronize()
+        launches = substep_counts()
+        used = {k.name for k in sharded.stepper.substeps.counters}
+        steps = sharded.itime
+        graphs = sorted(sharded.stepper._graphs)
+        same = {f: torch.equal(getattr(single.state, f), getattr(sharded.state, f))
+                for f in FIELDS}
+        gamma = examples()[0].fit_gamma(snaps, cfg.time_max)
+        rel = abs(gamma - BOT_OMEGA.imag) / BOT_OMEGA.imag
+        say(f"[8 mesh] {label} Simulation(mesh=1) on NCCL, {cfg.nparticle_max} markers, "
+            f"nx={cfg.nx}: {steps} steps, graphs of {graphs} steps; launches {launches}; "
+            f"bitwise equal to the run without a mesh {same}; gamma {gamma:.5f} vs "
+            f"{BOT_OMEGA.imag:.5f}, rel err {rel:.4f} (limit {GAMMA_REL_TOL})")
+        check(bool(graphs), f"{label} mesh run replayed CUDA graphs")
+        check(set(launches) == used and all(v == steps for v in launches.values()),
+              f"{label} mesh run: one launch of each of {sorted(used)} per step")
+        check(all(same.values()), f"{label} one-rank mesh run bit for bit the single run")
+        check(rel <= GAMMA_REL_TOL, f"{label} mesh run gamma within 5% of the root")
+        del single, sharded
+
+        plain, shard = Stepper(cfg, "cuda"), pmesh.ShardedStepper(cfg, mesh)
+        state0 = plain.initial_field(load_particles(cfg, "cuda"))
+        ms = {"single": [], "mesh": []}
+        for which in ("single", "mesh", "mesh", "single"):
+            st = plain if which == "single" else shard
+            box = [st.multi_step(state0.clone(), WARMUP_STEPS)]
+            box[0] = st.graph_steps(box[0], TIMING_STEPS)     # captures the graph
+            torch.cuda.synchronize()
+            ms[which].append(_events_ms(lambda: st.graph_steps(box[0], TIMING_STEPS), 1)
+                             / TIMING_STEPS)
+            del box
+        mean = {w: float(np.mean(v)) for w, v in ms.items()}
+        say(f"[8 mesh] {label} graph ms/step in turns single, mesh, mesh, single: "
+            + "; ".join(f"{w} {mean[w]:.4f} ({v[0]:.4f}, {v[1]:.4f})" for w, v in ms.items())
+            + f"; the two all_reduces and their copies {mean['mesh'] - mean['single']:+.4f} "
+              f"ms/step; card {smi}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_rank(rank: int, port: int, cfg_json: str, out: str) -> None:
+    """One rank of the two-rank gloo job on the one card (gloo_phase): its
+    half of the markers stepped one step and then GLOO_STEPS timed eager
+    steps with the kernels, against its half of the same steps without a
+    mesh, within the f32 bounds; writes what it measured to
+    <out>.rank<rank>.json."""
+    from pic1dp_tpu_torch.config import Config
+    from pic1dp_tpu_torch.core.loading import load_particles
+    from pic1dp_tpu_torch.core.step import Stepper
+    from pic1dp_tpu_torch.ops import substep_kernels as sk
+    from pic1dp_tpu_torch.parallel import launch
+    from pic1dp_tpu_torch.parallel import mesh as pmesh
+
+    launch.initialize(f"tcp://localhost:{port}", 2, rank, "cpu")   # gloo
+    try:
+        cfg = Config.from_json(cfg_json)
+        mesh = pmesh.make_mesh(2, device="cuda:0")
+        single = Stepper(cfg, mesh.device)
+        ref = single.initial_field(load_particles(cfg, mesh.device))
+        state = pmesh.shard_state(ref, mesh)
+        start, stop = pmesh.local_block(cfg.nparticle_max, mesh)
+        for _ in range(GLOO_STEPS):
+            ref = single.step(ref)
+        shard = pmesh.ShardedStepper(cfg, mesh)
+        state = shard.step(shard.initial_field(state))     # one step to warm up
+        ref = single.step(ref)
+        for k in sk.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = shard.multi_step(state, GLOO_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / GLOO_STEPS
+        err = dict(x=periodic_err(state.x, ref.x[:, start:stop], cfg.lx),
+                   v=abs_err(state.v, ref.v[:, start:stop]),
+                   w=rel_err(state.w, ref.w[:, start:stop]),
+                   proj=max(rel_err(state.mode_re, ref.mode_re),
+                            rel_err(state.mode_im, ref.mode_im)))
+        with open(f"{out}.rank{rank}.json", "w") as fh:
+            json.dump({"rank": rank, "ms_per_step": ms, "err": err,
+                       "launches": {k.name: k.launches for k in sk.KERNELS if k.launches},
+                       "graphs": len(shard._graphs)}, fh)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def gloo_phase(cfg, smi: str) -> None:
+    """Two gloo ranks on the one card, each in a process of its own (gloo
+    takes CUDA tensors; NCCL refuses two ranks on one GPU): the main case's
+    markers split in halves, 1 + GLOO_STEPS eager steps (a gloo all_reduce
+    cannot be captured in a graph) with the kernels, each rank's half
+    against the same steps without a mesh within the f32 bounds; the host
+    clock's ms/step.  No multi-card run is possible on this machine."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "gloo")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.gloo_rank({r}, {port}, "
+             f"{cfg.to_json()!r}, {out!r})"],
+            text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, (_, err) in zip(procs, outs):
+            check(p.returncode == 0, f"gloo rank exited {p.returncode}: {err[-2000:]}")
+        ranks = []
+        for r in range(2):
+            with open(f"{out}.rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+    for r in ranks:
+        say(f"[8 gloo] {label} rank {r['rank']} of 2 on one card, "
+            f"{cfg.nparticle_max // 2} markers: {GLOO_STEPS} eager steps "
+            f"{r['ms_per_step']:.4f} ms/step (host clock); launches {r['launches']}; "
+            f"against the run without a mesh: " + ", ".join(
+                f"{k} {v:.3e} (limit {F32_TOL[k]})" for k, v in r["err"].items())
+            + f"; card {smi}")
+        check(r["graphs"] == 0, "gloo ranks step eagerly")
+        check(len(r["launches"]) == 2 and all(v == GLOO_STEPS for v in r["launches"].values()),
+              "each gloo rank launched both substep kernels once a step")
+        check(all(v <= F32_TOL[k] for k, v in r["err"].items()),
+              "two gloo ranks within the f32 bounds of the run without a mesh")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
@@ -2051,8 +2287,15 @@ def main() -> int:
     err.update(compare_carry(2**PROBE_LOG2 + 13))
     torch.cuda.synchronize()
 
-    launches, gamma32 = main_path(main_cfg)
-    bf16_launches, gamma16 = main_path(bf16_cfg)
+    # the main path as the example script configures and fits it (one
+    # snapshot a time unit, as the example writes them)
+    example_cfg = quiet(examples()[0].config(FULL_N, main_cfg.time_max))
+    check(dataclasses.replace(example_cfg, output_interval=main_cfg.output_interval)
+          == main_cfg, "the example's config is the main case")
+    with tempfile.TemporaryDirectory() as main_out:
+        launches, gamma32 = main_path(example_cfg, out_dir=main_out)
+        analysis_phase(example_cfg, main_out, gamma32)
+    bf16_launches, gamma16 = main_path(dataclasses.replace(example_cfg, bf16_weights=True))
     say(f"[4 main path] gamma f32 {gamma32:.5f}, bf16_weights {gamma16:.5f}, "
         f"theory {BOT_OMEGA.imag:.5f}")
     launches.update({k: v for k, v in bf16_launches.items() if "bf16" in k})
@@ -2080,6 +2323,11 @@ def main() -> int:
     nine_species_phase()
     phase_table_phase()
     profile_phase()
+    torch.cuda.synchronize()
+
+    for cfg in (main_cfg, bf16_cfg):
+        mesh_phase(cfg, smi)
+    gloo_phase(main_cfg, smi)
     torch.cuda.synchronize()
 
     # each layout's kernels at the shape of each of its verification cases;

@@ -8,15 +8,17 @@ stream-ceiling probes likewise (csrc/stream_probes.cu, run by the probes/
 entry points).  It imports torch and never jax or pic1dp_tpu.
 
 Public API:
-    Config     — runtime configuration (a copy of pic1dp_tpu.config)
+    Config / SpeciesConfig / MarkerLoading / ParticleShape
+               — runtime configuration (a copy of pic1dp_tpu.config)
     SimState   — the per-run tensor state
     Simulation — end-to-end driver on an explicit device
 """
 
-from pic1dp_tpu_torch.config import Config
+from pic1dp_tpu_torch.config import Config, MarkerLoading, ParticleShape, SpeciesConfig
 from pic1dp_tpu_torch.core.simulation import Simulation
 from pic1dp_tpu_torch.core.state import SimState
 
 __version__ = "0.1.0"
 
-__all__ = ["Config", "SimState", "Simulation", "__version__"]
+__all__ = ["Config", "SpeciesConfig", "MarkerLoading", "ParticleShape", "SimState",
+           "Simulation", "__version__"]

@@ -3,8 +3,8 @@
 A copy of pic1dp_tpu/analysis/dispersion.py (numpy and scipy only): the
 port must not import the JAX package, whose __init__ imports jax.
 tests/test_torch_dispersion.py pins its roots, fits and command line to the
-original's.  Left out of the copy: the -vis plot, which needs the JAX
-package's visual_dispersion.
+original's.  -vis plots through the port's visual_dispersion copy, which
+needs matplotlib.
 
 Re-design of reference tools/dispersion.py (Python 2) for Python 3: solves
 
@@ -352,6 +352,8 @@ def main(argv=None):
                         help="k scan step (default 0.005)")
     parser.add_argument("-sms", action="store_true",
                         help="save mode structure to file")
+    parser.add_argument("-vis", action="store_true",
+                        help="plot omega(k) and mode structure")
     args = parser.parse_args(argv)
 
     if len(args.params) < 5:
@@ -381,6 +383,9 @@ def main(argv=None):
         np.savetxt("x_disp.dat", x)
         np.savetxt("v_disp.dat", v)
         np.savetxt("ptcldist_xv_disp.dat", ms)
+    if args.vis:
+        from pic1dp_tpu_torch.analysis.visual_dispersion import show_dispersion
+        show_dispersion(disp, karr, oarr)
     return 0
 
 

@@ -13,11 +13,16 @@ with atomics, so a snapshot's histograms may differ in the last bits from run
 to run; the step itself does not use them.  The |delta f|(v) histogram that
 drives particle optimization (dist_pertb_abs_v) is one index_add_ as well,
 over the flat bins species * nv + iv.
+
+When the particle axis is split over ranks (parallel/mesh.py), `reduce`
+sums a rank's partial sums over the ranks: the energies' marker sums and
+ptcldist's RAW histograms, before any derived quantity (normalization, the
+full-f equilibrium subtraction), as the JAX package's psums do.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -34,13 +39,21 @@ class Energies(NamedTuple):
     pertb: torch.Tensor    # (ns,): sum v^2 w (delta-f)   (reference :145-171)
 
 
-def energies(cfg: Config, sp: dist.SpeciesParams, state: SimState) -> Energies:
+Reduce = Callable[..., tuple]
+
+
+def unreduced(*tensors):
+    """A rank's sums as they are: one device, or nothing to reduce."""
+    return tensors
+
+
+def energies(cfg: Config, sp: dist.SpeciesParams, state: SimState,
+             reduce: Reduce = unreduced) -> Energies:
     field = torch.sum(state.electric ** 2) * (cfg.lx / cfg.nx)
     v2 = torch.where(state.live, state.v * state.v, 0.0)
-    marker = torch.sum(v2, dim=1)
-    total = torch.sum(v2 * state.p, dim=1)
+    marker, total, pertb = reduce(torch.sum(v2, dim=1), torch.sum(v2 * state.p, dim=1),
+                                  torch.sum(v2 * state.w, dim=1))
     if cfg.deltaf:
-        pertb = torch.sum(v2 * state.w, dim=1)
         if cfg.linear:
             # linear: p = f0/g, perturbed energy must be added to get total
             # (reference src/pic1dp_output.F90:152-155)
@@ -87,7 +100,8 @@ def deposit_xv(x, v, vals, lx: float, v_max: float, nx: int, nv: int):
     return hist_xv, hist_xv.sum(dim=2)
 
 
-def ptcldist(cfg: Config, sp: dist.SpeciesParams, state: SimState) -> PtclDist:
+def ptcldist(cfg: Config, sp: dist.SpeciesParams, state: SimState,
+             reduce: Reduce = unreduced) -> PtclDist:
     """Marker/total/perturbed distribution snapshots
     (reference src/pic1dp_output.F90:196-477)."""
     nx, nv = cfg.nx_opd, cfg.nv_opd
@@ -107,6 +121,8 @@ def ptcldist(cfg: Config, sp: dist.SpeciesParams, state: SimState) -> PtclDist:
         out_v.append(hv)
     hxv = torch.stack(out_xv, dim=1)  # (3, ns, nv, nx)
     hv = torch.stack(out_v, dim=1)    # (3, ns, nv)
+    # the RAW histograms: f0 must come off the sum over ranks, not once per rank
+    hxv, hv = reduce(hxv, hv)
 
     markr_xv, total_xv, pertb_xv = hxv[0], hxv[1], hxv[2]
     markr_v, total_v, pertb_v = hv[0], hv[1], hv[2]

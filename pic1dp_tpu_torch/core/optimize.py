@@ -30,6 +30,11 @@ from a torch.Generator on the state's device; the tests hand both packages
 the same numbers instead.  Every function returns new tensors and leaves its
 input state untouched.
 
+When the particle axis is split over ranks (parallel/mesh.py), `reduce`
+sums each rank's profile over the ranks (the reference's MPI_Allreduce,
+src/pic1dp_particle.F90:392-395); merge pairs and split slots stay within a
+rank's block, like the reference's per-rank bins.
+
 Eligibility compares the profile at a marker with a fraction of the
 profile's maximum.  The profile is an index_add_, which on CUDA adds with
 float atomics: its last bits, and with them the fate of a marker that sits
@@ -43,7 +48,7 @@ import dataclasses
 import torch
 
 from pic1dp_tpu_torch.config import Config
-from pic1dp_tpu_torch.core.diagnostics import dist_pertb_abs_v
+from pic1dp_tpu_torch.core.diagnostics import Reduce, dist_pertb_abs_v, unreduced
 from pic1dp_tpu_torch.core.state import SimState
 from pic1dp_tpu_torch.ops.interp import hat_v_clipped
 
@@ -55,9 +60,9 @@ def _df_at_particles(profile_s: torch.Tensor, v: torch.Tensor, v_max: float, nv:
     return w0 * profile_s[iv0] + w1 * profile_s[iv1]
 
 
-def _profile(cfg: Config, state: SimState) -> torch.Tensor:
-    """|delta f|(v) profile of every species, (ns, nv)."""
-    return dist_pertb_abs_v(state.v, state.w, state.live, cfg.v_max, cfg.nv)
+def _profile(cfg: Config, state: SimState, reduce: Reduce = unreduced) -> torch.Tensor:
+    """|delta f|(v) profile of every species, (ns, nv), summed over ranks."""
+    return reduce(dist_pertb_abs_v(state.v, state.w, state.live, cfg.v_max, cfg.nv))[0]
 
 
 def _per_species(fn, state: SimState, reads: str, writes: str, *per_species_args) -> SimState:
@@ -73,7 +78,8 @@ def _per_species(fn, state: SimState, reads: str, writes: str, *per_species_args
     return dataclasses.replace(state, **new)
 
 
-def merge_particles(cfg: Config, state: SimState, thsh: float) -> SimState:
+def merge_particles(cfg: Config, state: SimState, thsh: float,
+                    reduce: Reduce = unreduced) -> SimState:
     """Merge pairs of non-important particles (reference :411-522)."""
     n = state.x.shape[1]
     nbins = 2 * cfg.nv * cfg.nx
@@ -118,11 +124,11 @@ def merge_particles(cfg: Config, state: SimState, thsh: float) -> SimState:
         out[4][i1] = live[i1] & ~is_second
         return out
 
-    return _per_species(per_species, state, "xvpwl", "xvpwl", _profile(cfg, state))
+    return _per_species(per_species, state, "xvpwl", "xvpwl", _profile(cfg, state, reduce))
 
 
 def remove_particles(cfg: Config, state: SimState, dice: torch.Tensor,
-                     thsh: float) -> SimState:
+                     thsh: float, reduce: Reduce = unreduced) -> SimState:
     """Remove unimportant particles, rescaling survivors (reference
     :530-627).  dice: uniform in [0, 1), (ns, n)."""
     opt = cfg.optimization
@@ -146,11 +152,12 @@ def remove_particles(cfg: Config, state: SimState, dice: torch.Tensor,
                 keep, 1.0 / torch.where(keep & (df_norm > 0.0), df_norm, 1.0), 1.0)
         return p * keep_scale, w * keep_scale, live & ~removed
 
-    return _per_species(per_species, state, "vpwl", "pwl", _profile(cfg, state), dice)
+    return _per_species(per_species, state, "vpwl", "pwl", _profile(cfg, state, reduce),
+                        dice)
 
 
 def split_particles(cfg: Config, state: SimState, normals: torch.Tensor,
-                    thsh: float) -> SimState:
+                    thsh: float, reduce: Reduce = unreduced) -> SimState:
     """Split resonant particles into 2*ngroup children (reference :635-746).
     normals: standard normal, (ns, n, split_ngroup)."""
     g = cfg.optimization.split_ngroup
@@ -194,7 +201,8 @@ def split_particles(cfg: Config, state: SimState, normals: torch.Tensor,
             w_new = torch.where(do_split, w_child, w_new)
         return x_new, v_new, p_new, w_new, live_new
 
-    return _per_species(per_species, state, "xvpwl", "xvpwl", _profile(cfg, state), normals)
+    return _per_species(per_species, state, "xvpwl", "xvpwl", _profile(cfg, state, reduce),
+                        normals)
 
 
 def draw_randoms(cfg: Config, state: SimState, generator: torch.Generator,
@@ -212,12 +220,13 @@ def draw_randoms(cfg: Config, state: SimState, generator: torch.Generator,
 def apply_optimizations(cfg: Config, state: SimState, dice: torch.Tensor | None,
                         normals: torch.Tensor | None, merge: float | None = None,
                         remove: float | None = None,
-                        split: float | None = None) -> SimState:
+                        split: float | None = None, reduce: Reduce = unreduced) -> SimState:
     """Run scheduled optimizations in the reference's order: merge, remove,
     split — recomputing the |delta f|(v) profile before each (reference
     particle_optimize, src/pic1dp_particle.F90:766-809).  The threshold
     arguments are fractions of max |delta f|(v); None disables the op.
-    remove takes `dice` and split takes `normals` (see draw_randoms)."""
+    remove takes `dice` and split takes `normals` (see draw_randoms); `reduce`
+    sums the profile over ranks (module docstring)."""
     # p may be stored reduced-precision (cfg.bf16_weights); the rare
     # optimization arithmetic (pair merges, survivor rescales) runs at full
     # precision and re-quantizes once at the end.  All particle dtypes are
@@ -227,11 +236,11 @@ def apply_optimizations(cfg: Config, state: SimState, dice: torch.Tensor | None,
     if in_dtypes["p"] != in_dtypes["w"]:
         state = dataclasses.replace(state, p=state.p.to(in_dtypes["w"]))
     if merge is not None:
-        state = merge_particles(cfg, state, merge)
+        state = merge_particles(cfg, state, merge, reduce)
     if remove is not None:
-        state = remove_particles(cfg, state, dice, remove)
+        state = remove_particles(cfg, state, dice, remove, reduce)
     if split is not None:
-        state = split_particles(cfg, state, normals, split)
+        state = split_particles(cfg, state, normals, split, reduce)
     # Re-establish the dead-slot invariant p = w = 0 (core/state.py): merge/
     # remove flip live bits without clearing the arrays.
     return dataclasses.replace(

@@ -7,8 +7,15 @@ and interval-based output, finalize with a timer report.
 The main loop is host-side Python.  Steps between events are queued on the
 device back to back; the host waits for the device only at a snapshot, at
 most once per `output_interval`, at a step with a scheduled optimization
-(merge/remove/split), and at a checkpoint.  One process, one device:
-multi-device runs and the per-process sharded checkpoint are not ported.
+(merge/remove/split), and at a checkpoint.
+
+`mesh` splits the particle axis over the processes of a torch.distributed
+job, one device each (parallel/mesh.py): each rank loads the global state,
+keeps its block and steps it with a ShardedStepper.  Only rank 0 writes
+pic1dp.out and prints.  Checkpoints of a mesh of more than one rank (or any,
+with force_sharded) are one file per process, `<path>.procK.npz`, with the
+JAX package's keys: each particle array as `<field>@<offset>`, its global
+offset along the particle axis, the field arrays whole.
 
 Checkpoints are the JAX package's .npz files, key for key, so either package
 resumes the other's (same config JSON, same arrays, bfloat16 p stored
@@ -66,18 +73,34 @@ class Simulation:
                  out_path: str | None = None, emulate_ranks: int = 1,
                  checkpoint_interval: float | None = None,
                  checkpoint_path: str | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
+        """`mesh`: None for one device; a parallel.mesh.Mesh, or its size
+        (parallel.mesh.make_mesh on `device`; a CUDA device without an index
+        becomes cuda:LOCAL_RANK), splits the particle axis over the job's
+        processes (module docstring)."""
         self.cfg = cfg.validate()
         self.device = torch.device(device)
         self.checkpoint_interval = checkpoint_interval
         self.checkpoint_path = checkpoint_path or "."
         self._last_checkpoint_time = 0.0
         self.timers = PhaseTimers()
+        self.mesh = None
         with self.timers.phase("initialize"):
-            self.stepper = Stepper(cfg, self.device)
+            if mesh is not None:
+                from pic1dp_tpu_torch.parallel import mesh as pmesh
+
+                self.mesh = pmesh.make_mesh(mesh, self.device) if isinstance(mesh, int) \
+                    else mesh
+                self.device = self.mesh.device
+                self.stepper = pmesh.ShardedStepper(cfg, self.mesh)
+            else:
+                self.stepper = Stepper(cfg, self.device)
+        self._is_io_process = self.mesh is None or self.mesh.rank == 0
+        self._has_output = out_path is not None
         self.pertb_shape = pertb_shape
         self.emulate_ranks = emulate_ranks
-        self.writer = SnapshotWriter(cfg, out_path) if out_path is not None else None
+        self.writer = SnapshotWriter(cfg, out_path) \
+            if out_path is not None and self._is_io_process else None
         self.state: SimState | None = None
         self.itime = 0
         self.time = 0.0
@@ -99,6 +122,15 @@ class Simulation:
         with self.timers.phase("particle load"):
             state = load_particles(self.cfg, self.device, self.generator,
                                    self.pertb_shape, self.emulate_ranks)
+            if self.mesh is not None:
+                from pic1dp_tpu_torch.parallel import mesh as pmesh
+
+                # every rank loads the global markers, so the ranks hold the
+                # single-device run's markers between them
+                state = pmesh.shard_state(state, self.mesh)
+                if self.mesh.size > 1:
+                    self.generator.manual_seed(pmesh.rank_seed(self.cfg.rng.seed,
+                                                               self.mesh.rank))
             state = self.stepper.initial_field(state)
             self._sync()
         self.state = state
@@ -166,7 +198,8 @@ class Simulation:
             with self.timers.phase("step: collect + solve"):
                 self.state = self.stepper.collect_and_solve(state)
             if self.cfg.verbosity >= 1:
-                n = int(torch.sum(self.state.nparticles()))
+                live, = self.stepper.reduce_sum(self.state.nparticles())
+                n = int(torch.sum(live))
                 # reference output_progress(2), src/pic1dp_output.F90:528-532
                 # (level 1: progress-prefixed line) / :544-546 (level >= 2)
                 if self.cfg.verbosity == 1:
@@ -189,15 +222,18 @@ class Simulation:
             eng = _to_host(self.stepper.energies(self.state))
             ptcl = _to_host(self.stepper.ptcldist(self.state))
             rho = self.state.rho
-            if self.cfg.diag_full_rho and self.writer is not None:
+            if self.cfg.diag_full_rho and self._has_output:
                 # exact full-spectrum grid charge for the diagnostic stream
-                # (reference writes the deposited rho, all modes)
+                # (reference writes the deposited rho, all modes); every
+                # rank takes part in its all_reduce
                 rho = self.stepper.full_rho(self.state)
             mode_re, mode_im, electric, rho = (
                 t.cpu().numpy() for t in (self.state.mode_re, self.state.mode_im,
                                           self.state.electric, rho))
-            nlive = (self.state.nparticles().cpu().numpy()
-                     if self.cfg.verbosity >= 3 else None)
+            nlive = None
+            if self.cfg.verbosity >= 3:
+                nlive, = self.stepper.reduce_sum(self.state.nparticles())
+                nlive = nlive.cpu().numpy()
             if self.writer is not None:
                 self.writer.write_snapshot(self.time, eng, mode_re, mode_im,
                                            electric, rho, ptcl)
@@ -291,27 +327,48 @@ class Simulation:
         if self.cfg.shape != ParticleShape.MATRIX_FREE:
             return ("Info: phase table requires the MATRIX_FREE shape "
                     "(the production hot path)")
+        if self.mesh is not None and self.mesh.size > 1:
+            # the timing loops run one rank's steps alone
+            return ("Info: phase table is not supported under multi-process "
+                    "runs (the timing loops fetch to one host); run it on a "
+                    "single-process mesh")
         return format_phase_table(
             measure_phase_split(self.stepper, self.state, steps))
 
     # ---- checkpoint / resume (no reference equivalent: the reference
     # restarts from t = 0 on any failure) ----
 
-    def save_checkpoint(self, path: str | None = None) -> str:
+    def save_checkpoint(self, path: str | None = None,
+                        force_sharded: bool = False) -> str:
         """Write full restart state (particle arrays, field, time counters,
         RNG key and generator state, optimization-schedule cursors) as an
         .npz; atomic rename so a crash mid-write never corrupts the previous
-        checkpoint.  The keys are the JAX package's (module docstring)."""
+        checkpoint.  The keys are the JAX package's (module docstring).
+
+        Under a mesh of more than one rank, or with force_sharded, each
+        process writes `<path>.procK.npz` holding its block of each particle
+        array under `<field>@<offset>` and the field arrays whole; restore
+        reads its own file back (the same mesh layout, or a finer one saved
+        by the JAX package in one file).  Returns the path written."""
         assert self.state is not None, "nothing to checkpoint"
         if path is None:
             path = os.path.join(self.checkpoint_path, "checkpoint.npz")
         self._sync()
-        arrays = {f: getattr(self.state, f).detach().cpu() for f in FIELDS}
-        # npz cannot represent bfloat16; store p widened to f32 — lossless —
-        # and restore re-narrows per cfg.p_dtype
-        if arrays["p"].dtype == torch.bfloat16:
-            arrays["p"] = arrays["p"].float()
-        arrays = {f: t.numpy() for f, t in arrays.items()}
+
+        def to_np(t):
+            # npz cannot represent bfloat16; store p widened to f32 —
+            # lossless — and restore re-narrows per cfg.p_dtype
+            t = t.detach().cpu()
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+        if force_sharded or (self.mesh is not None and self.mesh.size > 1):
+            rank = self.mesh.rank if self.mesh is not None else 0
+            path = f"{path}.proc{rank}.npz"
+            offset = rank * self.state.nparticle_max
+            arrays = {(f"{f}@{offset}" if getattr(self.state, f).dim() == 2 else f):
+                      to_np(getattr(self.state, f)) for f in FIELDS}
+        else:
+            arrays = {f: to_np(getattr(self.state, f)) for f in FIELDS}
         fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", suffix=".npz.tmp")
         try:
             with os.fdopen(fd, "wb") as fh:
@@ -335,7 +392,13 @@ class Simulation:
     def restore_checkpoint(self, path: str) -> None:
         """Resume from save_checkpoint output, this package's or the JAX
         package's (config must match; a mismatch raises so silent divergence
-        is impossible)."""
+        is impossible).  Per-process shard files are detected by their key
+        layout; under a mesh, `path` may name the checkpoint its processes
+        saved (each then reads `<path>.procK.npz`)."""
+        if not os.path.exists(path) and self.mesh is not None:
+            proc = f"{path}.proc{self.mesh.rank}.npz"
+            if os.path.exists(proc):
+                path = proc
         with np.load(path) as ck:
             saved_cfg = bytes(ck["config_json"]).decode()
             if saved_cfg != self.cfg.to_json():
@@ -352,11 +415,13 @@ class Simulation:
                         f"config (state-affecting fields differ: "
                         f"{sorted(diff)})")
             if any("@" in k for k in ck.files):
-                raise NotImplementedError(
-                    f"checkpoint {path} holds per-process shards (keys with '@', "
-                    "written by a multi-host run of pic1dp_tpu); pic1dp_tpu_torch "
-                    "restores single-process checkpoints only")
-            state = SimState.from_numpy({f: ck[f] for f in FIELDS}, self.device)
+                state = self._rebuild_sharded_state(ck, path)
+            else:
+                state = SimState.from_numpy({f: ck[f] for f in FIELDS}, self.device)
+                if self.mesh is not None:
+                    from pic1dp_tpu_torch.parallel import mesh as pmesh
+
+                    state = pmesh.shard_state(state, self.mesh)
             state.p = state.p.to(torch_dtype(self.cfg.p_dtype))
             self.state = state
             self.itime = int(ck["itime"])
@@ -369,8 +434,47 @@ class Simulation:
                     and bytes(ck["torch_generator_device"]).decode() == self.device.type):
                 self.generator.set_state(torch.from_numpy(np.array(ck["torch_generator_state"])))
             else:
-                self.generator.manual_seed((self.cfg.rng.seed + 1) * 1_000_003 + self.itime)
+                seed = (self.cfg.rng.seed + 1) * 1_000_003 + self.itime
+                if self.mesh is not None and self.mesh.size > 1:
+                    from pic1dp_tpu_torch.parallel import mesh as pmesh
+
+                    seed = pmesh.rank_seed(seed, self.mesh.rank)
+                self.generator.manual_seed(seed)
         self._last_checkpoint_time = self.time
+
+    def _rebuild_sharded_state(self, ck, path: str) -> SimState:
+        """This rank's state from a per-process file: its block of each
+        particle array from the `<field>@<offset>` pieces that cover it (one
+        piece when the file was saved under this mesh layout, several when
+        the JAX package saved a finer one), the field arrays as saved."""
+        from pic1dp_tpu_torch.parallel import mesh as pmesh
+
+        if self.mesh is None:
+            raise ValueError(
+                f"per-process (sharded) checkpoint {path} requires Simulation(mesh=...) "
+                "with the same mesh layout it was saved under")
+        start, stop = pmesh.local_block(self.cfg.nparticle_max, self.mesh)
+        arrays = {}
+        for f in FIELDS:
+            pieces = sorted((int(k.split("@")[1]), k) for k in ck.files
+                            if k.split("@")[0] == f and "@" in k)
+            if not pieces:
+                arrays[f] = ck[f]
+                continue
+            block, at = [], start
+            for offset, key in pieces:
+                piece = ck[key]
+                if offset <= at < offset + piece.shape[1]:
+                    take = piece[:, at - offset:min(stop, offset + piece.shape[1]) - offset]
+                    block.append(take)
+                    at += take.shape[1]
+            if at != stop:
+                raise ValueError(
+                    f"checkpoint {path} does not hold particle slots [{at}, {stop}) of "
+                    f"{f} for rank {self.mesh.rank} of {self.mesh.size}: restore under "
+                    "the mesh layout it was saved with")
+            arrays[f] = np.concatenate(block, axis=1)
+        return SimState.from_numpy(arrays, self.device)
 
     def _maybe_checkpoint(self) -> None:
         if (self.checkpoint_interval is not None
@@ -384,7 +488,10 @@ class Simulation:
     # ---- logging (reference output_progress, src/pic1dp_output.F90:483-548) ----
 
     def _print(self, msg: str) -> None:
-        print(msg, file=sys.stderr)
+        # reference global_pp prints once from rank 0
+        # (src/pic1dp_global.F90:71-90)
+        if self._is_io_process:
+            print(msg, file=sys.stderr)
 
     def _progress_pct(self, itime: int, time: float) -> tuple[str, float]:
         pi = 100.0 * itime / self.cfg.ntime_max

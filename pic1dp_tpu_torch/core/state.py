@@ -54,6 +54,14 @@ class SimState:
     mode_re: torch.Tensor
     mode_im: torch.Tensor
 
+    @property
+    def nspecies(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def nparticle_max(self) -> int:
+        return self.x.shape[1]
+
     def nparticles(self) -> torch.Tensor:
         """Live marker count per species (reference particle_np,
         src/pic1dp_particle.F90:54)."""

@@ -22,6 +22,13 @@ bfloat16; x, v, w and the fields stay float32.
 On a CUDA device `multi_step` replays k matrix-free steps from one CUDA
 graph, the port's counterpart of the reference's k steps in one `lax.scan`.
 
+A Stepper given a torch.distributed process group (`group`, set by
+parallel/mesh.ShardedStepper) steps one rank's block of the particle axis:
+every sum over markers ends in an all_reduce over the group (`reduce_sum`),
+where the JAX Stepper has its psums: the (2, nmode) projections of each
+substep and of the initial field, the EXPLICIT grid deposit, and in the
+diagnostics and particle optimization.  Without a group nothing changes.
+
 Nonlinear delta-f has two kernel layouts (ops/substep_kernels.py): substep 1
 streams the midpoint velocities v1 to substep 2, or substep 2 rebuilds them
 from the step-start modes (two fewer streams per marker, one more gather
@@ -48,6 +55,7 @@ import os
 import warnings
 
 import torch
+import torch.distributed as torch_dist
 
 from pic1dp_tpu_torch import distributions as dist
 from pic1dp_tpu_torch.config import Config, ParticleShape
@@ -71,12 +79,15 @@ class Stepper:
     `plain=True` runs the plain versions on any device (the reference a CUDA
     run is held against).  A matrix-free step (and push_pair) updates the
     state's x, v and w in place; an EXPLICIT step returns new tensors.
+    `group`: the process group a rank's sums are all-reduced over (module
+    docstring); None for one device.
     """
 
     # steps per CUDA graph at most; a longer multi_step replays several
     GRAPH_STEPS = 128
 
-    def __init__(self, cfg: Config, device: torch.device | str, plain: bool = False):
+    def __init__(self, cfg: Config, device: torch.device | str, plain: bool = False,
+                 group=None):
         cfg.validate()
         if cfg.bf16_weights and cfg.nspecies > 1 and any(
                 abs(s.v0) > 2.0 * (s.temperature / s.mass) ** 0.5
@@ -113,6 +124,20 @@ class Stepper:
         self._graphs: dict[int, _StepGraph] = {}
         self._graph_buffers = None   # the state the graphs were captured over
         self._warm = False
+        self.group = group
+        # a gloo collective cannot be captured in a CUDA graph; NCCL's can
+        self._graphs_capture = group is None or torch_dist.get_backend(group) == "nccl"
+
+    def reduce_sum(self, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The tensors (of one dtype) summed over the ranks of the group, in
+        one all_reduce of them laid end to end (the reference's
+        MPI_Allreduce); the tensors themselves without a group."""
+        if self.group is None:
+            return tensors
+        buf = torch.cat([t.reshape(-1) for t in tensors])
+        torch_dist.all_reduce(buf, group=self.group)
+        return tuple(part.view(t.shape) for part, t in
+                     zip(buf.split([t.numel() for t in tensors]), tensors))
 
     def _solve(self, p_c, p_s):
         return spectral_ops.solve_modes_from_projections(
@@ -134,7 +159,8 @@ class Stepper:
         cfg = self.cfg
         val = w if cfg.deltaf else p.to(self.dtype)
         val = torch.where(live, val, 0.0) * self.sp.charge
-        rho = deposit(x, val, cfg.lx, cfg.nx) * (cfg.nx / cfg.lx)
+        grid, = self.reduce_sum(deposit(x, val, cfg.lx, cfg.nx))
+        rho = grid * (cfg.nx / cfg.lx)
         if not cfg.deltaf:
             # subtract equilibrium charge density (reference :142-148)
             rho = rho - torch.sum(self.sp.charge * self.sp.density)
@@ -212,7 +238,7 @@ class Stepper:
         trig = spectral_ops.mode_trig(state.x, cfg.lx, cfg.nx, cfg.modes)
         val = state.w if cfg.deltaf else state.p.to(self.dtype)
         val = torch.where(state.live, val, 0.0) * self.sp.charge
-        p_c, p_s = spectral_ops.project_modes(trig, val)
+        p_c, p_s = self.reduce_sum(*spectral_ops.project_modes(trig, val))
         return self._with_field(state, state.x, state.v, state.w, p_c, p_s)
 
     def step(self, state: SimState) -> SimState:
@@ -222,10 +248,12 @@ class Stepper:
             return self._step_grid(state)
         w1, v1, (pc1, ps1) = self._substep1(
             state.x, state.v, state.p, state.w, state.mode_re, state.mode_im)
+        pc1, ps1 = self.reduce_sum(pc1, ps1)
         mre1, mim1 = self._solve(pc1, ps1)
         x2, v2, w2, (pc2, ps2) = self._substep2(
             state.x, state.v, state.p, state.w, w1, v1, mre1, mim1,
             state.mode_re, state.mode_im)
+        pc2, ps2 = self.reduce_sum(pc2, ps2)
         return self._with_field(state, x2, v2, w2, pc2, ps2)
 
     def push_pair(self, state: SimState) -> SimState:
@@ -246,6 +274,7 @@ class Stepper:
         else:
             w1, v1, (pc1, ps1) = self._substep1(
                 state.x, state.v, state.p, state.w, state.mode_re, state.mode_im)
+            pc1, ps1 = self.reduce_sum(pc1, ps1)
             mre1, mim1 = self._solve(pc1, ps1)
             x2, v2, w2, _ = self._substep2(
                 state.x, state.v, state.p, state.w, w1, v1, mre1, mim1,
@@ -268,14 +297,16 @@ class Stepper:
                                              remove=remove is not None,
                                              split=split is not None)
         return opt_mod.apply_optimizations(self.cfg, state, dice, normals, merge=merge,
-                                           remove=remove, split=split)
+                                           remove=remove, split=split, reduce=self.reduce_sum)
 
     def multi_step(self, state: SimState, k: int) -> SimState:
-        """k steps, queued without a host sync.  On the CPU and on the
-        EXPLICIT path a loop of steps; matrix-free on a CUDA device the steps
-        of graph_steps, after a first call of eager steps that loads every
-        kernel the graphs will hold."""
-        if self.explicit or state.x.device.type != "cuda" or not self._warm:
+        """k steps, queued without a host sync.  On the CPU, on the
+        EXPLICIT path and with a gloo group a loop of steps; matrix-free on a
+        CUDA device the steps of graph_steps, after a first call of eager
+        steps that loads every kernel the graphs will hold (and, with an
+        NCCL group, has made the communicator a capture needs)."""
+        if (self.explicit or state.x.device.type != "cuda" or not self._warm
+                or not self._graphs_capture):
             for _ in range(k):
                 state = self.step(state)
             self._warm = state.x.device.type == "cuda" and not self.explicit
@@ -296,6 +327,8 @@ class Stepper:
             raise ValueError(f"CUDA graphs replay on a CUDA state, not {state.x.device}")
         if self.explicit:
             raise ValueError("the EXPLICIT grid path runs eager steps, not CUDA graphs")
+        if not self._graphs_capture:
+            raise ValueError("a gloo group's all_reduce cannot be captured in a CUDA graph")
         # A graph holds addresses, not data: a replay reads and writes
         # whatever lies at the captured addresses now.  Particle optimization
         # hands back new tensors; if the allocator gives them other addresses
@@ -318,10 +351,10 @@ class Stepper:
         return state
 
     def energies(self, state: SimState) -> diagnostics.Energies:
-        return diagnostics.energies(self.cfg, self.sp, state)
+        return diagnostics.energies(self.cfg, self.sp, state, reduce=self.reduce_sum)
 
     def ptcldist(self, state: SimState) -> diagnostics.PtclDist:
-        return diagnostics.ptcldist(self.cfg, self.sp, state)
+        return diagnostics.ptcldist(self.cfg, self.sp, state, reduce=self.reduce_sum)
 
 
 class CountedGraph:

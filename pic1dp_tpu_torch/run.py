@@ -15,11 +15,14 @@ overrides, on an explicit device:
     python -m pic1dp_tpu_torch.run --phase-table             # per-phase ms/step, to stderr
     python -m pic1dp_tpu_torch.run --profile trace_dir       # torch.profiler trace
     PIC1DP_STREAM_V1=0 python -m pic1dp_tpu_torch.run        # substep 2 rebuilds v1
+    torchrun --nproc-per-node 4 -m pic1dp_tpu_torch.run --distributed --mesh 4
 
 A schedule of particle optimization (merge/remove/split) is part of the
 config: write one with --write-config, fill in `optimization`, run it with
--c.  Of the JAX package's command line, --mesh and --distributed are not
-ported.
+-c.  --distributed joins the processes torchrun started into one
+torch.distributed job (parallel/launch.py: NCCL on CUDA, gloo on the CPU);
+--mesh N then splits the particle axis over its N processes, one device
+each (cuda:LOCAL_RANK), and only rank 0 writes pic1dp.out.
 """
 
 from __future__ import annotations
@@ -80,7 +83,15 @@ def main(argv=None) -> int:
                     help="with -s rng=\"{'backend': 'multirand'}\": load "
                     "markers in the draw order of an npe-rank reference run")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (default cuda)")
+                    help="torch device to run on (default cuda; under --distributed "
+                    "cuda:LOCAL_RANK)")
+    ap.add_argument("--mesh", metavar="<n devices>", type=int, default=None,
+                    help="shard the particle axis over an n-process mesh, one "
+                    "device each (default: every process of a --distributed job "
+                    "if more than one)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join torchrun's processes into one torch.distributed job "
+                    "first (parallel/launch.py)")
     ap.add_argument("--profile", metavar="<trace dir>", default=None,
                     help="write a torch.profiler trace of the run (CPU and, on a "
                     f"CUDA device, CUDA activity) to <trace dir>/{TRACE_FILE}")
@@ -105,6 +116,7 @@ def main(argv=None) -> int:
         return 0
 
     import torch
+    import torch.distributed
 
     from pic1dp_tpu_torch.core.simulation import Simulation
 
@@ -112,10 +124,18 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"device {args.device!r} requested but torch sees no "
                          "CUDA device; pass --device cpu to run on the CPU")
+    from pic1dp_tpu_torch.parallel import launch
+
+    if args.distributed:
+        launch.initialize(device=device)
+    mesh = args.mesh
+    if mesh is None and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        mesh = torch.distributed.get_world_size()
     sim = Simulation(cfg, out_path=None if args.no_output else args.out,
                      checkpoint_interval=args.checkpoint_interval,
                      checkpoint_path=None if args.no_output else args.out,
-                     emulate_ranks=args.emulate_ranks, device=device)
+                     emulate_ranks=args.emulate_ranks, device=device, mesh=mesh)
     if args.resume:
         sim.restore_checkpoint(args.resume)
     if args.profile:
@@ -125,14 +145,19 @@ def main(argv=None) -> int:
         with torch.profiler.profile(activities=activities) as prof:
             sim.run()
             sim._sync()
-        os.makedirs(args.profile, exist_ok=True)
-        path = os.path.join(args.profile, TRACE_FILE)
-        prof.export_chrome_trace(path)
-        print(f"profiler trace written to {path}")
+        if launch.is_io_process():
+            os.makedirs(args.profile, exist_ok=True)
+            path = os.path.join(args.profile, TRACE_FILE)
+            prof.export_chrome_trace(path)
+            print(f"profiler trace written to {path}")
     else:
         sim.run()
     if args.phase_table:
-        print(sim.phase_table(), file=sys.stderr)
+        table = sim.phase_table()
+        if launch.is_io_process():
+            print(table, file=sys.stderr)
+    if args.distributed and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return 0
 
 

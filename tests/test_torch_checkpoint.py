@@ -226,8 +226,14 @@ def test_sharded_checkpoint_is_refused(tmp_path):
         whole = arrays.pop(f)
         arrays[f"{f}@0"], arrays[f"{f}@{half}"] = whole[:, :half], whole[:, half:]
     np.savez(tmp_path / "sharded.npz", **arrays)
-    with pytest.raises(NotImplementedError, match="per-process shards"):
+    # refused without a mesh, as the JAX package refuses it; a one-rank mesh
+    # assembles its block from the two pieces
+    with pytest.raises(ValueError, match=r"requires Simulation\(mesh=\.\.\.\)"):
         Simulation(cfg, device="cpu").restore_checkpoint(str(tmp_path / "sharded.npz"))
+    resumed = Simulation(cfg, device="cpu", mesh=1)
+    resumed.restore_checkpoint(str(tmp_path / "sharded.npz"))
+    for f in FIELDS:
+        assert torch.equal(getattr(resumed.state, f), getattr(sim.state, f)), f
 
 
 def test_run_writes_checkpoints_at_the_interval(tmp_path):

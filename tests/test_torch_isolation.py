@@ -40,7 +40,13 @@ def test_port_imports_without_jax_in_a_fresh_process():
             "pic1dp_tpu_torch.analysis.dispersion, pic1dp_tpu_torch.core.optimize, "
             "pic1dp_tpu_torch.ops.shape_matrix, pic1dp_tpu_torch.ops.deposit, "
             "pic1dp_tpu_torch.ops.gather, pic1dp_tpu_torch.rng.multirand, "
-            "pic1dp_tpu_torch.rng.native; "
+            "pic1dp_tpu_torch.rng.native, pic1dp_tpu_torch.analysis.output_data, "
+            "pic1dp_tpu_torch.analysis.runinfo, pic1dp_tpu_torch.analysis.ptcldist, "
+            "pic1dp_tpu_torch.analysis.visual, pic1dp_tpu_torch.analysis.visual_dispersion, "
+            "pic1dp_tpu_torch.examples.bump_on_tail_pre83, "
+            "pic1dp_tpu_torch.examples.landau_damping, pic1dp_tpu_torch.examples.two_stream, "
+            "pic1dp_tpu_torch.examples.ion_acoustic, pic1dp_tpu_torch.parallel.mesh, "
+            "pic1dp_tpu_torch.parallel.launch; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pic1dp_tpu')); "
             "assert not bad, bad")
@@ -55,6 +61,12 @@ def test_new_modules_are_among_the_checked_files():
             "pic1dp_tpu_torch/rng/native/__init__.py", "pic1dp_tpu_torch/core/optimize.py",
             "pic1dp_tpu_torch/ops/shape_matrix.py", "pic1dp_tpu_torch/ops/deposit.py",
             "pic1dp_tpu_torch/ops/gather.py"} <= checked
+    analysis = {f"pic1dp_tpu_torch/analysis/{m}.py" for m in (
+        "output_data", "runinfo", "ptcldist", "visual", "visual_dispersion")}
+    examples = {f"pic1dp_tpu_torch/examples/{m}.py" for m in (
+        "__init__", "bump_on_tail_pre83", "landau_damping", "two_stream", "ion_acoustic")}
+    parallel = {f"pic1dp_tpu_torch/parallel/{m}.py" for m in ("__init__", "mesh", "launch")}
+    assert analysis | examples | parallel <= checked
 
 
 def _no_cuda_env():
