@@ -8,7 +8,9 @@ and two gloo ranks; the reference's verification cases (Landau damping
 nonlinear and linear, two-stream in delta-f and full-f, two species,
 ion-acoustic) through the substep kernels of their layouts, configured and
 fitted by the port's example scripts; the analysis tools on the main run's
-output; and the five probes through the stream kernels — and checks them.  It imports
+output; the snapshot histograms, the optimization profile and the grid charge
+through the hat-deposit kernels; and the five probes through the stream kernels —
+and checks them.  It imports
 neither jax nor pic1dp_tpu, catches nothing, and exits non-zero at the
 first failed check.  Phases, each printed:
 
@@ -30,7 +32,12 @@ first failed check.  Phases, each printed:
      three rings at an odd n of many tiles a block, an n below one tile and
      37 tiles (fewer than blocks), aliased and fresh, at the consumer warps
      ring_consumers picks and at RING_WARPS, and the carry kernel over 3
-     steps in every layout
+     steps in every layout; the three hat-deposit kernels (x-v histogram,
+     |delta f|(v) profile, grid charge) in f32 and f64 against their plain
+     versions (f32 against the same terms summed in f64) at the main shape,
+     2^21 and nine species of 102,401 markers, with markers on the grids'
+     edges, a grid past shared memory, no markers, all dead and all past
+     v_max: a second launch and a CUDA graph replay bit for bit the first
   4. the main paths, each with its launch counts set to 0 just before and
      read just after: Simulation.run to t = 100 in f32 and in bf16_weights
      as examples/bump_on_tail_pre83 configures it (launch counts, the
@@ -41,21 +48,28 @@ first failed check.  Phases, each printed:
      through Simulation.run against its dispersion root by the config, root
      and fit of its example script where it has one, each run under
      torch.profiler, whose substep
-     kernels by name must equal the counters, then the kernel, pipeline, compute, overlap and
+     kernels by name must equal the counters, and one hat-deposit launch a
+     species and snapshot; a second f32 main run, two bf16_weights runs and
+     two diag_full_rho runs, each pair writing the same pic1dp.out byte for
+     byte; then the kernel, pipeline, compute, overlap and
      pingpong probes at 2^26, each with the stream kernels' counts set to 0
      just before it
   5. the rest of the single-device run surface, each path with the substep
      kernels' counts set to 0 just before it and read just after: the
      full-spectrum rho of diag_full_rho against the kept-mode rho and the
      time of a snapshot with and without it; the EXPLICIT grid path against
-     the matrix-free kernels (f32 at full width, f64 at 2^16 markers) and its
-     ms/step; the multirand loader at full width with the native engine
+     the matrix-free kernels (f32 at full width, f64 at 2^16 markers), a
+     second grid-path run bit for bit the first, its grid-charge launches and
+     its ms/step; the multirand loader at full width with the native engine
      against a Python-oracle draw, and 20 steps from its state; a checkpoint
      at t = 5 resumed to t = 10 against the uninterrupted run, bit for bit,
      in f32 and bf16_weights; a run with a merge/remove/merge/split schedule
      at 2^21 markers to t = 75 (live counts around each event, gamma over
-     the linear window, two kernel launches per step at the event steps too),
-     then at that shape both kernels against their plain versions on a
+     the linear window, two kernel launches per step at the event steps too,
+     one profile launch an event), a second run bit for bit the first (live
+     counts and final state), a checkpoint before the first event resumed
+     past two bit for bit the run not interrupted, then at that shape both
+     kernels against their plain versions on a
      loaded state and on the state the events left, push_pair with the
      kernels against the plain Stepper's, and merge, remove and split on the
      card against the CPU in float64 with the same dice and normals
@@ -84,8 +98,9 @@ first failed check.  Phases, each printed:
      without the all_reduces in turns; then two gloo ranks on the one card,
      each in its own process, eager steps within the f32 bounds of the run
      without a mesh, and their ms/step
-  6. timing: ms per call of each substep, unit and carry kernel and its
-     plain version (for each substep its bound, share, V, B, the bin and
+  6. timing: ms per call of each substep, unit, carry and hat-deposit
+     kernel and its plain version (for a hat deposit also its index_add_
+     alone, the kernels line's library_ms) (for each substep its bound, share, V, B, the bin and
      where the angle table or the grids sat), ms/step of the plain, the eager kernel and the CUDA
      graph Stepper at the main path's shape and at bench.py's headline
      shape (2^26 markers, nx 1024), and both nonlinear delta-f layouts per
@@ -147,6 +162,7 @@ FULL_RHO_TOL = 1e-4                  # tests/test_tools.py:189-193, in f32
 EXPLICIT_F64_N = 2**16
 MULTIRAND_RANKS = 640                # blocks of 10,000 markers for the oracle check
 CHECKPOINT_T = (5.0, 10.0)           # save at, run to
+CHECKPOINT_EVENT_T = (48.0, 57.0)    # the optimization run's: before merge at 50, past remove at 56
 OPT_N, OPT_TIME_MAX = 2**21, 75.0    # bench/opt_onchip.py's width
 OPT_GAMMA_WINDOW = (25.0, 48.0)      # before the first event, as bench/opt_onchip.py fits
 # merge/remove/split on the card against the CPU in float64: live bits that
@@ -154,6 +170,13 @@ OPT_GAMMA_WINDOW = (25.0, 48.0)      # before the first event, as bench/opt_onch
 # (a few markers of 2^21 sit within float32 rounding of a threshold, and one
 # that remove keeps on one side only carries its weight over its importance)
 OPT_F64_FLIPS, OPT_F32_LIVE, OPT_F32_SUM = 2, 5e-4, 1e-3
+# the hat-deposit kernels against their plain versions, relative to each
+# output's max: two sums of about 6,000 terms a bin in different orders in
+# f32; f64 as every f64 bound here
+HIST_TOL = {"float32": 1e-5, "float64": 1e-12}
+HIST_N_ODD = 102_401                 # no block's range ends at a species' end
+HIST_WIDE = (128, 128)               # (nv, nx) past shared memory at three channels
+HIST_GRID_NX = (1024, 4096, 32768)   # the grid charge; 32768 past shared memory
 
 
 # ---- the reference's verification cases, at the widths of its examples
@@ -330,12 +353,13 @@ def build() -> None:
     the grid bin's and of the bulk-copy ring's (registers, spills, shared
     memory), and for the other kernels their count, most registers and any
     spill."""
+    from pic1dp_tpu_torch.ops import hist_kernels as hk
     from pic1dp_tpu_torch.ops import stream_probes as sp
     from pic1dp_tpu_torch.ops import substep_kernels as sk
     from pic1dp_tpu_torch.utils import nvcc
 
     start = time.perf_counter()
-    for built in nvcc.load_all([sk.SOURCE, sp.SOURCE]):
+    for built in nvcc.load_all([sk.SOURCE, sp.SOURCE, hk.SOURCE]):
         say(f"[2 build] {built.path.name}: nvcc {built.build_seconds:.1f} s")
         entries = []             # (entry function, its ptxas lines)
         for ln in built.log.splitlines():
@@ -349,6 +373,8 @@ def build() -> None:
             if _substep_entry(entry) in ("main", "grid", "grid_angle"):
                 for line in (entry, *lines):
                     say(f"[2 build] {line}")
+            elif built.path.name.startswith(hk.SOURCE):
+                say(f"[2 build] {entry.split('entry function ')[-1]}: " + "; ".join(lines))
             elif ring_entry(entry):
                 say(f"[2 build] {ring_entry(entry)}: " + "; ".join(lines))
             else:
@@ -363,6 +389,7 @@ def build() -> None:
             say(f"[2 build] {entry.split('entry function ')[-1]}: {line}")
     sk.library()
     sp.library()
+    hk.library()
     say(f"[2 build] all libraries built in parallel and loaded in "
         f"{time.perf_counter() - start:.1f} s")
 
@@ -874,6 +901,184 @@ def compare_carry(n: int) -> dict:
     return {"stream_carry": worst}
 
 
+# ---- the deterministic hat deposits (ops/hist_kernels.py) ----
+
+def hist_markers(n: int, ns: int, dtype: str, lx: float, v_max: float, seed: int,
+                 edges: bool = True, dead_every: int = 7):
+    """(x, v, p, w, live), each (ns, n) on the card: x in [0, lx), v in
+    [-1.1 v_max, 1.1 v_max] (some past the v grid), p a Maxwellian's loader
+    weight, w ~ 1e-3 N(0, 1), every dead_every-th marker dead with p = w = 0
+    (the dead-slot invariant).  With edges each species' first six markers
+    sit at v = -v_max, v_max and one ulp inside each, x = 0 and x one ulp
+    below lx."""
+    rng = np.random.default_rng(seed)
+    ft = np.float32 if dtype == "float32" else np.float64
+    x = rng.uniform(0.0, lx, (ns, n)).astype(ft)
+    x[x >= ft(lx)] = 0.0
+    v = rng.uniform(-1.1 * v_max, 1.1 * v_max, (ns, n)).astype(ft)
+    if edges and n >= 6:
+        vm, lxt = ft(v_max), ft(lx)
+        v[:, :4] = [-vm, vm, np.nextafter(-vm, ft(0)), np.nextafter(vm, ft(0))]
+        x[:, 4], x[:, 5] = 0.0, np.nextafter(lxt, ft(0))
+    p = (np.exp(-0.5 * v.astype(np.float64) ** 2) * lx * 2.0 * v_max / n).astype(ft)
+    w = (1e-3 * rng.standard_normal((ns, n))).astype(ft)
+    live = np.ones((ns, n), dtype=bool)
+    live[:, ::dead_every] = False
+    p[~live], w[~live] = 0.0, 0.0
+    return tuple(torch.from_numpy(a).to("cuda") for a in (x, v, p, w, live))
+
+
+def hist_vals(x, p, w, live):
+    """ptcldist's three channels of one species: live, p and w of the live."""
+    return torch.stack([live.to(x.dtype), torch.where(live, p, 0.0), torch.where(live, w, 0.0)])
+
+
+def summed_f64(terms, shape, args) -> torch.Tensor:
+    """A plain version's sum in float64: its terms (bins and values, at the
+    inputs' dtype, as the kernel forms them) added by one float64
+    index_add_, reshaped as the plain output (a (bins, k) sum is
+    transposed first)."""
+    bins, vals = terms(*args)
+    out = torch.zeros((int(np.prod(shape[1:])), shape[0]) if vals.dim() == 2
+                      else int(np.prod(shape)), dtype=torch.float64, device=vals.device)
+    out.index_add_(0, bins, vals.double())
+    return (out.T if vals.dim() == 2 else out).reshape(shape)
+
+
+def hist_case(label: str, fn, plain, terms, args, per_channel: bool = False,
+              graph: bool = False) -> float:
+    """A hat-deposit kernel fn(*args) against its plain version on the same
+    inputs, within HIST_TOL of each output's max (each channel's with
+    per_channel; exactly 0 where the plain output is).  The plain version's
+    own terms (terms(*args), formed at the inputs' dtype as the kernel forms
+    them) are summed in float64 (summed_f64): its float32 index_add_, of up
+    to 10^5 terms a bin in an order the float atomics pick, is no yardstick
+    at 1e-5 (its distance is printed beside).  A second launch, and with
+    graph a replay of a launch captured in a CUDA graph, bit for bit the
+    first.  Returns the largest absolute error."""
+    got = fn(*args)
+    want = summed_f64(terms, tuple(got.shape), args)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == args[0].dtype,
+          f"{label} shape and dtype")
+    tol = HIST_TOL[str(got.dtype).split(".")[-1]]
+
+    def rel(a):
+        out = []
+        for g, w in (zip(a, want) if per_channel else [(a, want)]):
+            scale = float(w.abs().max()) if w.numel() else 0.0
+            out.append(abs_err(g, w) / scale if scale > 0 else
+                       (0.0 if not g.numel() or not bool(g.any()) else float("inf")))
+        return max(out)
+
+    err = rel(got)
+    own = "" if got.dtype == torch.float64 else \
+        f"; the f32 plain version {rel(plain(*args)):.3e}"
+    again = fn(*args)
+    same = torch.equal(again, got)
+    replay = None
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = fn(*args)
+        g.replay()
+        torch.cuda.synchronize()
+        replay = torch.equal(captured, got)
+    say(f"[3 compare] {label}: {err:.3e} of max from the plain version summed in f64 (limit "
+        f"{tol:g}){own}; a second launch bitwise equal {same}"
+        + ("" if replay is None else f"; a CUDA graph replay bitwise equal {replay}"))
+    check(err <= tol, f"{label} within {tol:g} of max of its plain version")
+    check(same and replay is not False, f"{label} repeats bit for bit")
+    return abs_err(got, want) if got.numel() else 0.0
+
+
+def compare_hists() -> dict:
+    """The three hat-deposit kernels against their plain versions (hist_case)
+    in f32 and f64: at the main shape (6.4M markers of one species, the 64 x
+    64 snapshot grid, the main case's nx and nv) and the optimization run's
+    2^21; nine species of HIST_N_ODD markers (no block's range ends at the
+    species' end), each species' first markers at the edges of the grids;
+    the x-v histogram with 1, 2 and 3 channels on a grid past shared memory
+    (HIST_WIDE); the grid charge at nx 1024, 4096 and 32768 (past shared
+    memory); no markers, markers all past v_max and all dead.  Returns each
+    kernel's largest absolute error at the main shape in f32."""
+    from pic1dp_tpu_torch.config import bump_on_tail_default
+    from pic1dp_tpu_torch.ops import hist_kernels as hk
+
+    cfg = bump_on_tail_default()
+    lx, vm, nxo, nvo, nv = cfg.lx, cfg.v_max, cfg.nx_opd, cfg.nv_opd, cfg.nv
+
+    def xv(nx, nv_):
+        return (lambda x, v, vals: hk.hist_xv(x, v, vals.contiguous(), lx, vm, nx, nv_),
+                lambda x, v, vals: hk.hist_xv_plain(x, v, vals, lx, vm, nx, nv_),
+                lambda x, v, vals: hk.hist_xv_terms(x, v, vals, lx, vm, nx, nv_))
+
+    prof = (lambda v, w, live: hk.profile(v, w, live, vm, nv),
+            lambda v, w, live: hk.profile_plain(v, w, live, vm, nv),
+            lambda v, w, live: hk.profile_terms(v, w, live, vm, nv))
+
+    def charge(nx):
+        return (lambda x, val: hk.grid_charge(x, val, lx, nx),
+                lambda x, val: hk.grid_charge_plain(x, val, lx, nx),
+                lambda x, val: hk.grid_charge_terms(x, val, lx, nx))
+
+    err = {k.name: 0.0 for k in hk.KERNELS}
+    for dtype in ("float32", "float64"):
+        x, v, p, w, live = hist_markers(FULL_N, 1, dtype, lx, vm, SEED)
+        vals = hist_vals(x[0], p[0], w[0], live[0])
+        val = torch.where(live, w, 0.0) * -1.0
+        main = {
+            "hist_xv": hist_case(f"hist_xv {dtype} n={FULL_N} {nvo}x{nxo} k=3",
+                                 *xv(nxo, nvo), (x[0], v[0], vals), True, True),
+            "hist_v": hist_case(f"hist_v {dtype} n={FULL_N} nv={nv}", *prof, (v, w, live),
+                                graph=True),
+            "grid_charge": hist_case(f"grid_charge {dtype} n={FULL_N} nx={cfg.nx}",
+                                     *charge(cfg.nx), (x, val), graph=True)}
+        if dtype == "float32":
+            err.update(main)
+        del x, v, p, w, live, vals, val
+        x, v, p, w, live = hist_markers(OPT_N, 1, dtype, lx, vm, SEED + 1)
+        hist_case(f"hist_v {dtype} n={OPT_N} nv={nv}", *prof, (v, w, live))
+        x, v, p, w, live = hist_markers(HIST_N_ODD, 9, dtype, lx, vm, SEED + 2)
+        for s in range(9):
+            hist_case(f"hist_xv {dtype} species {s} of 9 n={HIST_N_ODD} {nvo}x{nxo} k=3",
+                      *xv(nxo, nvo), (x[s], v[s], hist_vals(x[s], p[s], w[s], live[s])), True)
+        val = torch.where(live, w, 0.0) * -1.0
+        hist_case(f"hist_v {dtype} 9 x {HIST_N_ODD}", *prof, (v, w, live), graph=True)
+        for nx in (cfg.nx, *HIST_GRID_NX):
+            hist_case(f"grid_charge {dtype} 9 x {HIST_N_ODD} nx={nx}", *charge(nx), (x, val),
+                      graph=nx == HIST_GRID_NX[-1])
+        wv, wx = HIST_WIDE
+        vals = hist_vals(x[0], p[0], w[0], live[0])
+        for k in (1, 2, 3):
+            where = "shared memory" if hk.plan_smem(x.element_size(), k, wv * wx)[1] \
+                else "the device buffer"
+            hist_case(f"hist_xv {dtype} n={HIST_N_ODD} {wv}x{wx} k={k} (grids in {where})",
+                      *xv(wx, wv), (x[0], v[0], vals[:k]), True, graph=k == 3)
+        fast = torch.full_like(v, 2.0 * vm)
+        dead = torch.zeros_like(live)
+        empty = x[:, :0].contiguous()
+        for label, fn, plain, _, args in (
+                ("hist_xv, every marker past v_max", *xv(nxo, nvo), (x[0], fast[0], vals)),
+                ("hist_xv, no markers", *xv(nxo, nvo), (empty[0], empty[0], vals[:, :0])),
+                ("hist_v, every marker dead", *prof, (v, w, dead)),
+                ("hist_v, no markers", *prof, (empty, empty, dead[:, :0].contiguous())),
+                ("grid_charge, no markers", *charge(cfg.nx), (empty, empty))):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            check(not bool(got.any()) and torch.equal(got, plain(*args)),
+                  f"{label} {dtype}: all zeros, as the plain version's")
+            say(f"[3 compare] {label} {dtype}: all zeros, as the plain version's")
+        del x, v, p, w, live, vals, val, fast, dead, empty
+    torch.cuda.empty_cache()
+    return err
+
+
 def run_case(phase: str, label: str, cfg, out_dir: str | None = None) -> tuple[list, dict]:
     """Simulation.run of cfg on the card, through the CUDA graph, with every
     substep kernel's count set to 0 just before and read just after: only
@@ -887,6 +1092,7 @@ def run_case(phase: str, label: str, cfg, out_dir: str | None = None) -> tuple[l
     temporary directory.  Returns the snapshots and the counts."""
     from pic1dp_tpu_torch import Simulation
     from pic1dp_tpu_torch.io import petsc_binary as pb
+    from pic1dp_tpu_torch.ops import hist_kernels as hk
     from pic1dp_tpu_torch.ops import substep_kernels as sk
 
     nm, ns, nxo, nvo = cfg.nmode, cfg.nspecies, cfg.nx_opd, cfg.nv_opd
@@ -898,7 +1104,7 @@ def run_case(phase: str, label: str, cfg, out_dir: str | None = None) -> tuple[l
         with (contextlib.nullcontext(out_dir) if out_dir else tempfile.TemporaryDirectory()) \
                 as out:
             sim = Simulation(cfg, out_path=out, device="cuda")
-            for k in sk.KERNELS:
+            for k in sk.KERNELS + hk.KERNELS:
                 k.launches = 0
             start = time.perf_counter()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -906,6 +1112,7 @@ def run_case(phase: str, label: str, cfg, out_dir: str | None = None) -> tuple[l
                 torch.cuda.synchronize()
             wall = time.perf_counter() - start
             launches = {k.name: k.launches for k in sk.KERNELS}
+            hists = {k.name: k.launches for k in hk.KERNELS}
             seen, device_events = {}, 0
             for ev in prof.key_averages():
                 device_events += ev.count
@@ -938,6 +1145,12 @@ def run_case(phase: str, label: str, cfg, out_dir: str | None = None) -> tuple[l
     check(seen == counted,
           f"{label}: the profiler's substep kernels equal the counters in one of "
           f"{PROFILER_TRIES} runs")
+    want = {"hist_xv": ns * len(snaps), "hist_v": 0,
+            "grid_charge": len(snaps) if cfg.diag_full_rho else 0}
+    say(f"[{phase}] {label}: hat-deposit launches {hists} (one hist_xv a species and "
+        f"snapshot)")
+    check(hists == want, f"{label}: hat-deposit launches {want}")
+    launches.update(hists)
     check(len(snaps) == round(cfg.time_max / cfg.output_interval) + 1,
           f"{label} snapshot count")
     check(size == header + len(snaps) * snap,
@@ -971,6 +1184,43 @@ def main_path(cfg, phase: str = "4 main path", out_dir: str | None = None
         f"rel err {rel:.4f} (limit {GAMMA_REL_TOL}); int E^2 dx at t=100: {e[-1]:.4e}")
     check(rel <= GAMMA_REL_TOL, "growth rate within 5% of the dispersion root")
     return launches, gamma
+
+
+def repeat_phase(cfg, first_out: str) -> dict:
+    """Each main path run a second time, pic1dp.out byte for byte the
+    first's: the f32 main case against phase 4's run (first_out), two runs
+    with bf16_weights and two with diag_full_rho (its full-spectrum rho made
+    by the grid-charge kernel), each run with the counts set to 0 just before
+    and read just after.  Returns the hat-deposit launches of a
+    diag_full_rho run."""
+    import filecmp
+
+    from pic1dp_tpu_torch import Simulation
+
+    def run(c, out):
+        zero_substep_counts()
+        zero_hist_counts()
+        start = time.perf_counter()
+        Simulation(c, out_path=out, device="cuda").run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - start, hist_counts(), substep_counts()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, c, first in (
+                ("f32", cfg, os.path.join(first_out, "pic1dp.out")),
+                ("bf16_weights", dataclasses.replace(cfg, bf16_weights=True), None),
+                ("diag_full_rho", dataclasses.replace(cfg, diag_full_rho=True), None)):
+            if first is None:
+                run(c, os.path.join(tmp, label, "a"))
+                first = os.path.join(tmp, label, "a", "pic1dp.out")
+            wall, hists, subs = run(c, os.path.join(tmp, label, "b"))
+            again = os.path.join(tmp, label, "b", "pic1dp.out")
+            same = filecmp.cmp(first, again, shallow=False)
+            say(f"[4 repeat] {label} to t={c.time_max:g}: a second run's pic1dp.out "
+                f"({os.path.getsize(again)} bytes) byte for byte the first's: {same}; "
+                f"wall {wall:.2f} s; launches {subs}, hat deposits {hists}")
+            check(same, f"{label}: two runs write the same pic1dp.out, byte for byte")
+    return hists
 
 
 def _energy_gamma(t, e, lo: float, hi: float) -> float:
@@ -1097,6 +1347,19 @@ def substep_counts() -> dict:
     return {k.name: k.launches for k in sk.KERNELS if k.launches}
 
 
+def zero_hist_counts() -> None:
+    from pic1dp_tpu_torch.ops import hist_kernels as hk
+
+    for k in hk.KERNELS:
+        k.launches = 0
+
+
+def hist_counts() -> dict:
+    from pic1dp_tpu_torch.ops import hist_kernels as hk
+
+    return {k.name: k.launches for k in hk.KERNELS}
+
+
 def full_rho_phase(cfg) -> None:
     """diag_full_rho at the main shape: the full-spectrum rho's mode-1
     projection is the kept-mode rho (tests/test_tools.py:189-193), and what a
@@ -1136,7 +1399,9 @@ def full_rho_phase(cfg) -> None:
 def explicit_phase(cfg) -> None:
     """The EXPLICIT grid path against the matrix-free kernels from one
     state: 5 steps in f32 at cfg's shape within the f32 bounds, in f64 at
-    EXPLICIT_F64_N markers within 1e-12; ms/step of the grid path."""
+    EXPLICIT_F64_N markers within 1e-12; the grid path's grid-charge
+    launches (counts set to 0 just before) and a second grid-path run bit
+    for bit the first; ms/step of the grid path."""
     from pic1dp_tpu_torch.config import ParticleShape
     from pic1dp_tpu_torch.core.loading import load_particles
     from pic1dp_tpu_torch.core.step import Stepper
@@ -1144,14 +1409,25 @@ def explicit_phase(cfg) -> None:
     small = dataclasses.replace(cfg, dtype="float64", nparticle_max=EXPLICIT_F64_N)
     for c in (cfg, small):
         zero_substep_counts()
+        zero_hist_counts()
         kern = Stepper(c, "cuda")
         grid = Stepper(dataclasses.replace(c, shape=ParticleShape.EXPLICIT), "cuda")
         raw = load_particles(c, "cuda")
         a, b = kern.initial_field(raw.clone()), grid.initial_field(raw.clone())
         a, b = kern.multi_step(a, 5), grid.multi_step(b, 5)
         torch.cuda.synchronize()
+        hists = hist_counts()
         check(substep_counts() == {k.name: 5 for k in kern.substeps.counters},
-              "5 kernel steps beside 5 grid steps, which launch no kernel")
+              "5 kernel steps beside 5 grid steps, which launch no substep kernel")
+        check(hists == {"hist_xv": 0, "hist_v": 0, "grid_charge": 11},
+              "the grid path: one grid-charge launch for the initial field, two a step")
+        b2 = grid.multi_step(grid.initial_field(raw.clone()), 5)
+        torch.cuda.synchronize()
+        same = {f: torch.equal(getattr(b, f), getattr(b2, f))
+                for f in ("x", "v", "w", "rho", "electric", "mode_re", "mode_im")}
+        say(f"[5 explicit] {c.dtype} n={c.nparticle_max}: grid-charge launches {hists}; a "
+            f"second EXPLICIT run of 5 steps from the same state bitwise equal {same}")
+        check(all(same.values()), "two EXPLICIT runs give the same bits")
         if c.dtype == "float32":
             errs = dict(x=periodic_err(b.x, a.x, c.lx), v=abs_err(b.v, a.v), w=rel_err(b.w, a.w))
             limits = F32_TOL
@@ -1173,8 +1449,8 @@ def explicit_phase(cfg) -> None:
 
         ms = _events_ms(one, 10)
         say(f"[5 explicit] {c.dtype} n={c.nparticle_max} nx={c.nx}: {ms:.4f} ms/step (eager "
-            f"steps, index_add_ deposit)")
-        del a, b, box, raw
+            f"steps, grid-charge kernel deposit)")
+        del a, b, b2, box, raw
 
 
 def multirand_phase(cfg) -> None:
@@ -1289,8 +1565,8 @@ def optimization_cfg():
 
 def optimization_run(cfg):
     """Simulation.run of cfg with the live counts taken around each step
-    that optimizes; returns the simulation, the events, the snapshots and
-    the launch counts."""
+    that optimizes; returns the simulation, the events, the snapshots, the
+    substep launch counts, the wall time and the hat-deposit launches."""
     from pic1dp_tpu_torch import Simulation
 
     sim = Simulation(cfg, device="cuda")
@@ -1310,10 +1586,11 @@ def optimization_run(cfg):
 
     sim.step_once = counted_step_once
     zero_substep_counts()
+    zero_hist_counts()
     start = time.perf_counter()
     sim.run(snapshot_callback=snaps.append)
     torch.cuda.synchronize()
-    return sim, events, snaps, substep_counts(), time.perf_counter() - start
+    return sim, events, snaps, substep_counts(), time.perf_counter() - start, hist_counts()
 
 
 def compare_push_pair(cfg, state) -> None:
@@ -1423,7 +1700,7 @@ def optimization_phase() -> dict:
     and the three operations on the card against the CPU.  Returns each
     kernel's largest absolute error."""
     cfg = optimization_cfg()
-    sim, events, snaps, counts, wall = optimization_run(cfg)
+    sim, events, snaps, counts, wall, hists = optimization_run(cfg)
     for ev in events:
         say(f"[5 optimization] t={ev['time']:.2f} {'+'.join(ev['ops'])}: live "
             f"{ev['n_before']} -> {ev['n_after']} ({ev['seconds'] * 1e3:.1f} ms for the step)")
@@ -1459,15 +1736,21 @@ def optimization_phase() -> dict:
     check(float(st.p[dead].abs().max()) == 0.0 and float(st.w[dead].abs().max()) == 0.0,
           "dead-slot invariant after the events")
     check(int(st.live.sum()) == events[-1]["n_after"], "final live count is the last event's")
-    again, events2, _, _, _ = optimization_run(cfg)
+    say(f"[5 optimization] hat-deposit launches {hists} (one profile an event, one "
+        f"hist_xv a snapshot)")
+    check(hists == {"hist_xv": len(snaps), "hist_v": len(events), "grid_charge": 0},
+          "one profile launch an event")
+    again, events2, _, _, _, _ = optimization_run(cfg)
     same_counts = [ev["n_after"] for ev in events2] == [ev["n_after"] for ev in events]
-    same_state = all(torch.equal(getattr(again.state, f), getattr(st, f))
-                     for f in ("x", "v", "w", "live"))
+    same_state = {f: torch.equal(getattr(again.state, f), getattr(st, f))
+                  for f in ("x", "v", "p", "w", "live")}
     say(f"[5 optimization] a second run: live counts after the events "
         f"{[ev['n_after'] for ev in events2]}, equal to the first run's {same_counts}; final "
-        f"x, v, w, live bitwise equal {same_state} (the profile is an index_add_ with float "
-        f"atomics: reported, not required)")
+        f"state bitwise equal {same_state}")
+    check(same_counts and all(same_state.values()),
+          "the optimization run repeats bit for bit: live counts and final state")
     del again
+    checkpoint_event_phase(cfg)
     inputs = _loaded_inputs(cfg)
     worst = compare_substeps(cfg, OPT_N, F32_TOL, inputs)
     for name, err in compare_substeps(cfg, OPT_N, F32_TOL,
@@ -1475,7 +1758,38 @@ def optimization_phase() -> dict:
         worst[name] = max(worst[name], err)
     compare_push_pair(cfg, st)
     compare_optimizations(cfg, st)
-    return worst
+    return worst, hists
+
+
+def checkpoint_event_phase(cfg) -> None:
+    """The optimization schedule checkpointed at CHECKPOINT_EVENT_T[0],
+    before its first event, and resumed to CHECKPOINT_EVENT_T[1], past a
+    merge and a remove (whose dice come from the saved generator): live
+    count and state bit for bit those of the run that was not interrupted."""
+    from pic1dp_tpu_torch import Simulation
+
+    t_save, t_end = CHECKPOINT_EVENT_T
+    check(t_save < cfg.optimization.tmerge[0] and cfg.optimization.tremove[0] < t_end,
+          "the checkpoint lies before the first event and the resume runs past two")
+    whole = Simulation(dataclasses.replace(cfg, time_max=t_end), device="cuda")
+    whole.run()
+    first = Simulation(dataclasses.replace(cfg, time_max=t_save), device="cuda")
+    first.run()
+    with tempfile.TemporaryDirectory() as out:
+        path = first.save_checkpoint(os.path.join(out, "checkpoint.npz"))
+        rest = Simulation(dataclasses.replace(cfg, time_max=t_end), device="cuda")
+        rest.restore_checkpoint(path)
+    rest.run()
+    torch.cuda.synchronize()
+    same = {f: torch.equal(getattr(rest.state, f), getattr(whole.state, f))
+            for f in ("x", "v", "p", "w", "live", "electric", "mode_re", "mode_im")}
+    live = (int(whole.state.live.sum()), int(rest.state.live.sum()))
+    say(f"[5 optimization] checkpoint at t={first.time:.2f}, resumed to t={rest.time:.2f} "
+        f"across the merge at {cfg.optimization.tmerge[0]:g} and the remove at "
+        f"{cfg.optimization.tremove[0]:g}: live {live[1]} (uninterrupted {live[0]}), state "
+        f"bitwise equal {same}")
+    check(rest.itime == whole.itime and all(same.values()),
+          "resume across an event = uninterrupted run bit for bit")
 
 
 def device_state() -> str:
@@ -1691,6 +2005,63 @@ def time_probe_kernels() -> dict:
         f"place): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
     return out
+
+
+def time_hists() -> tuple[dict, dict, dict]:
+    """ms per call of each hat-deposit kernel, of its plain version and of
+    the one PyTorch call that computes the same scatter (index_add_ of the
+    plain version's bins and terms, made beforehand), from CUDA-graph
+    replays (probes.graph_ms), in f32 at its path's shape: the x-v histogram
+    at the main shape (6.4M markers, the 64 x 64 grid, three channels), the
+    profile at the optimization run's 2^21 (and at 6.4M, printed only), the
+    grid charge at the main shape (nx 192).  The bound: the marker streams
+    and the output once over HBM (x, v and k channels; v, w and the live
+    byte; x and val), or per marker 14 + 8k, 11 and 8 operations (the hat
+    cells and weights, a product and an add per term), whichever is larger.
+    Returns (ms, bounds, library ms) by kernel and "<name>_plain"."""
+    from pic1dp_tpu_torch.config import bump_on_tail_default
+    from pic1dp_tpu_torch.ops import hist_kernels as hk
+    from pic1dp_tpu_torch.probes import graph_ms
+
+    cfg = bump_on_tail_default()
+    lx, vm, nxo, nvo, nv, dev = cfg.lx, cfg.v_max, cfg.nx_opd, cfg.nv_opd, cfg.nv, \
+        torch.device("cuda")
+    per_call, bounds, library = {}, {}, {}
+    for name, n in (("hist_xv", FULL_N), ("hist_v", OPT_N), ("hist_v", FULL_N),
+                    ("grid_charge", FULL_N)):
+        x, v, p, w, live = hist_markers(n, 1, "float32", lx, vm, SEED)
+        if name == "hist_xv":
+            vals = hist_vals(x[0], p[0], w[0], live[0])
+            args = (x[0], v[0], vals, lx, vm, nxo, nvo)
+            fn, plain, terms = hk.hist_xv, hk.hist_xv_plain, hk.hist_xv_terms
+            nout, k, shape = nvo * nxo, 3, f"{nvo} x {nxo}, k = 3"
+            nbytes, ops = n * (2 + k) * 4 + k * nout * 4, n * (14 + 8 * k)
+        elif name == "hist_v":
+            args = (v, w, live, vm, nv)
+            fn, plain, terms = hk.profile, hk.profile_plain, hk.profile_terms
+            nout, k, shape = nv, 1, f"nv {nv}"
+            nbytes, ops = n * 9 + nout * 4, n * 11
+        else:
+            val = torch.where(live, w, 0.0) * -1.0
+            args = (x, val, lx, cfg.nx)
+            fn, plain, terms = hk.grid_charge, hk.grid_charge_plain, hk.grid_charge_terms
+            nout, k, shape = cfg.nx, 1, f"nx {cfg.nx}"
+            nbytes, ops = n * 8 + nout * 4, n * 8
+        bins, tm = terms(*args)
+        out = torch.zeros((nout, k) if name == "hist_xv" else (nout,), device=dev)
+        ms = {"kernel": graph_ms(lambda: fn(*args), dev),
+              "plain": graph_ms(lambda: plain(*args), dev),
+              "index_add_": graph_ms(lambda: out.zero_().index_add_(0, bins, tm), dev)}
+        b = bound(nbytes, ops)
+        say(f"[6 timing] {name} f32 at n={n}, {shape}: kernel {ms['kernel']:.4f} ms, plain "
+            f"{ms['plain']:.4f}, index_add_ alone {ms['index_add_']:.4f}; bound {b[0]:.4f} ms "
+            f"({b[1]}, {nbytes / n:.2f} B a marker), share {b[0] / ms['kernel']:.1%}")
+        if name not in per_call:
+            per_call[name], per_call[f"{name}_plain"] = ms["kernel"], ms["plain"]
+            bounds[name], library[name] = b, ms["index_add_"]
+        del x, v, p, w, live, bins, tm, out, args
+    torch.cuda.empty_cache()
+    return per_call, bounds, library
 
 
 # ---- phase 7: the substep kernels' last layouts, the phase table, the
@@ -2257,6 +2628,7 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
                          "is False")
     from pic1dp_tpu_torch.config import bump_on_tail_default
+    from pic1dp_tpu_torch.ops import hist_kernels as hk
     from pic1dp_tpu_torch.ops import stream_probes as sp
     from pic1dp_tpu_torch.ops import substep_kernels as sk
 
@@ -2285,6 +2657,7 @@ def main() -> int:
     err.update(compare_streams(2**PROBE_LOG2 + 13))
     err.update(compare_units(2**PROBE_LOG2 + 13))
     err.update(compare_carry(2**PROBE_LOG2 + 13))
+    err.update(compare_hists())
     torch.cuda.synchronize()
 
     # the main path as the example script configures and fits it (one
@@ -2295,6 +2668,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as main_out:
         launches, gamma32 = main_path(example_cfg, out_dir=main_out)
         analysis_phase(example_cfg, main_out, gamma32)
+        launches["grid_charge"] = repeat_phase(example_cfg, main_out)["grid_charge"]
     bf16_launches, gamma16 = main_path(dataclasses.replace(example_cfg, bf16_weights=True))
     say(f"[4 main path] gamma f32 {gamma32:.5f}, bf16_weights {gamma16:.5f}, "
         f"theory {BOT_OMEGA.imag:.5f}")
@@ -2310,8 +2684,10 @@ def main() -> int:
     multirand_phase(main_cfg)
     checkpoint_phase(main_cfg)
     checkpoint_phase(bf16_cfg)
-    for name, e in optimization_phase().items():
+    worst, opt_hists = optimization_phase()
+    for name, e in worst.items():
         err[name] = max(err[name], e)
+    launches["hist_v"] = opt_hists["hist_v"]
     torch.cuda.synchronize()
 
     v1_launches, v1_err = v1_layout_phase(main_cfg, bf16_cfg)
@@ -2382,6 +2758,9 @@ def main() -> int:
     per_call["stream_bulk"] = rows["pipeline_probe: bulk 8 KB x 4 aliased"].ms
     per_call["stream_rw_plain"] = per_call["stream_bulk_plain"] = time_stream_plain()
     per_call.update(time_probe_kernels())
+    hist_ms, hist_bounds, library = time_hists()
+    per_call.update(hist_ms)
+    bounds.update(hist_bounds)
     time_steppers(main_cfg, smi)
     time_steppers(headline, smi)
     time_steppers(head16, smi)
@@ -2390,8 +2769,8 @@ def main() -> int:
                 "replaces": k.replaces, "launches": launches[k.name],
                 "max_abs_err": err[k.name], "ms": per_call[k.name],
                 "plain_ms": per_call[f"{k.name}_plain"], "bound_ms": bounds[k.name][0],
-                "bound_by": bounds[k.name][1], "library_ms": None}
-               for k in sk.KERNELS + sp.KERNELS]
+                "bound_by": bounds[k.name][1], "library_ms": library.get(k.name)}
+               for k in sk.KERNELS + sp.KERNELS + hk.KERNELS]
     check(all(k["launches"] > 0 for k in kernels), "every kernel launched on its main path")
     say(smi)
     say(json.dumps({"kernels": kernels}))

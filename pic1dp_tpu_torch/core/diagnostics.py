@@ -7,12 +7,13 @@ Reference equivalents:
     src/pic1dp_output.F90:196-477
 
 The JAX package deposits the x-v histogram as a chunked one-hot contraction
-because the TPU has no fast scatter.  Here it is one index_add_ over the flat
-bins iv * nx_opd + ix, four hat corners per marker.  On CUDA index_add_ adds
-with atomics, so a snapshot's histograms may differ in the last bits from run
-to run; the step itself does not use them.  The |delta f|(v) histogram that
-drives particle optimization (dist_pertb_abs_v) is one index_add_ as well,
-over the flat bins species * nv + iv.
+because the TPU has no fast scatter.  Here it is ops/hist_kernels.hist_xv,
+four hat corners per marker onto the flat bins iv * nx_opd + ix, and the
+|delta f|(v) profile that drives particle optimization (dist_pertb_abs_v) is
+ops/hist_kernels.profile, onto the flat bins species * nv + iv.  On CUDA both
+are hand-written kernels whose sums run in an order the code fixes (no float
+atomic), so a snapshot's histograms and the profile repeat bit for bit from
+run to run; on the CPU each is one index_add_.
 
 When the particle axis is split over ranks (parallel/mesh.py), `reduce`
 sums a rank's partial sums over the ranks: the energies' marker sums and
@@ -29,7 +30,7 @@ import torch
 from pic1dp_tpu_torch import distributions as dist
 from pic1dp_tpu_torch.config import Config
 from pic1dp_tpu_torch.core.state import SimState
-from pic1dp_tpu_torch.ops.interp import hat_v, hat_x
+from pic1dp_tpu_torch.ops import hist_kernels
 
 
 class Energies(NamedTuple):
@@ -87,16 +88,7 @@ def deposit_xv(x, v, vals, lx: float, v_max: float, nx: int, nv: int):
     Returns (hist_xv (k, nv, nx), hist_v (k, nv)); hist_v is hist_xv summed
     over x, the two x weights of a marker adding up to one.
     """
-    k = vals.shape[0]
-    ix0, ix1, wx0, wx1 = hat_x(x, lx, nx)
-    iv0, iv1, wv0, wv1, inside = hat_v(v, v_max, nv)
-    wv0 = torch.where(inside, wv0, 0.0)
-    wv1 = torch.where(inside, wv1, 0.0)
-    bins = torch.cat([iv0 * nx + ix0, iv0 * nx + ix1, iv1 * nx + ix0, iv1 * nx + ix1])
-    weights = torch.cat([wv0 * wx0, wv0 * wx1, wv1 * wx0, wv1 * wx1])
-    hist = torch.zeros((nv * nx, k), dtype=vals.dtype, device=vals.device)
-    hist.index_add_(0, bins, weights[:, None] * vals.T.repeat(4, 1))
-    hist_xv = hist.T.reshape(k, nv, nx)
+    hist_xv = hist_kernels.hist_xv(x, v, vals, lx, v_max, nx, nv)
     return hist_xv, hist_xv.sum(dim=2)
 
 
@@ -157,11 +149,4 @@ def dist_pertb_abs_v(v, w, live, v_max: float, nv: int) -> torch.Tensor:
     drives merge/remove/split (reference particle_compute_dist_pertb_abs_v,
     src/pic1dp_particle.F90:356-403).  v, w, live: (ns, N) -> (ns, nv).
     Markers with |v| >= v_max are skipped."""
-    ns = v.shape[0]
-    iv0, iv1, wv0, wv1, inside = hat_v(v, v_max, nv)
-    val = torch.where(live & inside, torch.abs(w), 0.0)
-    row = torch.arange(ns, device=v.device)[:, None] * nv
-    prof = torch.zeros(ns * nv, dtype=val.dtype, device=val.device)
-    prof.index_add_(0, torch.cat([(row + iv0).reshape(-1), (row + iv1).reshape(-1)]),
-                    torch.cat([(wv0 * val).reshape(-1), (wv1 * val).reshape(-1)]))
-    return prof.reshape(ns, nv)
+    return hist_kernels.profile(v, w, live, v_max, nv)

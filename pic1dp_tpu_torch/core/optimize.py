@@ -36,9 +36,11 @@ src/pic1dp_particle.F90:392-395); merge pairs and split slots stay within a
 rank's block, like the reference's per-rank bins.
 
 Eligibility compares the profile at a marker with a fraction of the
-profile's maximum.  The profile is an index_add_, which on CUDA adds with
-float atomics: its last bits, and with them the fate of a marker that sits
-on the threshold to within rounding, may differ from run to run there.
+profile's maximum.  On CUDA the profile is the HIST_V kernel of
+ops/hist_kernels.py, whose sums run in an order the code fixes, so its bits,
+and with them the fate of a marker that sits on the threshold to within
+rounding, repeat from run to run; the CPU's index_add_ sums in another
+order, so such a marker may fall on the other side there.
 """
 
 from __future__ import annotations

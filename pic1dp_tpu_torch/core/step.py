@@ -40,13 +40,14 @@ the Stepper is made, as the JAX Stepper reads it
 
 The EXPLICIT grid path (cfg.shape = EXPLICIT) is the stored-shape
 cross-check: it assembles the hat-shape matrix at each substep position,
-gathers E from the grid, deposits charge on the grid with index_add_ and
-solves there (ops/gather.py, ops/deposit.py, SpectralOperator.solve).  Its steps
-return new tensors, and `multi_step` runs them as eager steps on every
-device, never from a CUDA graph: index_add_ on CUDA adds with float
-atomics, so two runs of it differ in the last bits and "replay = eager bit
-for bit" could not be held anyway.  Every DepositMethod selects this one
-deposit and one gather; deposit_chunk is ignored.
+gathers E from the grid, deposits charge on the grid and solves there
+(ops/gather.py, ops/deposit.py, SpectralOperator.solve).  On CUDA the
+deposit is the GRID_CHARGE kernel (ops/hist_kernels.py), which has no float
+atomic, so two runs of the path give the same bits.  Its steps return new
+tensors, and `multi_step` runs them as eager steps on every device, never
+from a CUDA graph: a graph needs fixed buffers.  Whether the path should
+now be captured is an open question (ROADMAP.md section 2).  Every DepositMethod selects this one deposit and one
+gather; deposit_chunk is ignored.
 """
 
 from __future__ import annotations

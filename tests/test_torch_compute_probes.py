@@ -374,6 +374,8 @@ def test_build_hash_covers_headers(tmp_path):
     assert changed != first
     assert nvcc.build_hash(csrc / "substep_kernels.cu") != nvcc.build_hash(
         REPO / "pic1dp_tpu_torch" / "csrc" / "substep_kernels.cu")
+    assert nvcc.build_hash(csrc / "hist_kernels.cu") != nvcc.build_hash(
+        REPO / "pic1dp_tpu_torch" / "csrc" / "hist_kernels.cu")
     (csrc / "bulk_copy.cuh").write_text((csrc / "bulk_copy.cuh").read_text() + "\n")
     edited = nvcc.build_hash(src)
     assert edited not in (first, changed)

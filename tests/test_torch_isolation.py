@@ -46,7 +46,7 @@ def test_port_imports_without_jax_in_a_fresh_process():
             "pic1dp_tpu_torch.examples.bump_on_tail_pre83, "
             "pic1dp_tpu_torch.examples.landau_damping, pic1dp_tpu_torch.examples.two_stream, "
             "pic1dp_tpu_torch.examples.ion_acoustic, pic1dp_tpu_torch.parallel.mesh, "
-            "pic1dp_tpu_torch.parallel.launch; "
+            "pic1dp_tpu_torch.parallel.launch, pic1dp_tpu_torch.ops.hist_kernels; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pic1dp_tpu')); "
             "assert not bad, bad")
@@ -66,7 +66,7 @@ def test_new_modules_are_among_the_checked_files():
     examples = {f"pic1dp_tpu_torch/examples/{m}.py" for m in (
         "__init__", "bump_on_tail_pre83", "landau_damping", "two_stream", "ion_acoustic")}
     parallel = {f"pic1dp_tpu_torch/parallel/{m}.py" for m in ("__init__", "mesh", "launch")}
-    assert analysis | examples | parallel <= checked
+    assert analysis | examples | parallel | {"pic1dp_tpu_torch/ops/hist_kernels.py"} <= checked
 
 
 def _no_cuda_env():
