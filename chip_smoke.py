@@ -100,7 +100,8 @@ first failed check.  Phases, each printed:
      without a mesh, and their ms/step
   6. timing: ms per call of each substep, unit, carry and hat-deposit
      kernel and its plain version (for a hat deposit also its index_add_
-     alone, the kernels line's library_ms) (for each substep its bound, share, V, B, the bin and
+     alone, the kernels line's library_ms, and its deposit and row-sum
+     kernels apart) (for each substep its bound, share, V, B, the bin and
      where the angle table or the grids sat), ms/step of the plain, the eager kernel and the CUDA
      graph Stepper at the main path's shape and at bench.py's headline
      shape (2^26 markers, nx 1024), and both nonlinear delta-f layouts per
@@ -175,7 +176,7 @@ OPT_F64_FLIPS, OPT_F32_LIVE, OPT_F32_SUM = 2, 5e-4, 1e-3
 # f32; f64 as every f64 bound here
 HIST_TOL = {"float32": 1e-5, "float64": 1e-12}
 HIST_N_ODD = 102_401                 # no block's range ends at a species' end
-HIST_WIDE = (128, 128)               # (nv, nx) past shared memory at three channels
+HIST_WIDE = (128, 128)               # (nv, nx): a copy a block in f32, the device buffer in f64
 HIST_GRID_NX = (1024, 4096, 32768)   # the grid charge; 32768 past shared memory
 
 
@@ -1003,8 +1004,9 @@ def compare_hists() -> dict:
     64 snapshot grid, the main case's nx and nv) and the optimization run's
     2^21; nine species of HIST_N_ODD markers (no block's range ends at the
     species' end), each species' first markers at the edges of the grids;
-    the x-v histogram with 1, 2 and 3 channels on a grid past shared memory
-    (HIST_WIDE); the grid charge at nx 1024, 4096 and 32768 (past shared
+    the x-v histogram with 1, 2 and 3 channels on a grid with one grid copy
+    a block in f32 and past shared memory in f64 (HIST_WIDE); the grid
+    charge at nx 1024, 4096 and 32768 (past shared
     memory); no markers, markers all past v_max and all dead.  Returns each
     kernel's largest absolute error at the main shape in f32."""
     from pic1dp_tpu_torch.config import bump_on_tail_default
@@ -1056,8 +1058,8 @@ def compare_hists() -> dict:
         wv, wx = HIST_WIDE
         vals = hist_vals(x[0], p[0], w[0], live[0])
         for k in (1, 2, 3):
-            where = "shared memory" if hk.plan_smem(x.element_size(), k, wv * wx)[1] \
-                else "the device buffer"
+            where = "the device buffer" if hk.plan(
+                x.element_size(), hk.XV, wv * wx).form == hk.BUFFER else "shared memory"
             hist_case(f"hist_xv {dtype} n={HIST_N_ODD} {wv}x{wx} k={k} (grids in {where})",
                       *xv(wx, wv), (x[0], v[0], vals[:k]), True, graph=k == 3)
         fast = torch.full_like(v, 2.0 * vm)
@@ -2007,6 +2009,14 @@ def time_probe_kernels() -> dict:
     return out
 
 
+def hist_split(per_kernel: dict) -> tuple[float, float]:
+    """(deposit ms, row-sum ms) of one hat-deposit call from
+    probes.kernel_ms' durations by kernel name."""
+    dep = sum(ms for name, ms in per_kernel.items() if "hist_kernel" in name)
+    rows = sum(ms for name, ms in per_kernel.items() if "hist_sum_kernel" in name)
+    return dep, rows
+
+
 def time_hists() -> tuple[dict, dict, dict]:
     """ms per call of each hat-deposit kernel, of its plain version and of
     the one PyTorch call that computes the same scatter (index_add_ of the
@@ -2018,10 +2028,12 @@ def time_hists() -> tuple[dict, dict, dict]:
     and the output once over HBM (x, v and k channels; v, w and the live
     byte; x and val), or per marker 14 + 8k, 11 and 8 operations (the hat
     cells and weights, a product and an add per term), whichever is larger.
+    Beside them the kernel's two launches apart, the deposit and the row
+    sum (probes.kernel_ms: their device time in a profiled graph replay).
     Returns (ms, bounds, library ms) by kernel and "<name>_plain"."""
     from pic1dp_tpu_torch.config import bump_on_tail_default
     from pic1dp_tpu_torch.ops import hist_kernels as hk
-    from pic1dp_tpu_torch.probes import graph_ms
+    from pic1dp_tpu_torch.probes import graph_ms, kernel_ms
 
     cfg = bump_on_tail_default()
     lx, vm, nxo, nvo, nv, dev = cfg.lx, cfg.v_max, cfg.nx_opd, cfg.nv_opd, cfg.nv, \
@@ -2053,9 +2065,11 @@ def time_hists() -> tuple[dict, dict, dict]:
               "plain": graph_ms(lambda: plain(*args), dev),
               "index_add_": graph_ms(lambda: out.zero_().index_add_(0, bins, tm), dev)}
         b = bound(nbytes, ops)
-        say(f"[6 timing] {name} f32 at n={n}, {shape}: kernel {ms['kernel']:.4f} ms, plain "
-            f"{ms['plain']:.4f}, index_add_ alone {ms['index_add_']:.4f}; bound {b[0]:.4f} ms "
-            f"({b[1]}, {nbytes / n:.2f} B a marker), share {b[0] / ms['kernel']:.1%}")
+        dep, rows = hist_split(kernel_ms(lambda: fn(*args), dev))
+        say(f"[6 timing] {name} f32 at n={n}, {shape}: kernel {ms['kernel']:.4f} ms (deposit "
+            f"{dep:.4f}, row sum {rows:.4f}), plain {ms['plain']:.4f}, index_add_ alone "
+            f"{ms['index_add_']:.4f}; bound {b[0]:.4f} ms ({b[1]}, {nbytes / n:.2f} B a "
+            f"marker), share {b[0] / ms['kernel']:.1%}")
         if name not in per_call:
             per_call[name], per_call[f"{name}_plain"] = ms["kernel"], ms["plain"]
             bounds[name], library[name] = b, ms["index_add_"]

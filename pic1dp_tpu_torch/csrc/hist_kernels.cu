@@ -6,7 +6,7 @@
 // Three instantiations of one kernel family replace them (the `kind`):
 //
 //   kXV  the x-v snapshot histogram (pic1dp_tpu/core/diagnostics.py:78
-//        deposit_xv): K value channels (k, n) of one species onto the
+//        deposit_xv): k value channels (k, n) of one species onto the
 //        (nv, nx) diagnostic grid, hat weights in x (periodic) and in v
 //        (inclusive [-v_max, v_max], markers with |v| >= v_max skipped):
 //        four corners a marker;
@@ -19,43 +19,57 @@
 // Each marker's hat weights are those of ops/interp.py (hat_x, hat_v), at
 // the arithmetic type T, with the host's scale factors rounded to T as
 // PyTorch rounds a Python float in a T tensor's product; each term is the
-// plain version's product ((wv wx) val for kXV, w val for kV and kX).
+// plain version's rounded product ((wv wx) val for kXV, w val for kV and
+// kX), and no product is fused into a sum (mul_rn, add_rn).
 //
-// No float atomic anywhere, so a launch repeats bit for bit, a replay from a
-// CUDA graph included:
+// No float atomic anywhere, and the order of every sum is fixed by n, the
+// kind, k, the grid, T and the card's SM count, so a launch repeats bit for
+// bit, a replay from a CUDA graph included.  A block deposits one channel
+// (kXV: channel blockIdx.x % k, so the k blocks that read one marker range
+// run side by side and share its x and v through L2); its warps walk their
+// own ranges of markers in rounds of 32 M, lane l taking M = kMarkers in a
+// row (16-byte loads where every stream is aligned), the next round's loads
+// issued before this round's deposits.  The block's grids take one of three
+// forms (plan):
 //
-//   * Within a warp (deposit_lanes of substep_math.cuh, the substep kernels'
-//     own, with K channels): one __match_any_sync a marker and v row finds the
-//     lanes that share its cell; the lowest of them sums their values in
-//     lane order (its own first) and alone adds them to the grid.  A
-//     marker's two x halves go to the left half [0, nbins) at its cell ix0
-//     and to the right half [nbins, 2 nbins) at the same cell, which belongs
-//     to ix0 + 1; one match serves both.  kXV calls it once per v row (cell
-//     iv nx + ix0, rows iv0 and iv0 + 1).
-//   * Within a block: `copies` grids of K channels x 2 nbins values in
-//     dynamic shared memory (8, 4, 2 or 1, the most that fit in kSmemMax),
-//     warp w depositing on grid w % copies, the warps that share a grid in
-//     turns separated by __syncthreads.  Where not even one grid fits (the
-//     charge grid at nx 32768 in f32 or f64), the block's grid is its own
-//     slice of a device buffer, zeroed by the block and walked the same way.
-//   * The block's tail folds each right half onto its neighbour (periodic
-//     in x, none past the last v point) and sums the copies in copy order,
-//     into the block's row of partials.
-//   * Across blocks: a second, bin-parallel kernel sums the G rows of every
-//     output value in block order (hist_sum_kernel).  The block count G and
-//     each block's range of markers are fixed by n, the kind, the grid and
-//     the card, so the order of every sum is fixed by the code.  No counter,
-//     so nothing needs resetting between launches or graph replays.
+//   kLanes  (kV, kX on grids small enough that 32 copies a warp fit for at
+//           least kLaneWarpsMin warps): every lane owns a copy of the nbins
+//           values, laid out cell-major (cell c of lane l at 32 c + l, no
+//           bank conflict), and adds its markers' two halves at their two
+//           cells itself: no warp step at all.  The tail sums each cell's
+//           32 lanes (each thread from its own lane on, so no bank
+//           conflict), then the warps in warp order.
+//   kWarps  a grid copy of 2 nbins values to each `share` warps (kShare for
+//           kXV, one for the others), in shared memory: a marker deposits in
+//           a warp step.  The lanes that share a cell are found by a claim
+//           (kXV, lanes_of_cell) or __match_any_sync; the lowest of them
+//           adds the others' terms to its own in lane order (shuffles) and
+//           alone adds the sums to the copy, a (left, right) pair per cell:
+//           the left half at cell ix0, the right half, which belongs to ix0
+//           + 1, beside it.  kXV adds the v row iv0 at cell iv0 nx + ix0,
+//           then, after a __syncwarp, row iv0 + 1 one row up: one warp step
+//           serves all four corners.  The warps that share a copy take their
+//           grid steps of a round in turn, between named barriers of their
+//           own; no warp waits on the whole block inside the marker loop.
+//           The tail folds each right half onto its neighbour (periodic in
+//           x, none past the last v point) copy by copy.
+//   kBuffer where not even one copy fits in shared memory: kWarps with one
+//           warp a block, whose copy is its slice of a device buffer.
 //
-// Sums are taken at T, the output's type, as the plain versions' index_add_
-// takes them; only the order differs from theirs.
+// Each block writes its row of partials (G rows of k nbins values); a
+// second kernel sums the G rows of every output value: row group g of 16
+// sums rows g, g + 16, ... in order, the groups' sums added in group order
+// (hist_sum_kernel).  No counter, so nothing needs resetting between
+// launches or graph replays.  Sums are taken at T, the output's type, as
+// the plain versions' index_add_ takes them; only the order differs.
 //
 // What bounds them on this card: the bytes of the marker streams (x, v and
-// K channels for kXV; v, w and the live byte for kV; x and val for kX) over
-// HBM, against a few operations a marker; but this first design shares one
-// block's grid between warps in turns, so the turns' barriers and the
-// block's tail set the pace at small marker counts.  Making it fast is left
-// for later: the design aims at a fixed order of every sum.
+// k channels for kXV; v, w and the live byte for kV; x and val for kX) over
+// HBM, and for kXV the warp steps: __match_any_sync costs the SM a step for
+// about every distinct cell of a warp (hence the claim), and each warp's
+// chain of claims, sums and shared-memory read-modify-writes waits on
+// itself, so the SM needs as many warps as the copies allow (hence two a
+// copy).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,63 +78,127 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCopies = 8;         // grid copies (kLanes: warps) a block at most
+constexpr int kShare = 2;             // kXV: warps that share one grid copy
+constexpr int kLaneWarpsMin = 4;      // kLanes where this many warps' lane copies fit
+// markers a lane takes per round (multiples of 4), the fastest of 4 to 32
+// timed (probes/hist_forms.py): kXV, and kV and kX
+constexpr int kMXV = 8;
+constexpr int kMX = 16;
 constexpr int kMaxK = 3;
 // One block's dynamic shared memory at most with an opt-in (232,448 bytes
-// on sm_90); the kernels use no static shared memory.
+// on sm_90); the kernels use no static shared memory but the row sum's.
 constexpr int kSmemMax = 232448;
 constexpr int kSmemNoOptIn = 48 * 1024;
 // blocks an SM at most: more rows of partials buy nothing once the SMs are
 // full
 constexpr int kMaxBlocksPerSm = 4;
+// the row sum: a block of kSumValues output values x kSumGroups row groups
+constexpr int kSumValues = 32;
+constexpr int kSumGroups = 16;
 
 enum Kind { kXV = 0, kV = 1, kX = 2 };
+enum Form { kLanes = 0, kWarps = 1, kBuffer = 2 };
+
+template <int KIND>
+constexpr int kMarkers = KIND == kXV ? kMXV : kMX;
+
+// A warp's claim table (lanes_of_cell) for kXV: a byte a slot, the power of
+// two of slots from 16 that holds nbins, at most kClaimMax (cell c claims
+// slot c mod the size); none for the others, whose few cells nearly always
+// put two lanes of a warp on one.
+constexpr int kClaimMax = 2048;
+__host__ __device__ constexpr int claim_bytes(int kind, int nbins) {
+  int size = 16;
+  while (size < nbins && size < kClaimMax) size *= 2;
+  return kind == kXV ? size : 0;
+}
+
+// How a block holds its grids: the form, its copies (kLanes: warps of 32
+// lane copies), its warps and its shared memory.
+struct Plan {
+  int form, copies, warps, smem;
+};
+
+Plan plan(int itemsize, int kind, int nbins) {
+  const long long lanes = 32LL * nbins * itemsize;
+  if (kind != kXV && kSmemMax / lanes >= kLaneWarpsMin) {
+    const int w = static_cast<int>(kSmemMax / lanes < kMaxCopies ? kSmemMax / lanes : kMaxCopies);
+    return {kLanes, w, w, static_cast<int>(w * lanes)};
+  }
+  const int share = kind == kXV ? kShare : 1;
+  const long long claim = claim_bytes(kind, nbins);
+  const long long copy = 2LL * nbins * itemsize + share * claim;
+  if (kSmemMax / copy >= 1) {
+    const int c = static_cast<int>(kSmemMax / copy < kMaxCopies ? kSmemMax / copy : kMaxCopies);
+    return {kWarps, c, c * share, static_cast<int>(c * copy)};
+  }
+  return {kBuffer, 1, 1, static_cast<int>(claim)};
+}
 
 template <typename T>
 struct Args {
   const T* a;                 // kXV, kX: x; kV: v
   const T* b;                 // kXV: v; kV: w; kX: val
-  const void* c;              // kXV: the K channels (K, n); kV: live (bool); kX: unused
-  long long n;                // markers (kV: ns * n_species)
+  const void* c;              // kXV: the k channels (k, n); kV: live (bool); kX: unused
+  long long n;                // markers (kV, kX: ns * n_species)
   long long n_species;        // kV: markers per species
-  long long per_block;        // markers per block, a multiple of kThreads
+  long long per_warp;         // markers per warp, a multiple of 32 kMarkers
   int nx, nv, nbins;          // nbins: cells of one channel's grid (= outputs)
+  int k;                      // output channels (kXV), 1 otherwise
   T x_scale;                  // nx / lx
   T v_max, v_scale;           // v_max, (nv - 1) / (2 v_max)
-  int copies;                 // grids in shared memory; 0: the device buffer
-  T* grids;                   // the device buffer (copies == 0)
-  T* partials;                // (G, K, nbins)
+  int form, copies, warps;    // the block's Plan
+  bool vec;                   // every stream 16-byte aligned (the live mask 4-byte)
+  T* grids;                   // kBuffer: the device buffer, a copy a block
+  T* partials;                // (G, k, nbins)
 };
 
 __device__ __forceinline__ double abs_t(double s) { return fabs(s); }
 __device__ __forceinline__ float abs_t(float s) { return fabsf(s); }
 
+// Rounded products, sums and differences that ptxas may not fuse into an
+// FMA: each term is the plain version's rounded product, and each sum adds
+// rounded terms, whatever the compiler schedules.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
 // hat_x: cell ix0 in [0, nx) and the fraction f of an x in [0, lx).
 template <typename T>
 __device__ __forceinline__ int hat_xcell(T x, T scale, int n, T* frac) {
-  const T s = x * scale;
+  const T s = mul_rn(x, scale);
   const T fl = floor_t(s);
-  *frac = s - fl;
-  const long long i = static_cast<long long>(fl);
-  return static_cast<int>(i < 0 ? 0 : i > n - 1 ? n - 1 : i);
+  *frac = sub_rn(s, fl);
+  // the conversion saturates, so the clamp holds for any x
+  return min(max(static_cast<int>(fl), 0), n - 1);
 }
 
 // hat_v: cell iv0 in [0, nv - 2] and the fraction f; *inside is |v| < v_max.
 template <typename T>
 __device__ __forceinline__ int hat_vcell(T v, T v_max, T scale, int nv, T* frac, bool* inside) {
-  const T s = (v + v_max) * scale;
+  const T s = mul_rn(add_rn(v, v_max), scale);
   const T fl = floor_t(s);
-  *frac = s - fl;
+  *frac = sub_rn(s, fl);
   *inside = abs_t(v) < v_max;
   if (!*inside) return 0;   // its cell is never read
-  const long long i = static_cast<long long>(fl);
-  return static_cast<int>(i < 0 ? 0 : i > nv - 2 ? nv - 2 : i);
+  return min(max(static_cast<int>(fl), 0), nv - 2);
+}
+
+// The cell a marker's right half lands on (kLanes): the next, periodic in
+// x (kX); the next v point of the same species (kV: iv0 <= nv - 2).
+template <int KIND>
+__device__ __forceinline__ int right_cell(int cell, int nx) {
+  if constexpr (KIND == kX) return cell == nx - 1 ? 0 : cell + 1;
+  return cell + 1;
 }
 
 // The grid value a right half at cell `o`'s left neighbour adds to output
-// o, or -1 where none does: x is periodic (kXV within a v row, kX); the
-// v grid of kV has no point before the first of each species.
+// o (kWarps), or -1 where none does: x is periodic (kXV within a v row,
+// kX); the v grid of kV has no point before the first of each species.
 template <int KIND>
 __device__ __forceinline__ int left_neighbour(int o, int nx, int nv) {
   if constexpr (KIND == kV) {
@@ -131,162 +209,414 @@ __device__ __forceinline__ int left_neighbour(int o, int nx, int nv) {
   }
 }
 
-template <typename T, int K, int KIND>
-__global__ void __launch_bounds__(kThreads) hist_kernel(Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int warp = threadIdx.x >> 5;
-  const long long gstride = 2LL * K * a.nbins;   // one grid of K channels
-  const int copies = a.copies > 0 ? a.copies : 1;
-  T* grids = a.copies > 0 ? smem : a.grids + blockIdx.x * gstride;
-  T* stage = (a.copies > 0 ? smem + copies * gstride : smem) + warp * 64 * K;
-  for (long long j = threadIdx.x; j < copies * gstride; j += kThreads) grids[j] = T(0);
-  __syncthreads();
+// o[0..3] = p[0..3] in 16-byte loads (p 16-byte aligned).
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  o[0] = f.x;
+  o[1] = f.y;
+  o[2] = f.z;
+  o[3] = f.w;
+}
+__device__ __forceinline__ void load4(const double* p, double* o) {
+  const double2 f = reinterpret_cast<const double2*>(p)[0];
+  const double2 g = reinterpret_cast<const double2*>(p)[1];
+  o[0] = f.x;
+  o[1] = f.y;
+  o[2] = g.x;
+  o[3] = g.y;
+}
+__device__ __forceinline__ void load4(const unsigned char* p, unsigned char* o) {
+  const uchar4 f = *reinterpret_cast<const uchar4*>(p);
+  o[0] = f.x;
+  o[1] = f.y;
+  o[2] = f.z;
+  o[3] = f.w;
+}
 
-  T* grid = grids + (warp % copies) * gstride;
-  const int turns = kWarps / copies;
-  const long long begin = blockIdx.x * a.per_block;
-  const long long end = begin + a.per_block < a.n ? begin + a.per_block : a.n;
-  for (long long base = begin; base < end; base += kThreads) {
-    const long long i = base + threadIdx.x;
-    int cell0 = -1, cell1 = -1;
-    T l0[K], r0[K], l1[K], r1[K];
+// out[j] = p[i + j] for the `valid` of the M markers from i that exist, 0
+// past them; vector loads where vec and all M exist (i is a multiple of M).
+template <typename U, int M>
+__device__ __forceinline__ void load_run(const U* p, long long i, int valid, bool vec,
+                                         U (&out)[M]) {
+  if (vec && valid == M) {
 #pragma unroll
-    for (int c = 0; c < K; ++c) l0[c] = r0[c] = l1[c] = r1[c] = T(0);
-    if (i < end) {
-      if constexpr (KIND == kXV) {
-        T fx, fv;
-        bool inside;
-        const int ix0 = hat_xcell(a.a[i], a.x_scale, a.nx, &fx);
-        const int iv0 = hat_vcell(a.b[i], a.v_max, a.v_scale, a.nv, &fv, &inside);
-        if (inside) {
-          const T wx0 = T(1) - fx, wx1 = fx, wv0 = T(1) - fv, wv1 = fv;
-          const T w00 = wv0 * wx0, w01 = wv0 * wx1, w10 = wv1 * wx0, w11 = wv1 * wx1;
-          const T* vals = static_cast<const T*>(a.c);
+    for (int q = 0; q < M; q += 4) load4(p + i + q, out + q);
+  } else {
 #pragma unroll
-          for (int c = 0; c < K; ++c) {
-            const T val = vals[c * a.n + i];
-            l0[c] = w00 * val;
-            r0[c] = w01 * val;
-            l1[c] = w10 * val;
-            r1[c] = w11 * val;
-          }
-          cell0 = iv0 * a.nx + ix0;
-          cell1 = cell0 + a.nx;
-        }
-      } else if constexpr (KIND == kV) {
-        T fv;
-        bool inside;
-        const T v = a.a[i];
-        const int iv0 = hat_vcell(v, a.v_max, a.v_scale, a.nv, &fv, &inside);
-        const bool live = static_cast<const unsigned char*>(a.c)[i] != 0;
-        if (inside && live) {
-          const T val = abs_t(a.b[i]);
-          l0[0] = (T(1) - fv) * val;
-          r0[0] = fv * val;
-          cell0 = static_cast<int>(i / a.n_species) * a.nv + iv0;
-        }
-      } else {
-        T fx;
-        const int ix0 = hat_xcell(a.a[i], a.x_scale, a.nx, &fx);
-        const T val = a.b[i];
-        l0[0] = (T(1) - fx) * val;
-        r0[0] = fx * val;
-        cell0 = ix0;
+    for (int j = 0; j < M; ++j) out[j] = j < valid ? p[i + j] : U(0);
+  }
+}
+
+// One lane's kMarkers markers: the two streams a and b, and the block's
+// channel (kXV) or the live bytes (kV).
+template <typename T, int KIND>
+struct Batch {
+  static constexpr int M = kMarkers<KIND>;
+  T a[M], b[M];
+  T c[KIND == kXV ? M : 1];
+  unsigned char live[KIND == kV ? M : 1];
+};
+
+template <typename T, int KIND>
+__device__ __forceinline__ void load_batch(Batch<T, KIND>& m, const Args<T>& a, int ch,
+                                           long long i, int valid) {
+  load_run(a.a, i, valid, a.vec, m.a);
+  load_run(a.b, i, valid, a.vec, m.b);
+  if constexpr (KIND == kXV) {
+    load_run(static_cast<const T*>(a.c) + ch * a.n, i, valid, a.vec, m.c);
+  } else if constexpr (KIND == kV) {
+    load_run(static_cast<const unsigned char*>(a.c), i, valid, a.vec, m.live);
+  }
+}
+
+// Rows of a marker's terms: kXV's two v rows, one row for kV and kX.
+template <int KIND>
+constexpr int kRows = KIND == kXV ? 2 : 1;
+
+// A lane's marker in a round: its cell (-1: it deposits nothing) and its
+// terms, rows x (left half, right half).
+template <typename T, int R>
+struct Term {
+  int cell;
+  T v[R][2];
+};
+
+// Marker j of a lane's batch (index i, kept where j < valid): its cell
+// and terms.
+template <typename T, int KIND>
+__device__ __forceinline__ void marker_terms(const Args<T>& a, const Batch<T, KIND>& m, int j,
+                                             long long i, int valid,
+                                             Term<T, kRows<KIND>>& t) {
+  t.cell = -1;
+  if constexpr (KIND == kXV) {
+    T fx, fv;
+    bool inside;
+    const int ix0 = hat_xcell(m.a[j], a.x_scale, a.nx, &fx);
+    const int iv0 = hat_vcell(m.b[j], a.v_max, a.v_scale, a.nv, &fv, &inside);
+    const T wx0 = sub_rn(T(1), fx), wv0 = sub_rn(T(1), fv), val = m.c[j];
+    t.v[0][0] = mul_rn(mul_rn(wv0, wx0), val);
+    t.v[0][1] = mul_rn(mul_rn(wv0, fx), val);
+    t.v[1][0] = mul_rn(mul_rn(fv, wx0), val);
+    t.v[1][1] = mul_rn(mul_rn(fv, fx), val);
+    if (inside && j < valid) t.cell = iv0 * a.nx + ix0;
+  } else if constexpr (KIND == kV) {
+    T fv;
+    bool inside;
+    const int iv0 = hat_vcell(m.a[j], a.v_max, a.v_scale, a.nv, &fv, &inside);
+    const T val = abs_t(m.b[j]);
+    t.v[0][0] = mul_rn(sub_rn(T(1), fv), val);
+    t.v[0][1] = mul_rn(fv, val);
+    if (inside && m.live[j] != 0 && j < valid)
+      t.cell = static_cast<int>(i / a.n_species) * a.nv + iv0;
+  } else {
+    T fx;
+    const int ix0 = hat_xcell(m.a[j], a.x_scale, a.nx, &fx);
+    const T val = m.b[j];
+    t.v[0][0] = mul_rn(sub_rn(T(1), fx), val);
+    t.v[0][1] = mul_rn(fx, val);
+    if (j < valid) t.cell = ix0;
+  }
+}
+
+// The lanes that share this lane's cell: __match_any_sync's answer, which
+// costs the SM a warp step for about every distinct cell in the warp.  Where
+// cells are many (kXV), most warps have no two lanes on one cell, so a
+// claim first: every lane writes its lane number at its cell's slot in the
+// warp's claim table (claim_bytes), and where every lane reads its own
+// number back, no two share a slot, so none share a cell, and each lane is
+// alone; otherwise the match (two cells on one slot cost a match, never a
+// wrong sum).  Which lane's byte lands does not matter: a lane that reads
+// another's number means two lanes share a slot, whichever it is.  The
+// table needs no reset (a lane reads only the slot it has just written).
+template <int KIND>
+__device__ __forceinline__ unsigned lanes_of_cell(unsigned char* claim, int slots, int cell) {
+  const unsigned lane = threadIdx.x & 31u;
+  if constexpr (KIND == kXV) {
+    const int slot = cell & (slots - 1);
+    if (cell >= 0) claim[slot] = static_cast<unsigned char>(lane);
+    __syncwarp();
+    const bool shared = cell >= 0 && claim[slot] != lane;
+    __syncwarp();
+    if (!__any_sync(0xffffffffu, shared)) return 1u << lane;
+  }
+  return __match_any_sync(0xffffffffu, cell);
+}
+
+// Given peers, the lanes that share this lane's cell: the lowest of them
+// adds the others' terms to its own in lane order (shuffles); returns
+// whether this lane adds the sums to the grid (the lowest of its cell,
+// cell >= 0).  Every lane of the warp must call it.
+template <typename T, int R>
+__device__ __forceinline__ bool gather_peers(unsigned peers, Term<T, R>& t) {
+  const unsigned lane = threadIdx.x & 31u;
+  const bool lead = (peers & ((1u << lane) - 1u)) == 0u && t.cell >= 0;
+  unsigned rest = lead ? peers & ~((2u << lane) - 1u) : 0u;
+  while (__any_sync(0xffffffffu, rest != 0u)) {
+    const int src = rest != 0u ? __ffs(rest) - 1 : static_cast<int>(lane);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const T x = __shfl_sync(0xffffffffu, t.v[r][h], src);
+        if (rest != 0u) t.v[r][h] = add_rn(t.v[r][h], x);
+      }
+    rest &= rest - 1u;
+  }
+  return lead;
+}
+
+// grid[2 j] += l and grid[2 j + 1] += r in one 8- or 16-byte access.
+__device__ __forceinline__ void add_pair(float* g, int j, float l, float r) {
+  float2* q = reinterpret_cast<float2*>(g) + j;
+  float2 t = *q;
+  t.x = add_rn(t.x, l);
+  t.y = add_rn(t.y, r);
+  *q = t;
+}
+__device__ __forceinline__ void add_pair(double* g, int j, double l, double r) {
+  double2* q = reinterpret_cast<double2*>(g) + j;
+  double2 t = *q;
+  t.x = add_rn(t.x, l);
+  t.y = add_rn(t.y, r);
+  *q = t;
+}
+
+// grid pair (cell + r row) += (v[r][0], v[r][1]) on the leading lanes, row
+// by row, each row ended by __syncwarp (row r + 1 of one cell may be row r
+// of another).  Every lane of the warp must call it.
+template <typename T, int R>
+__device__ __forceinline__ void add_terms(T* grid, int row, bool lead, const Term<T, R>& t) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (lead) add_pair(grid, t.cell + r * row, t.v[r][0], t.v[r][1]);
+    __syncwarp();
+  }
+}
+
+// bar.sync on named barrier id (1 + a copy's index) for the nthreads of
+// the warps that share the copy.
+__device__ __forceinline__ void group_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// The markers of a lane's run of M from i that exist before end, 0 to M.
+template <int M>
+__device__ __forceinline__ int valid_from(long long i, long long end) {
+  return static_cast<int>(i >= end ? 0 : end - i < M ? end - i : M);
+}
+
+// One warp's markers [begin, end) onto its lane copies (kLanes; g: cell c
+// of this warp's lane l at 32 c + l), in `rounds` rounds of 32 M, the
+// next round's loads issued first: each lane adds its markers' halves at
+// their two cells in marker order.
+template <typename T, int KIND>
+__device__ __forceinline__ void walk_lanes(const Args<T>& a, T* g, long long begin, long long end,
+                                           long long rounds) {
+  constexpr int M = kMarkers<KIND>;
+  const int lane = threadIdx.x & 31;
+  const long long lane_off = static_cast<long long>(lane) * M;
+  T* mine = g + lane;
+  Batch<T, KIND> cur, nxt;
+  if (rounds > 0) load_batch(cur, a, 0, begin + lane_off, valid_from<M>(begin + lane_off, end));
+  for (long long r = 0; r < rounds; ++r) {
+    const long long base = begin + r * 32 * M, next = base + 32 * M + lane_off;
+    if (r + 1 < rounds) load_batch(nxt, a, 0, next, valid_from<M>(next, end));
+    const int valid = valid_from<M>(base + lane_off, end);
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      Term<T, 1> t;
+      marker_terms(a, cur, j, base + lane_off + j, valid, t);
+      if (t.cell >= 0) {
+        T* left = mine + 32 * t.cell;
+        T* right = mine + 32 * right_cell<KIND>(t.cell, a.nx);
+        *left = add_rn(*left, t.v[0][0]);
+        *right = add_rn(*right, t.v[0][1]);
       }
     }
-    for (int t = 0; t < turns; ++t) {
-      if (warp / copies == t) {
-        deposit_lanes<T, K>(grid, a.nbins, stage, cell0, l0, r0);
-        if constexpr (KIND == kXV) deposit_lanes<T, K>(grid, a.nbins, stage, cell1, l1, r1);
+    cur = nxt;
+  }
+}
+
+// One warp's markers [begin, end) onto its grid copy (kWarps, kBuffer), in
+// `rounds` rounds of 32 M (the same count for every warp, markers past end
+// none): the next round's loads issued first; then every marker's terms,
+// every marker's lanes of its cell and lanes' sums, and last the markers'
+// grid steps one after another, so that only the grid steps wait on each
+// other.  The `share` warps of one copy (member 0, 1, ... of copy `copy`)
+// take the grid steps of a round in member order, between named barriers
+// of their own.
+template <typename T, int KIND>
+__device__ __forceinline__ void walk_warps(const Args<T>& a, T* grid, unsigned char* claim,
+                                           int ch, long long begin, long long end,
+                                           long long rounds, int share, int copy, int member) {
+  constexpr int R = kRows<KIND>, M = kMarkers<KIND>;
+  const int slots = claim_bytes(KIND, a.nbins);
+  const long long lane_off = static_cast<long long>(threadIdx.x & 31) * M;
+  Batch<T, KIND> cur, nxt;
+  if (rounds > 0) load_batch(cur, a, ch, begin + lane_off, valid_from<M>(begin + lane_off, end));
+  for (long long r = 0; r < rounds; ++r) {
+    const long long base = begin + r * 32 * M, next = base + 32 * M + lane_off;
+    if (r + 1 < rounds) load_batch(nxt, a, ch, next, valid_from<M>(next, end));
+    const int valid = valid_from<M>(base + lane_off, end);
+    Term<T, R> t[M];
+    unsigned peers[M];
+    bool lead[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) marker_terms(a, cur, j, base + lane_off + j, valid, t[j]);
+#pragma unroll
+    for (int j = 0; j < M; ++j) peers[j] = lanes_of_cell<KIND>(claim, slots, t[j].cell);
+#pragma unroll
+    for (int j = 0; j < M; ++j) lead[j] = gather_peers(peers[j], t[j]);
+    for (int turn = 0; turn < share; ++turn) {
+      if (member == turn) {
+#pragma unroll
+        for (int j = 0; j < M; ++j) add_terms(grid, a.nx, lead[j], t[j]);
       }
-      if (turns > 1) __syncthreads();
+      if constexpr (KIND == kXV && kShare > 1) {
+        if (share > 1) group_sync(1 + copy, 32 * share);
+      }
+    }
+    cur = nxt;
+  }
+}
+
+// a block's threads at most: its copies' sharing warps
+template <int KIND>
+constexpr int kMaxThreads = kMaxCopies * (KIND == kXV ? kShare : 1) * 32;
+
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kMaxThreads<KIND>) hist_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x / a.k, ch = blockIdx.x % a.k;
+  const int warp = threadIdx.x >> 5;
+  const long long begin = (static_cast<long long>(b) * a.warps + warp) * a.per_warp;
+  const long long end = begin + a.per_warp < a.n ? begin + a.per_warp : a.n;
+  const long long rounds = a.per_warp / (32 * kMarkers<KIND>);
+  T* row = a.partials + (static_cast<long long>(b) * a.k + ch) * a.nbins;
+
+  if constexpr (KIND != kXV) {
+    if (a.form == kLanes) {
+      T* g = reinterpret_cast<T*>(smem_raw);       // [warp][cell][lane]
+      const int cells = a.warps * a.nbins;
+      for (int j = threadIdx.x; j < 32 * cells; j += blockDim.x) g[j] = T(0);
+      __syncthreads();
+      walk_lanes<T, KIND>(a, g + 32 * warp * a.nbins, begin, end, rounds);
+      __syncthreads();
+      // each warp's cell: its 32 lanes from lane q % 32 on, wrapping (so a
+      // warp of threads reads 32 banks), into that lane's slot
+      for (int q = threadIdx.x; q < cells; q += blockDim.x) {
+        const int first = q & 31;
+        T* cell = g + 32 * q;
+        T acc = cell[first];
+        for (int l = 1; l < 32; ++l) acc = add_rn(acc, cell[(first + l) & 31]);
+        cell[first] = acc;
+      }
+      __syncthreads();
+      for (int o = threadIdx.x; o < a.nbins; o += blockDim.x) {
+        T acc = T(0);
+        for (int w = 0; w < a.warps; ++w) {
+          const int q = w * a.nbins + o;
+          acc = add_rn(acc, g[32 * q + (q & 31)]);
+        }
+        row[o] = acc;
+      }
+      return;
     }
   }
+
+  const int share = a.warps / a.copies, copy = warp / share, member = warp % share;
+  const long long gstride = 2LL * a.nbins;   // one copy: nbins (left, right) pairs
+  T* grids = a.form == kBuffer ? a.grids + static_cast<long long>(blockIdx.x) * gstride
+                               : reinterpret_cast<T*>(smem_raw);
+  // the warps' claim tables (kXV) after the copies in shared memory
+  unsigned char* claim = smem_raw + (a.form == kBuffer ? 0 : a.copies * gstride * sizeof(T)) +
+                         warp * claim_bytes(KIND, a.nbins);
+  for (long long j = threadIdx.x; j < a.copies * gstride; j += blockDim.x) grids[j] = T(0);
+  __syncthreads();
+  // two calls, so that the shared-memory one addresses shared memory directly
+  if (a.form == kBuffer)
+    walk_warps<T, KIND>(a, grids, claim, ch, begin, end, rounds, 1, 0, 0);
+  else
+    walk_warps<T, KIND>(a, reinterpret_cast<T*>(smem_raw) + copy * gstride, claim, ch, begin,
+                        end, rounds, share, copy, member);
   __syncthreads();
 
   // the tail: left half + its left neighbour's right half, copy by copy
-  T* row = a.partials + static_cast<long long>(blockIdx.x) * K * a.nbins;
-  for (int o = threadIdx.x; o < a.nbins; o += kThreads) {
+  for (int o = threadIdx.x; o < a.nbins; o += blockDim.x) {
     const int prev = left_neighbour<KIND>(o, a.nx, a.nv);
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-      T acc = T(0);
-      for (int cp = 0; cp < copies; ++cp) {
-        const T* g = grids + cp * gstride + c * 2LL * a.nbins;
-        acc += g[o];
-        if (prev >= 0) acc += g[a.nbins + prev];
-      }
-      row[c * a.nbins + o] = acc;
+    T acc = T(0);
+    for (int w = 0; w < a.copies; ++w) {
+      const T* g = grids + w * gstride;
+      acc = add_rn(acc, g[2 * o]);
+      if (prev >= 0) acc = add_rn(acc, g[2 * prev + 1]);
     }
+    row[o] = acc;
   }
 }
 
-// out[o] = the sum of the `blocks` rows' value o, in block order.
+// out[o] = the sum of the `rows` rows' value o: row group g sums rows g,
+// g + kSumGroups, ... in order, and the groups' sums are added in group
+// order.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) hist_sum_kernel(const T* partials, int blocks,
-                                                            int values, T* out) {
-  const int o = blockIdx.x * kThreads + threadIdx.x;
-  if (o >= values) return;
+__global__ void __launch_bounds__(kSumValues * kSumGroups)
+    hist_sum_kernel(const T* partials, int rows, int values, T* out) {
+  __shared__ T part[kSumGroups][kSumValues];
+  const int lane = threadIdx.x % kSumValues, g = threadIdx.x / kSumValues;
+  const int o = blockIdx.x * kSumValues + lane;
   T acc = T(0);
-  for (int b = 0; b < blocks; ++b) acc += partials[static_cast<long long>(b) * values + o];
-  out[o] = acc;
-}
-
-template <typename T, int K, int KIND>
-void* kernel_of() {
-  return reinterpret_cast<void*>(&hist_kernel<T, K, KIND>);
+  if (o < values) {
+#pragma unroll 4
+    for (int r = g; r < rows; r += kSumGroups)
+      acc = add_rn(acc, partials[static_cast<long long>(r) * values + o]);
+  }
+  part[g][lane] = acc;
+  __syncthreads();
+  if (g == 0 && o < values) {
+    T s = part[0][lane];
+#pragma unroll
+    for (int q = 1; q < kSumGroups; ++q) s = add_rn(s, part[q][lane]);
+    out[o] = s;
+  }
 }
 
 template <typename T>
-void* pick(int kind, int k) {
-  if (kind == kXV)
-    return k == 1 ? kernel_of<T, 1, kXV>() : k == 2 ? kernel_of<T, 2, kXV>()
-                                           : kernel_of<T, 3, kXV>();
-  return kind == kV ? kernel_of<T, 1, kV>() : kernel_of<T, 1, kX>();
+const void* pick(int kind) {
+  if (kind == kXV) return reinterpret_cast<const void*>(&hist_kernel<T, kXV>);
+  if (kind == kV) return reinterpret_cast<const void*>(&hist_kernel<T, kV>);
+  return reinterpret_cast<const void*>(&hist_kernel<T, kX>);
 }
 
 bool valid_kind(int kind, int k) {
   return (kind == kXV && k >= 1 && k <= kMaxK) || ((kind == kV || kind == kX) && k == 1);
 }
 
-// Grids in shared memory: the most copies of 8, 4, 2, 1 whose grids and the
-// warps' stages fit in kSmemMax; 0 copies (the device buffer, the stages
-// alone in shared memory) where not even one does.
-int plan_smem(int itemsize, int k, int nbins, int* copies) {
-  const long long stage = static_cast<long long>(kWarps) * 64 * k * itemsize;
-  for (int c = kWarps; c >= 1; c /= 2) {
-    const long long bytes = static_cast<long long>(c) * 2 * k * nbins * itemsize + stage;
-    if (bytes <= kSmemMax) {
-      *copies = c;
-      return static_cast<int>(bytes);
-    }
-  }
-  *copies = 0;
-  return static_cast<int>(stage);
+uintptr_t misalign(const void* p, uintptr_t to) {
+  return reinterpret_cast<uintptr_t>(p) % to;
 }
 
-// Check a launch and run both kernels: the deposit on `blocks` blocks of
-// per_block markers each (none when there are no markers), then the sum of
-// their rows into out.
+// Check a launch and run both kernels: the deposit on `blocks` x k blocks
+// of the plan's W warps, block b's warp w taking per_warp markers from
+// (b W + w) per_warp (none when there are no markers), then the sum of the
+// blocks' rows into out.
 template <typename T>
-int launch(int kind, int k, const void* a, const void* b, const void* c, long long n,
-           int ns, int nx, int nv, double lx, double v_max, void* grids, int blocks,
-           long long per_block, void* partials, void* out, void* stream) {
+int launch(int kind, int k, const void* a, const void* b, const void* c, long long n, int ns,
+           int nx, int nv, double lx, double v_max, void* grids, int blocks, long long per_warp,
+           void* partials, void* out, void* stream) {
   const long long total = n * ns;
   if (!valid_kind(kind, k) || ns < 1 || (kind == kXV && ns != 1) || nx < 1 || nv < 2 ||
       n < 0 || blocks < 0 || out == nullptr || !(lx > 0.0) || !(v_max > 0.0))
     return cudaErrorInvalidValue;
   const long long nbins = kind == kXV ? static_cast<long long>(nv) * nx
                           : kind == kV ? static_cast<long long>(ns) * nv : nx;
-  if (nbins * 2 * k > (1LL << 31) - 1) return cudaErrorInvalidValue;
-  if (total > 0 && (blocks < 1 || per_block < 1 || per_block % kThreads != 0 ||
-                    (blocks - 1) * per_block >= total || blocks * per_block < total ||
-                    partials == nullptr))
+  if (nbins * 32 * k > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  const Plan p = plan(static_cast<int>(sizeof(T)), kind, static_cast<int>(nbins));
+  const long long span = p.warps * per_warp;   // markers a block
+  const int markers = kind == kXV ? kMXV : kMX;
+  if (total > 0 && (blocks < 1 || per_warp < 1 || per_warp % (32 * markers) != 0 ||
+                    (blocks - 1) * span >= total || blocks * span < total ||
+                    static_cast<long long>(blocks) * k > (1LL << 31) - 1 ||
+                    partials == nullptr || (p.form == kBuffer && grids == nullptr)))
     return cudaErrorInvalidValue;
-  int copies = 0;
-  const int smem = plan_smem(static_cast<int>(sizeof(T)), k, static_cast<int>(nbins), &copies);
-  if (total > 0 && copies == 0 && grids == nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (total > 0) {
     Args<T> args{};
@@ -295,59 +625,65 @@ int launch(int kind, int k, const void* a, const void* b, const void* c, long lo
     args.c = c;
     args.n = total;
     args.n_species = n;
-    args.per_block = per_block;
+    args.per_warp = per_warp;
     args.nx = nx;
     args.nv = nv;
     args.nbins = static_cast<int>(nbins);
+    args.k = k;
     args.x_scale = static_cast<T>(nx / lx);
     args.v_max = static_cast<T>(v_max);
     args.v_scale = static_cast<T>((nv - 1) / (2.0 * v_max));
-    args.copies = copies;
-    args.grids = static_cast<T*>(grids);
+    args.form = p.form;
+    args.copies = p.copies;
+    args.warps = p.warps;
+    args.vec = misalign(a, 16) == 0 && misalign(b, 16) == 0 &&
+               (kind != kXV || (misalign(c, 16) == 0 && (n * sizeof(T)) % 16 == 0)) &&
+               (kind != kV || misalign(c, 4) == 0);
+    args.grids = p.form == kBuffer ? static_cast<T*>(grids) : nullptr;
     args.partials = static_cast<T*>(partials);
-    if (kind == kXV) {
-      if (k == 1) hist_kernel<T, 1, kXV><<<blocks, kThreads, smem, st>>>(args);
-      else if (k == 2) hist_kernel<T, 2, kXV><<<blocks, kThreads, smem, st>>>(args);
-      else hist_kernel<T, 3, kXV><<<blocks, kThreads, smem, st>>>(args);
-    } else if (kind == kV) {
-      hist_kernel<T, 1, kV><<<blocks, kThreads, smem, st>>>(args);
-    } else {
-      hist_kernel<T, 1, kX><<<blocks, kThreads, smem, st>>>(args);
-    }
+    const dim3 grid(static_cast<unsigned>(blocks * k));
+    const int threads = 32 * p.warps;
+    if (kind == kXV) hist_kernel<T, kXV><<<grid, threads, p.smem, st>>>(args);
+    else if (kind == kV) hist_kernel<T, kV><<<grid, threads, p.smem, st>>>(args);
+    else hist_kernel<T, kX><<<grid, threads, p.smem, st>>>(args);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   } else {
     blocks = 0;
   }
   const int values = static_cast<int>(k * nbins);
-  hist_sum_kernel<T><<<(values + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+  hist_sum_kernel<T><<<(values + kSumValues - 1) / kSumValues, kSumValues * kSumGroups, 0, st>>>(
       static_cast<const T*>(partials), blocks, values, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
-// The shared memory and grid copies of a launch (plan_smem), its kernel
-// opted in to that much shared memory on the current device where it needs
-// more than 48 KB, and the blocks of it an SM holds (at most
-// kMaxBlocksPerSm; 1 where the grids lie in the device buffer, whose size
-// grows with the blocks).
+// The plan of a launch (its form, copies, warps and shared memory), its
+// kernel opted in to the most shared memory on the current device where the
+// plan needs more than 48 KB (a smaller opt-in would refuse a later launch
+// on another grid that needs more), and the blocks of it an SM holds (at
+// most kMaxBlocksPerSm; 1 for kBuffer, whose buffer grows with the blocks).
 template <typename T>
-int configure(int kind, int k, int nbins, int* copies, int* smem, int* blocks_per_sm) {
-  if (!valid_kind(kind, k) || nbins < 1 || static_cast<long long>(nbins) * 2 * k >
-      (1LL << 31) - 1)
+int configure(int kind, int nbins, int* form, int* copies, int* warps, int* smem,
+              int* blocks_per_sm) {
+  if (!valid_kind(kind, 1) || nbins < 1 || static_cast<long long>(nbins) * 32 > (1LL << 31) - 1)
     return cudaErrorInvalidValue;
-  *smem = plan_smem(static_cast<int>(sizeof(T)), k, nbins, copies);
-  const void* fn = pick<T>(kind, k);
-  if (*smem > kSmemNoOptIn) {
-    const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               *smem);
+  const Plan p = plan(static_cast<int>(sizeof(T)), kind, nbins);
+  *form = p.form;
+  *copies = p.copies;
+  *warps = p.warps;
+  *smem = p.smem;
+  const void* fn = pick<T>(kind);
+  if (p.smem > kSmemNoOptIn) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
   }
   int per_sm = 0;
   const cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, *smem);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32 * p.warps, p.smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks_per_sm = *copies == 0 ? 1 : per_sm < kMaxBlocksPerSm ? per_sm : kMaxBlocksPerSm;
+  *blocks_per_sm = p.form == kBuffer ? 1 : per_sm < kMaxBlocksPerSm ? per_sm : kMaxBlocksPerSm;
   return cudaSuccess;
 }
 
@@ -355,37 +691,42 @@ int configure(int kind, int k, int nbins, int* copies, int* smem, int* blocks_pe
 
 extern "C" {
 
-int pic1dp_hist_threads() { return kThreads; }
-
-int pic1dp_hist_smem_max() { return kSmemMax; }
+// The constants the host mirrors (ops/hist_kernels.py), in one array:
+// kMaxCopies, kShare, kLaneWarpsMin, kMXV, kMX, kSmemMax, kSumGroups,
+// kClaimMax.
+void pic1dp_hist_constants(int* out) {
+  const int c[] = {kMaxCopies, kShare, kLaneWarpsMin, kMXV, kMX, kSmemMax, kSumGroups, kClaimMax};
+  for (int i = 0; i < 8; ++i) out[i] = c[i];
+}
 
 const char* pic1dp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // configure() at itemsize 4 (float) or 8 (double).
-int pic1dp_hist_configure(int itemsize, int kind, int k, int nbins, int* copies, int* smem,
-                          int* blocks_per_sm) {
-  if (itemsize == 4) return configure<float>(kind, k, nbins, copies, smem, blocks_per_sm);
-  if (itemsize == 8) return configure<double>(kind, k, nbins, copies, smem, blocks_per_sm);
+int pic1dp_hist_configure(int itemsize, int kind, int nbins, int* form, int* copies, int* warps,
+                          int* smem, int* blocks_per_sm) {
+  if (itemsize == 4) return configure<float>(kind, nbins, form, copies, warps, smem, blocks_per_sm);
+  if (itemsize == 8)
+    return configure<double>(kind, nbins, form, copies, warps, smem, blocks_per_sm);
   return cudaErrorInvalidValue;
 }
 
 // One deposit and its sum (launch()); a, b, c as Args names them; n markers
-// of each of ns species (kXV: ns = 1); grids: the device buffer of blocks x
-// k x 2 nbins values where the grids do not fit in shared memory, else
+// of each of ns species (kXV: ns = 1); k output channels; grids: the device
+// buffer of blocks x k x 2 nbins values where the plan is kBuffer, else
 // unused; partials: blocks x k x nbins values; out: k x nbins values.
 int pic1dp_hist_f32(int kind, int k, const void* a, const void* b, const void* c, long long n,
                     int ns, int nx, int nv, double lx, double v_max, void* grids, int blocks,
-                    long long per_block, void* partials, void* out, void* stream) {
-  return launch<float>(kind, k, a, b, c, n, ns, nx, nv, lx, v_max, grids, blocks, per_block,
+                    long long per_warp, void* partials, void* out, void* stream) {
+  return launch<float>(kind, k, a, b, c, n, ns, nx, nv, lx, v_max, grids, blocks, per_warp,
                        partials, out, stream);
 }
 
 int pic1dp_hist_f64(int kind, int k, const void* a, const void* b, const void* c, long long n,
                     int ns, int nx, int nv, double lx, double v_max, void* grids, int blocks,
-                    long long per_block, void* partials, void* out, void* stream) {
-  return launch<double>(kind, k, a, b, c, n, ns, nx, nv, lx, v_max, grids, blocks, per_block,
+                    long long per_warp, void* partials, void* out, void* stream) {
+  return launch<double>(kind, k, a, b, c, n, ns, nx, nv, lx, v_max, grids, blocks, per_warp,
                         partials, out, stream);
 }
 

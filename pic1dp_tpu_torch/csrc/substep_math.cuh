@@ -314,59 +314,38 @@ __device__ __forceinline__ T grid_gather(const T* eg, int ix0, T f) {
   return fma_t(f, eg[ix0 + 1] - a, a);
 }
 
-// rho[c 2 nx + cell] += left[c] and rho[c 2 nx + nx + cell] += right[c],
-// channel by channel (K channels, each a grid of 2 nx values), for every
-// lane of the warp whose cell is >= 0 (a marker's two hat halves: rho[0, nx)
-// holds the halves deposited at their cell ix0, rho[nx, 2 nx) those that
-// belong to ix0 + 1, so one match serves both), in an order fixed by the
-// lanes alone: the lanes that share a cell (__match_any_sync) are summed by
-// the lowest of them, its own values first and then the others' in lane
-// order, read from stage (the warp's 64 K values in shared memory), and
-// that lane alone adds the sums to rho.  No float atomic, so the result does
-// not depend on how the warps are scheduled.  Every lane of the warp must
-// call it; it ends with __syncwarp, so rho and stage may be used again at
-// once.  The substep kernels' charge grid is its one-channel form (below);
-// the hat deposits of csrc/hist_kernels.cu call it with up to 3 channels.
-template <typename T, int K>
-__device__ __forceinline__ void deposit_lanes(T* rho, int nx, T* stage, int cell,
-                                              T (&left)[K], T (&right)[K]) {
+// rho[cell] += left and rho[nx + cell] += right for every lane of the warp
+// whose cell is >= 0 (a marker's two hat halves: rho[0, nx) holds the halves
+// deposited at their cell ix0, rho[nx, 2 nx) those that belong to ix0 + 1,
+// so one match serves both), in an order fixed by the lanes alone: the
+// lanes that share a cell (__match_any_sync) are summed by the lowest of
+// them, its own values first and then the others' in lane order, read from
+// stage (the warp's 64 values in shared memory), and that lane alone adds
+// the sums to rho.  No float atomic, so the result does not depend on how
+// the warps are scheduled.  Every lane of the warp must call it; it ends
+// with __syncwarp, so rho and stage may be used again at once.
+template <typename T>
+__device__ __forceinline__ void deposit_lanes(T* rho, int nx, T* stage, int cell, T left,
+                                              T right) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned peers = __match_any_sync(0xffffffffu, cell);
   const bool lowest = (peers & ((1u << lane) - 1u)) == 0u;
   const unsigned above = peers & ~((2u << lane) - 1u);
   if (__any_sync(0xffffffffu, above != 0u)) {
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-      stage[c * 64 + lane] = left[c];
-      stage[c * 64 + 32 + lane] = right[c];
-    }
+    stage[lane] = left;
+    stage[32 + lane] = right;
     __syncwarp();
     if (lowest)
       for (unsigned rest = above; rest != 0u; rest &= rest - 1u) {
-        const int src = __ffs(rest) - 1;
-#pragma unroll
-        for (int c = 0; c < K; ++c) {
-          left[c] += stage[c * 64 + src];
-          right[c] += stage[c * 64 + 32 + src];
-        }
+        left += stage[__ffs(rest) - 1];
+        right += stage[32 + __ffs(rest) - 1];
       }
   }
   if (lowest && cell >= 0) {
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-      rho[c * 2 * nx + cell] += left[c];
-      rho[c * 2 * nx + nx + cell] += right[c];
-    }
+    rho[cell] += left;
+    rho[nx + cell] += right;
   }
   __syncwarp();
-}
-
-// One channel: rho[cell] += left and rho[nx + cell] += right.
-template <typename T>
-__device__ __forceinline__ void deposit_lanes(T* rho, int nx, T* stage, int cell, T left,
-                                              T right) {
-  T l[1] = {left}, r[1] = {right};
-  deposit_lanes<T, 1>(rho, nx, stage, cell, l, r);
 }
 
 // Periodic wrap into [0, lx) by a reciprocal multiply; the reciprocal's

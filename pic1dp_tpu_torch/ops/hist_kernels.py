@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,11 +45,19 @@ HIST_V = CudaKernel("hist_v", _SRC, "pic1dp_tpu/core/diagnostics.py:184")
 GRID_CHARGE = CudaKernel("grid_charge", _SRC, "pic1dp_tpu/ops/deposit.py:133")
 KERNELS = (HIST_XV, HIST_V, GRID_CHARGE)
 
-# enum Kind in csrc/hist_kernels.cu
+# enum Kind and enum Form in csrc/hist_kernels.cu
 XV, V, X = 0, 1, 2
+LANES, WARPS, BUFFER = 0, 1, 2
 MAX_K = 3                 # value channels of hist_xv
-THREADS = 256             # kThreads
+# the source's constants (pic1dp_hist_constants, in its order)
+MAX_COPIES = 8            # kMaxCopies: grid copies (LANES: warps) a block at most
+SHARE = 2                 # kShare: warps of the x-v histogram that share a grid copy
+LANE_WARPS_MIN = 4        # kLaneWarpsMin: LANES where this many warps' lane copies fit
+MARKERS_XV = 8            # kMXV: markers a lane takes per round, x-v histogram
+MARKERS_X = 16            # kMX: the same, profile and grid charge
 SMEM_MAX = 232_448        # kSmemMax: one block's shared memory with an opt-in
+SUM_GROUPS = 16           # kSumGroups: row groups of the row sum
+CLAIM_MAX = 2048          # kClaimMax: slots of a claim table at most
 
 
 # ---- the plain versions ----
@@ -180,70 +189,125 @@ def _check(name: str, tensors, numels, dtype, live=None) -> None:
         raise ValueError(f"no {name} kernel for device {x.device}")
 
 
-def blocks(n: int, blocks_per_sm: int, sms: int) -> tuple[int, int]:
-    """The deposit's grid for n markers: (G, markers per block), each block
-    a whole number of THREADS-marker rounds and none without markers; (0, 0)
-    for none.  Fixed by n and the card, so is every sum's order."""
+def markers(kind: int) -> int:
+    """Markers a lane takes per round (kMarkers in the source)."""
+    return MARKERS_XV if kind == XV else MARKERS_X
+
+
+def blocks(n: int, m: int, warps: int, blocks_per_sm: int, sms: int, k: int = 1
+           ) -> tuple[int, int]:
+    """The deposit's marker ranges for n markers, m a lane a round: (G,
+    markers per warp).  Block b's warp w takes per_warp markers from (b
+    warps + w) per_warp, per_warp a whole number of rounds of 32 m; G blocks
+    for each of the k channels, at most blocks_per_sm * sms of them in all,
+    and no block without markers; (0, 0) for none.  Fixed by n, the plan and
+    the card, so is every sum's order."""
     if n == 0:
         return 0, 0
-    g = min(blocks_per_sm * sms, -(-n // THREADS))
-    per_block = -(-(-(-n // g)) // THREADS) * THREADS
-    return -(-n // per_block), per_block
+    chunk = 32 * m
+    g = max(1, min(blocks_per_sm * sms // k, -(-n // (warps * chunk))))
+    per_warp = -(-(-(-n // (g * warps))) // chunk) * chunk
+    return -(-n // (warps * per_warp)), per_warp
 
 
-def plan_smem(itemsize: int, k: int, nbins: int) -> tuple[int, int]:
-    """(shared memory bytes, grid copies) of a block (plan_smem in the
-    source): the most copies of 8, 4, 2, 1 grids of k channels x 2 nbins
-    values, beside the warps' stages of 64 k values, within SMEM_MAX; the
-    stages alone and 0 copies (the device buffer) where none fits."""
-    stage = 8 * 64 * k * itemsize
-    for c in (8, 4, 2, 1):
-        if c * 2 * k * nbins * itemsize + stage <= SMEM_MAX:
-            return c * 2 * k * nbins * itemsize + stage, c
-    return stage, 0
+def claim_bytes(kind: int, nbins: int) -> int:
+    """A warp's claim table (claim_bytes in the source) for the x-v
+    histogram: a byte a slot, the power of two of slots from 16 that holds
+    nbins, at most CLAIM_MAX; none for the others."""
+    size = 16
+    while size < nbins and size < CLAIM_MAX:
+        size *= 2
+    return size if kind == XV else 0
+
+
+class Plan(NamedTuple):
+    """How a block holds its grids (plan in the source)."""
+
+    form: int       # LANES, WARPS or BUFFER
+    copies: int     # grid copies (LANES: warps of 32 lane copies)
+    warps: int
+    smem: int       # bytes of shared memory
+
+
+def plan(itemsize: int, kind: int, nbins: int) -> Plan:
+    """LANES for the profile and the grid charge where 32 lane copies of
+    nbins values fit for at least LANE_WARPS_MIN warps (the most of
+    MAX_COPIES); else WARPS: copies of 2 nbins values, each with the claim
+    tables of the SHARE warps that share it for the x-v histogram (one warp
+    a copy for the others), the most of MAX_COPIES that fit in SMEM_MAX;
+    else BUFFER: one warp a block, its copy in the device buffer, its claim
+    table alone in shared memory."""
+    lanes = 32 * nbins * itemsize
+    if kind != XV and SMEM_MAX // lanes >= LANE_WARPS_MIN:
+        w = min(MAX_COPIES, SMEM_MAX // lanes)
+        return Plan(LANES, w, w, w * lanes)
+    share = SHARE if kind == XV else 1
+    claim = claim_bytes(kind, nbins)
+    copy = 2 * nbins * itemsize + share * claim
+    if SMEM_MAX // copy:
+        c = min(MAX_COPIES, SMEM_MAX // copy)
+        return Plan(WARPS, c, c * share, c * copy)
+    return Plan(BUFFER, 1, 1, claim)
 
 
 def _launch(kernel: CudaKernel, kind: int, k: int, a, b, c, n: int, ns: int, nx: int,
             nv: int, lx: float, v_max: float, nbins: int) -> torch.Tensor:
     lib = library().lib
     dev = a.device
-    copies, per_sm = _configure(kind, k, nbins, a.element_size(),
-                                dev.index if dev.index is not None
-                                else torch.cuda.current_device())
-    g, per_block = blocks(n * ns, per_sm, nvcc.sm_count(dev))
+    p, per_sm = _configure(kind, nbins, a.element_size(),
+                           dev.index if dev.index is not None else torch.cuda.current_device())
+    g, per_warp = blocks(n * ns, markers(kind), p.warps, per_sm, nvcc.sm_count(dev), k)
     partials = torch.empty(g * k * nbins, dtype=a.dtype, device=dev)
     grids = (torch.empty(g * k * 2 * nbins, dtype=a.dtype, device=dev)
-             if copies == 0 and g else None)
+             if p.form == BUFFER and g else None)
     out = torch.empty(k * nbins, dtype=a.dtype, device=dev)
     entry = lib.pic1dp_hist_f32 if a.dtype == torch.float32 else lib.pic1dp_hist_f64
-    rc = entry(kind, k, a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(), n,
-               ns, nx, nv, lx, v_max, None if grids is None else grids.data_ptr(), g,
-               per_block, partials.data_ptr(), out.data_ptr(),
-               torch.cuda.current_stream(dev).cuda_stream)
+    rc = entry(kind, k, a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(), n, ns,
+               nx, nv, lx, v_max, None if grids is None else grids.data_ptr(), g, per_warp,
+               partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     kernel.launched(rc, lib)
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _configure(kind: int, k: int, nbins: int, itemsize: int, device: int) -> tuple[int, int]:
-    """(grid copies in shared memory, blocks an SM) of a launch: the kernel
-    opted in to its shared memory on the device and the occupancy query,
-    once per kernel, grid and device (the first call is made outside any
-    graph capture)."""
+def _configure(kind: int, nbins: int, itemsize: int, device: int) -> tuple[Plan, int]:
+    """(plan, blocks an SM) of a launch: the kernel opted in to its shared
+    memory on the device and the occupancy query, once per kernel, grid and
+    device (the first call is made outside any graph capture)."""
     lib = library().lib
-    copies, smem, per_sm = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    out = [ctypes.c_int(0) for _ in range(5)]
     with torch.cuda.device(device):
-        rc = lib.pic1dp_hist_configure(itemsize, kind, k, nbins, ctypes.byref(copies),
-                                       ctypes.byref(smem), ctypes.byref(per_sm))
+        rc = lib.pic1dp_hist_configure(itemsize, kind, nbins, *(ctypes.byref(o) for o in out))
     if rc != 0:
         raise RuntimeError(f"hist kernel setup failed: "
                            f"{lib.pic1dp_error_string(rc).decode()} ({rc})")
-    if (smem.value, copies.value) != plan_smem(itemsize, k, nbins):
-        raise RuntimeError(f"plan_smem does not match {_SRC}'s")
-    return copies.value, per_sm.value
+    got = Plan(*(o.value for o in out[:4]))
+    if got != plan(itemsize, kind, nbins):
+        raise RuntimeError(f"plan does not match {_SRC}'s: {got}")
+    return got, out[4].value
 
 
 _lib: nvcc.Library | None = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Check a build of csrc/hist_kernels.cu against this module's mirrors
+    of its constants and declare its C signatures."""
+    ptr, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    consts = (i32 * 8)()
+    lib.pic1dp_hist_constants.argtypes = [ctypes.POINTER(i32)]
+    lib.pic1dp_hist_constants(consts)
+    want = (MAX_COPIES, SHARE, LANE_WARPS_MIN, MARKERS_XV, MARKERS_X, SMEM_MAX, SUM_GROUPS,
+            CLAIM_MAX)
+    if tuple(consts) != want:
+        raise RuntimeError(f"the constants of {_SRC} {tuple(consts)} are not this module's {want}")
+    for entry in (lib.pic1dp_hist_f32, lib.pic1dp_hist_f64):
+        entry.argtypes = [i32, i32, ptr, ptr, ptr, i64, i32, i32, i32, f64, f64, ptr, i32, i64,
+                          ptr, ptr, ptr]
+    lib.pic1dp_hist_configure.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 5
+    lib.pic1dp_error_string.argtypes = [i32]
+    lib.pic1dp_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def library() -> nvcc.Library:
@@ -251,15 +315,6 @@ def library() -> nvcc.Library:
     global _lib
     if _lib is None:
         built = nvcc.load(SOURCE)
-        lib = built.lib
-        if lib.pic1dp_hist_threads() != THREADS or lib.pic1dp_hist_smem_max() != SMEM_MAX:
-            raise RuntimeError(f"THREADS or SMEM_MAX do not match {_SRC}")
-        ptr, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-        for entry in (lib.pic1dp_hist_f32, lib.pic1dp_hist_f64):
-            entry.argtypes = [i32, i32, ptr, ptr, ptr, i64, i32, i32, i32, f64, f64, ptr, i32,
-                              i64, ptr, ptr, ptr]
-        lib.pic1dp_hist_configure.argtypes = [i32, i32, i32, i32] + [ctypes.POINTER(i32)] * 3
-        lib.pic1dp_error_string.argtypes = [i32]
-        lib.pic1dp_error_string.restype = ctypes.c_char_p
+        bind(built.lib)
         _lib = built
     return _lib

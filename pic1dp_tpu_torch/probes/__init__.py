@@ -123,6 +123,47 @@ def graph_ms(fn, device: torch.device) -> float:
     return start.elapsed_time(end) / REPS
 
 
+def kernel_ms(fn, device: torch.device, tries: int = 3) -> dict[str, float]:
+    """Device ms per launch of each kernel fn launches, by demangled name:
+    REPS calls captured in one CUDA graph, replayed once under
+    torch.profiler after a warm-up replay; the mean duration of the
+    trace's kernel records of each name (the profiler now and then drops a
+    batch of records: a mean over those it kept, and a replay again, up to
+    `tries` in all, where it kept none).  Card only.  It imports what it
+    needs itself: probes/turns.py runs its source in another checkout."""
+    import json
+    import os
+    import tempfile
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(REPS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    spans: dict[str, list[float]] = {}
+    for _ in range(tries):
+        with tempfile.TemporaryDirectory() as out:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize(device)
+            path = os.path.join(out, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        for ev in events:
+            if ev.get("cat") == "kernel" and "dur" in ev:
+                spans.setdefault(ev["name"], []).append(ev["dur"] * 1e-3)
+        if spans:
+            break
+    return {name: sum(d) / len(d) for name, d in spans.items()}
+
+
 def fresh_streams(k: int, n: int, device: torch.device, seed: int) -> list[torch.Tensor]:
     """k float32 streams of n values in [0, 1), made on the device."""
     gen = torch.Generator(device=device).manual_seed(seed)

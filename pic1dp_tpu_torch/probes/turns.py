@@ -1,7 +1,7 @@
-"""Time the substep kernels and the Stepper, or the bulk-copy ring, of two
-checkouts in turns.
+"""Time the substep kernels and the Stepper, the bulk-copy ring, or the hat
+deposits, of two checkouts in turns.
 
-    python -m pic1dp_tpu_torch.probes.turns OTHER_ROOT [THIS_ROOT=.] [--ring]
+    python -m pic1dp_tpu_torch.probes.turns OTHER_ROOT [THIS_ROOT=.] [--ring | --hist]
 
 Each turn is one process started in a checkout's root, which times that
 checkout's own code with its own chip_smoke.py and kernel probe: every
@@ -36,32 +36,35 @@ at trig x0 and x4 and their compute rows, and pipeline_probe's rings
 reports), each at the checkout's own defaults, beside the direct-load rows
 of the same probes as a control; only the stream source is built, and its
 ptxas lines are compared.
+
+With --hist the turns time the hat deposits of ops/hist_kernels.py at
+chip_smoke.time_hists' shapes, in f32 (D1 hist_xv: 6.4M markers, the 64 x
+64 grid, three channels; D2 profile: 2^21, nv 128; D3 grid_charge: 6.4M,
+nx 192): each call (CUDA-graph replays) and its deposit and row-sum
+kernels apart (probes.kernel_ms), with a SHA-256 of each output; a
+snapshot of the main run (output_snapshot, CUDA events) with and without
+diag_full_rho; the main run to t = 100 (host clock); the main graph step
+(chip_smoke.time_steppers); and the SHA-256 of both substeps at every
+case of the default turns, which must equal the other checkout's.  The
+substep and hist sources are built, and both sources' ptxas lines are
+compared.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
 import sys
 
-# what one turn runs, from the root of the checkout it times
-_TURN = r"""
-import dataclasses, hashlib, json, sys, time
-sys.path.insert(0, ".")
-import torch
-import chip_smoke as cs
-from pic1dp_tpu_torch.config import SpeciesConfig, bump_on_tail_default
-from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
-from pic1dp_tpu_torch.probes import kernel_probe, time_ms
+from pic1dp_tpu_torch.probes import kernel_ms
 
-cs.say = lambda *a: print(*a, file=sys.stderr, flush=True)
-smi = cs.card()
-main = bump_on_tail_default(time_max=100.0, verbosity=0)
-head = bump_on_tail_default(nparticle_max=cs.BENCH_N, nx=cs.BENCH_NX, verbosity=0)
+# the substep cases both turn scripts hash, and the hash (after `main`, the
+# main case's config, is set)
+_CASES = r"""
 electron = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=0.5, v0=0.0)
 two = dataclasses.replace(cs.landau_damping_cfg(), species=(electron,) * 2).validate()
-rows, sums = {}, {}
 
 
 def checksum(cfg, inputs, stream_v1=None):
@@ -82,6 +85,24 @@ for c in (cs.landau_cfg(linear=True), cs.landau_cfg(linear=True, bf16=True),
           cs.two_stream_cfg(), cs.two_stream_cfg(deltaf=False), cs.two_species_cfg(),
           cs.two_species_cfg(bf16=True), cs.nine_species_cfg(), two):
     cases.append((f"{c.nspecies}x{c.nparticle_max}", c, "loaded"))
+"""
+
+# what one turn runs, from the root of the checkout it times
+_TURN = r"""
+import dataclasses, hashlib, json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from pic1dp_tpu_torch.config import SpeciesConfig, bump_on_tail_default
+from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+from pic1dp_tpu_torch.probes import kernel_probe, time_ms
+
+cs.say = lambda *a: print(*a, file=sys.stderr, flush=True)
+smi = cs.card()
+main = bump_on_tail_default(time_max=100.0, verbosity=0)
+head = bump_on_tail_default(nparticle_max=cs.BENCH_N, nx=cs.BENCH_NX, verbosity=0)
+rows, sums = {}, {}
+""" + _CASES + r"""
 for label, cfg, inputs in cases:
     make = (lambda: cs._loaded_inputs(cfg)) if inputs else (
         lambda: cs._inputs(cfg, cfg.nparticle_max, "cuda"))
@@ -163,6 +184,88 @@ for c, (label, kernel, kw, alias) in enumerate(pipeline_probe.CASES):
 print(json.dumps({"card": smi, "rows": rows}))
 """
 
+# what one turn of --hist runs: the hat deposits, a snapshot, the main run,
+# the main graph step and the substep checksums
+_HIST_TURN = r"""
+import dataclasses, hashlib, json, os, sys, tempfile, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from pic1dp_tpu_torch import Simulation
+from pic1dp_tpu_torch.config import SpeciesConfig, bump_on_tail_default
+from pic1dp_tpu_torch.ops import hist_kernels as hk
+from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+from pic1dp_tpu_torch.probes import graph_ms
+
+""" + inspect.getsource(kernel_ms).replace("REPS", "20") + r"""
+
+cs.say = lambda *a: print(*a, file=sys.stderr, flush=True)
+smi = cs.card()
+dev = torch.device("cuda")
+cfg = bump_on_tail_default()
+lx, vm = cfg.lx, cfg.v_max
+rows, sums = {}, {}
+
+
+def digest(t):
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+for name, n in (("D1 hist_xv", cs.FULL_N), ("D2 profile", cs.OPT_N), ("D3 grid_charge", cs.FULL_N)):
+    x, v, p, w, live = cs.hist_markers(n, 1, "float32", lx, vm, cs.SEED)
+    if name.startswith("D1"):
+        vals = cs.hist_vals(x[0], p[0], w[0], live[0])
+        fn = lambda: hk.hist_xv(x[0], v[0], vals, lx, vm, cfg.nx_opd, cfg.nv_opd)
+    elif name.startswith("D2"):
+        fn = lambda: hk.profile(v, w, live, vm, cfg.nv)
+    else:
+        val = torch.where(live, w, 0.0) * -1.0
+        fn = lambda: hk.grid_charge(x, val, lx, cfg.nx)
+    sums[name] = digest(fn())
+    rows[f"{name} kernel"] = graph_ms(fn, dev)
+    split = kernel_ms(fn, dev)
+    rows[f"{name} deposit"] = sum(m for k, m in split.items() if "hist_kernel" in k)
+    rows[f"{name} row sum"] = sum(m for k, m in split.items() if "hist_sum_kernel" in k)
+    del x, v, p, w, live
+    torch.cuda.empty_cache()
+main = bump_on_tail_default(time_max=100.0, verbosity=0)
+with tempfile.TemporaryDirectory() as out:
+    for flag in (False, True):
+        sim = Simulation(dataclasses.replace(main, diag_full_rho=flag),
+                         out_path=os.path.join(out, str(flag)), device="cuda")
+        sim.load()
+        sim.state = sim.stepper.multi_step(sim.state, 20)
+        sim.output_snapshot()
+        torch.cuda.synchronize()
+        rows[f"snapshot{' diag_full_rho' if flag else ''}"] = cs._events_ms(sim.output_snapshot, 10)
+        sim.writer.close()
+        del sim
+    sim = Simulation(main, out_path=os.path.join(out, "run"), device="cuda")
+    start = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    rows["main run to t = 100 (s)"] = time.perf_counter() - start
+    with open(os.path.join(out, "run", "pic1dp.out"), "rb") as fh:
+        sums["main run pic1dp.out"] = hashlib.sha256(fh.read()).hexdigest()[:16]
+    del sim
+torch.cuda.empty_cache()
+mean = cs.time_steppers(main, smi)
+rows.update({f"main step {k}": mean[k] for k in ("eager", "graph")})
+""" + _CASES + r"""
+for label, c, inputs in cases:
+    make = (lambda: cs._loaded_inputs(c)) if inputs else (
+        lambda: cs._inputs(c, c.nparticle_max, "cuda"))
+    sums[f"substeps {label} {'bf16_weights' if c.bf16_weights else c.dtype} ns={c.nspecies}"] = \
+        checksum(c, make())
+    torch.cuda.empty_cache()
+for nmode in (16, 32, 64):
+    for stream_v1, lay in ((True, "streamed"), (False, "recompute")):
+        c = cs.many_modes_cfg(nmode)
+        sums[f"substeps {nmode} modes {lay} ns=1"] = checksum(
+            c, cs._inputs(c, c.nparticle_max, "cuda"), stream_v1)
+print(json.dumps({"card": smi, "rows": rows, "checksums": sums}))
+"""
+
 _BUILD = r"""
 import json, re, sys
 sys.path.insert(0, ".")
@@ -170,15 +273,17 @@ from pic1dp_tpu_torch.utils import nvcc
 built = nvcc.load_all(sys.argv[1:])
 for lib in built:
     print(lib.path.name, "nvcc", round(lib.build_seconds, 1), file=sys.stderr)
-entries, name = {}, None
-for ln in built[0].log.splitlines():
-    if "Compiling entry" in ln:
-        # the anonymous namespace's name carries a hash of the file
-        name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", re.search(r"'(\w+)'", ln).group(1))
-        entries[name] = []
-    elif name is not None and ("Used" in ln or "spill" in ln):
-        entries[name].append(ln.split(":", 1)[-1].strip())
-print(json.dumps(entries))
+out = {}
+for src, lib in zip(sys.argv[1:], built):
+    entries, name = out.setdefault(src, {}), None
+    for ln in lib.log.splitlines():
+        if "Compiling entry" in ln:
+            # the anonymous namespace's name carries a hash of the file
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", re.search(r"'(\w+)'", ln).group(1))
+            entries[name] = []
+        elif name is not None and ("Used" in ln or "spill" in ln):
+            entries[name].append(ln.split(":", 1)[-1].strip())
+print(json.dumps(out))
 """
 
 
@@ -199,28 +304,30 @@ def turn(root: str, script: str = _TURN) -> dict:
 
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
-    ring = "--ring" in argv
-    argv = [a for a in argv if a != "--ring"]
+    mode = next((a for a in argv if a in ("--ring", "--hist")), None)
+    argv = [a for a in argv if a not in ("--ring", "--hist")]
     if not argv:
         raise SystemExit(__doc__)
     other = os.path.abspath(argv[0])
     this = os.path.abspath(argv[1] if len(argv) > 1 else ".")
-    sources = ["stream_probes"] if ring else ["substep_kernels", "stream_probes"]
-    script = _RING_TURN if ring else _TURN
+    sources, script = {"--ring": (["stream_probes"], _RING_TURN),
+                       "--hist": (["substep_kernels", "hist_kernels"], _HIST_TURN),
+                       None: (["substep_kernels", "stream_probes"], _TURN)}[mode]
     builds = [subprocess.Popen([sys.executable, "-c", _BUILD, *sources], cwd=root,
                                stdout=subprocess.PIPE, text=True) for root in (other, this)]
     logs = [b.communicate()[0] for b in builds]
     if any(b.returncode != 0 for b in builds):
         raise SystemExit("a build failed")
     ptxas = [json.loads(log.strip().splitlines()[-1]) for log in logs]
-    for root, entries in zip((other, this), ptxas):
-        if not entries:
-            print(f"ptxas: no lines from {root}: its {sources[0]} library was built before this "
-                  f"run (remove its pic1dp_tpu_torch/_build/ to compare)", flush=True)
-    equal, differ = ptxas_diff(*ptxas)
-    print(f"ptxas, {sources[0]}: {len(ptxas[0])} entry functions in {other}, "
-          f"{len(ptxas[1])} in {this}; of the {equal + len(differ)} they share by name "
-          f"{equal} have equal lines, {len(differ)} differ: {differ}", flush=True)
+    for src in sources:
+        for root, built in zip((other, this), ptxas):
+            if not built[src]:
+                print(f"ptxas: no lines from {root}: its {src} library was built before this "
+                      f"run (remove its pic1dp_tpu_torch/_build/ to compare)", flush=True)
+        equal, differ = ptxas_diff(ptxas[0][src], ptxas[1][src])
+        print(f"ptxas, {src}: {len(ptxas[0][src])} entry functions in {other}, "
+              f"{len(ptxas[1][src])} in {this}; of the {equal + len(differ)} they share by "
+              f"name {equal} have equal lines, {len(differ)} differ: {differ}", flush=True)
     runs = {"other": [], "this": []}
     for name, root in (("other", other), ("this", this), ("this", this), ("other", other)):
         runs[name].append(turn(root, script))
@@ -240,8 +347,11 @@ def main(argv=None) -> dict:
     for row in runs["this"][0].get("checksums", {}):
         turns = [r.get("checksums", {}).get(row) for r in runs["other"] + runs["this"]]
         sums[row] = dict(other=turns[:2], this=turns[2:], equal=len(set(turns)) == 1)
+        verdict = ("equal in all four turns" if sums[row]["equal"] else
+                   "DIFFER; each checkout repeats its own" if len(set(turns[:2])) == 1 ==
+                   len(set(turns[2:])) else "DIFFER, and a checkout does not repeat its own")
         print(f"checksum {row:<36} other {turns[0]} {turns[1]}  this {turns[2]} {turns[3]}  "
-              f"{'equal in all four turns' if sums[row]['equal'] else 'DIFFER'}", flush=True)
+              f"{verdict}", flush=True)
     print(json.dumps({"rows": out, "checksums": sums}))
     return out
 

@@ -9,11 +9,15 @@ with one and three species, the edge cases of phase 3 (markers on the
 grids' edges, a count that is not a multiple of a block's markers, dead
 markers, no markers, a grid past the card's shared memory); a CPU tensor
 launches nothing; the CUDA path refuses what its kernels do not take
-before any launch; a numpy mirror of the kernels' deposit (halves at the
-lower cell, the fold, the block rows) gives the plain sums; and the load
-and the deposits give the same bits at any torch thread count."""
+before any launch; the plan of a block's grids and the blocks' marker
+ranges; a numpy mirror of the kernels' order (lane copies for the profile
+and the grid charge; for the x-v histogram one channel a block, copies
+shared by two warps, halves at the lower cell and the fold; the row sum's
+fixed order) gives the plain sums; and the load and the deposits give the
+same bits at any torch thread count."""
 
 import dataclasses
+import math
 import re
 from pathlib import Path
 
@@ -225,56 +229,157 @@ def test_cuda_path_checks_its_inputs():
 
 # ---- the kernels' design, mirrored on the CPU ----
 
+# (kind, warps, channels): D3's, D1's at 64 x 64, the buffer
+PLANS = [(hk.X, 8, 1), (hk.XV, 12, 3), (hk.X, 1, 1)]
+
+
+@pytest.mark.parametrize("kind, warps, k", PLANS, ids=["d3", "d1", "buffer"])
 @pytest.mark.parametrize("n", [0, 1, 255, 256, 257, N_ODD, 6_400_000])
 @pytest.mark.parametrize("per_sm", [1, 4])
-def test_blocks_cover_every_marker_once(n, per_sm):
-    g, per_block = hk.blocks(n, per_sm, 132)
+def test_blocks_cover_every_marker_once(n, per_sm, kind, warps, k):
+    """Block b's warp w takes per_warp markers from (b warps + w)
+    per_warp: whole rounds of 32 markers(kind), every marker in one range,
+    no block without markers, at most per_sm * 132 blocks over the k
+    channels."""
+    g, per_warp = hk.blocks(n, hk.markers(kind), warps, per_sm, 132, k)
     if n == 0:
-        assert (g, per_block) == (0, 0)
+        assert (g, per_warp) == (0, 0)
         return
-    assert per_block % hk.THREADS == 0 and 1 <= g <= per_sm * 132
-    assert (g - 1) * per_block < n <= g * per_block
+    assert per_warp % (32 * hk.markers(kind)) == 0
+    assert 1 <= g and g * k <= max(per_sm * 132, k)
+    assert (g - 1) * warps * per_warp < n <= g * warps * per_warp
 
 
-@pytest.mark.parametrize("itemsize, k, nbins, copies", [
-    (4, 3, 64 * 64, 2), (8, 3, 64 * 64, 1), (4, 1, 192, 8), (4, 1, 128, 8),
-    (4, 1, 16384, 1), (4, 1, 32768, 0), (8, 1, 32768, 0), (4, 2, 128 * 128, 0)])
-def test_grid_copies_fit_one_block(itemsize, k, nbins, copies):
-    """The grids of a block: the most copies of 8, 4, 2, 1 whose 2 k nbins
-    values and the warps' stages fit one block's 232,448 bytes; none (the
-    device buffer) past that."""
-    smem, got = hk.plan_smem(itemsize, k, nbins)
-    assert got == copies
-    assert smem <= hk.SMEM_MAX
-    assert smem == copies * 2 * k * nbins * itemsize + 8 * 64 * k * itemsize
+@pytest.mark.parametrize("itemsize, kind, nbins, form, copies, warps", [
+    (4, hk.XV, 64 * 64, hk.WARPS, 6, 12), (8, hk.XV, 64 * 64, hk.WARPS, 3, 6),
+    (4, hk.X, 192, hk.LANES, 8, 8), (4, hk.V, 128, hk.LANES, 8, 8),
+    (4, hk.XV, 128 * 128, hk.WARPS, 1, 2), (4, hk.X, 32768, hk.BUFFER, 1, 1),
+    (8, hk.X, 32768, hk.BUFFER, 1, 1), (8, hk.XV, 128 * 128, hk.BUFFER, 1, 1),
+    (8, hk.X, 192, hk.LANES, 4, 4), (4, hk.V, 9 * 128, hk.WARPS, 8, 8),
+    (4, hk.X, 1024, hk.WARPS, 8, 8), (8, hk.V, 128, hk.LANES, 7, 7)],
+    ids=["d1", "d1-f64", "d3", "d2", "xv128", "x32768", "x32768-f64", "xv128-f64",
+         "d3-f64", "d2-9species", "x1024", "d2-f64"])
+def test_grid_copies_fit_one_block(itemsize, kind, nbins, form, copies, warps):
+    """A block's grids (plan): 32 lane copies of nbins values a warp for the
+    profile and the grid charge where at least LANE_WARPS_MIN warps' fit
+    (D3 at nx 192, D2 at nv 128); else copies of 2 nbins values, for the
+    x-v histogram each shared by SHARE warps with a claim table each (a
+    byte a slot, the power of two from 16 that holds nbins, at most
+    CLAIM_MAX), the most of 8 that fit one block's 232,448 bytes; else the
+    device buffer, one warp a block, its claim table alone in shared
+    memory."""
+    p = hk.plan(itemsize, kind, nbins)
+    claim = min(max(16, 1 << (nbins - 1).bit_length()), hk.CLAIM_MAX) if kind == hk.XV else 0
+    share = hk.SHARE if kind == hk.XV else 1
+    assert (p.form, p.copies, p.warps) == (form, copies, warps)
+    assert p.smem <= hk.SMEM_MAX
+    assert p.smem == {hk.LANES: copies * 32 * nbins * itemsize,
+                      hk.WARPS: copies * (2 * nbins * itemsize + share * claim),
+                      hk.BUFFER: claim}[form]
 
 
-def _mirror(kind, cells, left, right, nbins, nx, nv, blocks, per_block):
-    """The kernels' order in numpy: each block sums its markers' halves at
-    the lower cell (left half at [0, nbins), right at [nbins, 2 nbins)),
-    folds each right half onto the next cell (periodic in x; none before a
-    species' first v point), and the block rows are summed in block order."""
-    out = np.zeros(nbins)
-    for b in range(blocks):
-        sl = slice(b * per_block, (b + 1) * per_block)
-        grid = np.zeros(2 * nbins)
-        ok = cells[sl] >= 0
-        np.add.at(grid, cells[sl][ok], left[sl][ok])
-        np.add.at(grid, nbins + cells[sl][ok], right[sl][ok])
-        row = grid[:nbins].copy()
-        o = np.arange(nbins)
-        if kind == hk.V:
-            prev = np.where(o % nv == 0, -1, o - 1)
-        else:
-            prev = np.where(o % nx == 0, o + nx - 1, o - 1)
-        row[prev >= 0] += grid[nbins + prev[prev >= 0]]
-        out += row
+def _row_sum(rows):
+    """hist_sum_kernel's order: row group g of SUM_GROUPS sums rows g,
+    g + SUM_GROUPS, ... in order; the groups' sums are added in group
+    order."""
+    groups = []
+    for g in range(hk.SUM_GROUPS):
+        acc = np.zeros(rows.shape[1:], dtype=rows.dtype)
+        for r in range(g, rows.shape[0], hk.SUM_GROUPS):
+            acc = acc + rows[r]
+        groups.append(acc)
+    out = groups[0]
+    for acc in groups[1:]:
+        out = out + acc
     return out
 
 
+@pytest.mark.parametrize("rows, values", [(528, 192), (37, 101), (0, 64)],
+                         ids=["d3", "odd", "empty"])
+def test_row_sum_order_sums_every_row_once(rows, values):
+    """The row sum alone, at D3's 528 rows of nx 192 and at an odd count:
+    integers sum exactly, so every row is taken once; random rows in f64
+    within a few ulps of the exact sum."""
+    rng = np.random.default_rng(rows)
+    ints = rng.integers(-1000, 1000, (rows, values)).astype(np.float64)
+    assert np.array_equal(_row_sum(ints), ints.sum(axis=0))
+    real = rng.standard_normal((rows, values))
+    exact = np.array([math.fsum(real[:, j]) for j in range(values)])
+    scale = max(np.abs(real).sum(axis=0).max(), 1.0)
+    assert np.abs(_row_sum(real) - exact).max() <= 8 * np.finfo(np.float64).eps * scale
+
+
+def _order(n, m, warps, per_warp):
+    """For markers 0..n-1 of one channel: (block, warp, lane, round, j) as
+    the kernels walk them (block b's warp w takes per_warp markers from
+    (b warps + w) per_warp; lane l takes m in a row each round of 32 m)."""
+    i = np.arange(n)
+    gw, rem = np.divmod(i, per_warp)
+    rnd, rem = np.divmod(rem, 32 * m)
+    lane, j = np.divmod(rem, m)
+    return gw // warps, gw % warps, lane, rnd, j
+
+
+def _mirror_lanes(kind, cells, left, right, nbins, nx, warps, blocks, per_warp):
+    """The LANES form (profile, grid charge) in numpy: each lane adds its
+    markers' left half at the cell and right half at the next one
+    (periodic in x; the same species' next v point) in marker order; each
+    cell of a warp sums its 32 lanes from lane q % 32 on, wrapping (q = w
+    nbins + cell); the warps in order; then the row sum."""
+    b, w, lane, _, _ = _order(cells.size, hk.markers(kind), warps, per_warp)
+    ok = cells >= 0
+    right_cells = (cells + 1) % nx if kind == hk.X else cells + 1
+    grid = np.zeros((blocks, warps, nbins, 32))
+    # left then right half of each marker, markers in order: the lanes' order
+    idx = [np.stack([a[ok], a[ok]], axis=1).ravel() for a in (b, w)]
+    cell = np.stack([cells[ok], right_cells[ok]], axis=1).ravel()
+    ln = np.stack([lane[ok], lane[ok]], axis=1).ravel()
+    np.add.at(grid, (idx[0], idx[1], cell, ln),
+              np.stack([left[ok], right[ok]], axis=1).ravel())
+    rows = np.zeros((blocks, nbins))
+    for wi in range(warps):
+        q = wi * nbins + np.arange(nbins)
+        acc = grid[:, wi, np.arange(nbins), q % 32]
+        for step in range(1, 32):
+            acc = acc + grid[:, wi, np.arange(nbins), (q + step) % 32]
+        rows = rows + acc
+    return _row_sum(rows)
+
+
+def _mirror_warps(cells, left, right, nbins, nx, warps, blocks, per_warp, share):
+    """The WARPS form of the x-v histogram in numpy, for one channel: the
+    `share` warps of a copy take a round's grid steps in member order; a
+    step adds every lane's v row iv0, then every lane's row iv0 + 1, as a
+    (left, right) pair at the cell; the block's tail adds, copy by copy,
+    each left half and its left neighbour's right half (periodic in x);
+    then the row sum.  (Lanes on one cell are summed by the lowest first;
+    here they are added one by one: the same terms.)"""
+    b, w, lane, rnd, j = _order(cells.shape[0], hk.markers(hk.XV), warps, per_warp)
+    copy, member = np.divmod(w, share)
+    ok = cells[:, 0] >= 0
+    grid = np.zeros((blocks, warps // share, nbins, 2))
+    order = np.lexsort((np.tile(lane, 2), np.repeat([0, 1], lane.size), np.tile(j, 2),
+                        np.tile(member, 2), np.tile(rnd, 2), np.tile(copy, 2), np.tile(b, 2)))
+    row_of = np.repeat([0, 1], lane.size)[order]
+    m = np.tile(np.arange(lane.size), 2)[order]
+    keep = ok[m]
+    m, row_of = m[keep], row_of[keep]
+    np.add.at(grid, (b[m], copy[m], cells[m, row_of], np.zeros_like(m)), left[m, row_of])
+    np.add.at(grid, (b[m], copy[m], cells[m, row_of], np.ones_like(m)), right[m, row_of])
+    o = np.arange(nbins)
+    prev = np.where(o % nx == 0, o + nx - 1, o - 1)
+    rows = np.zeros((blocks, nbins))
+    for c in range(warps // share):
+        rows = rows + grid[:, c, :, 0]
+        rows = rows + grid[:, c, prev, 1]
+    return _row_sum(rows)
+
+
 def test_mirror_of_the_kernels_order_gives_the_plain_sums():
-    """The halves-and-fold design of csrc/hist_kernels.cu, mirrored with the
-    kernels' own cells and weights, against the plain versions at 1e-12."""
+    """The design of csrc/hist_kernels.cu, mirrored with the kernels' own
+    cells, weights and marker ranges against the plain versions at 1e-12:
+    the grid charge and the profile in lane copies, the x-v histogram one
+    channel a block in copies shared by SHARE warps."""
     x, v, p, w, live = _markers(N_ODD, 3, seed=9)
     s = (v + V_MAX) * ((NV - 1) / (2.0 * V_MAX))
     fv = s - np.floor(s)
@@ -283,31 +388,33 @@ def test_mirror_of_the_kernels_order_gives_the_plain_sums():
     sx = x * (NX / LX)
     fx = sx - np.floor(sx)
     ix0 = np.clip(np.floor(sx), 0, NX - 1).astype(np.int64)
-    g, per_block = hk.blocks(x.size, 4, 132)
     # the grid charge (kX): every species in one flat run
     val = -np.where(live, w, 0.0)
-    got = _mirror(hk.X, ix0.ravel(), ((1 - fx) * val).ravel(), (fx * val).ravel(), NX, NX, 2,
-                  g, per_block)
+    pl = hk.plan(8, hk.X, NX)
+    g, per_warp = hk.blocks(x.size, hk.markers(hk.X), pl.warps, 1, 132)
+    got = _mirror_lanes(hk.X, ix0.ravel(), ((1 - fx) * val).ravel(), (fx * val).ravel(), NX, NX,
+                        pl.warps, g, per_warp)
     assert_rel(got, hk.grid_charge_plain(*_t(x, val), LX, NX), TOL, "grid charge")
     # the profile (kV): cell species * nv + iv0
     a = np.where(live & inside, np.abs(w), 0.0)
     cells = np.where(live & inside, np.arange(3)[:, None] * NV + iv0, -1)
-    got = _mirror(hk.V, cells.ravel(), ((1 - fv) * a).ravel(), (fv * a).ravel(), 3 * NV, 1, NV,
-                  g, per_block)
+    pl = hk.plan(8, hk.V, 3 * NV)
+    g, per_warp = hk.blocks(x.size, hk.markers(hk.X), pl.warps, 1, 132)
+    got = _mirror_lanes(hk.V, cells.ravel(), ((1 - fv) * a).ravel(), (fv * a).ravel(), 3 * NV,
+                        NX, pl.warps, g, per_warp)
     assert_rel(got.reshape(3, NV), hk.profile_plain(*_t(v, w, live), V_MAX, NV), TOL, "profile")
-    # the x-v histogram (kXV): two v rows a marker, each at cell iv nx + ix0
+    # the x-v histogram (kXV): two v rows a marker, cells iv0 nx + ix0 and one row up
     vals = _vals(p[0], w[0], live[0])
-    g, per_block = hk.blocks(x.shape[1], 1, 132)
+    pl = hk.plan(8, hk.XV, NV * NX)
+    g, per_warp = hk.blocks(x.shape[1], hk.markers(hk.XV), pl.warps, 1, 132, 3)
     want = hk.hist_xv_plain(*_t(x[0], v[0], vals), LX, V_MAX, NX, NV)
+    row0 = np.where(inside[0], iv0[0] * NX + ix0[0], -1)
+    cells = np.stack([row0, np.where(row0 >= 0, row0 + NX, -1)], axis=1)
+    wv = np.stack([1 - fv[0], fv[0]], axis=1)
     for c in range(3):
-        row0 = np.where(inside[0], iv0[0] * NX + ix0[0], -1)
-        rows = []
-        for cell, wv in ((row0, 1 - fv[0]), (np.where(row0 >= 0, row0 + NX, -1), fv[0])):
-            rows.append((cell, wv * (1 - fx[0]) * vals[c], wv * fx[0] * vals[c]))
-        cells = np.concatenate([r[0].reshape(-1, 1) for r in rows], axis=1).ravel()
-        left = np.concatenate([r[1].reshape(-1, 1) for r in rows], axis=1).ravel()
-        right = np.concatenate([r[2].reshape(-1, 1) for r in rows], axis=1).ravel()
-        got = _mirror(hk.XV, cells, left, right, NV * NX, NX, NV, g, 2 * per_block)
+        left, right = wv * ((1 - fx[0]) * vals[c])[:, None], wv * (fx[0] * vals[c])[:, None]
+        got = _mirror_warps(cells, left, right, NV * NX, NX, pl.warps, g, per_warp,
+                            pl.warps // pl.copies)
         assert_rel(got.reshape(NV, NX), want[c], TOL, f"x-v channel {c}")
 
 
@@ -315,10 +422,11 @@ def test_source_has_no_float_atomic_and_no_torch_header():
     csrc = REPO / "pic1dp_tpu_torch" / "csrc"
     src = (csrc / f"{hk.SOURCE}.cu").read_text()
     code = re.sub(r"//[^\n]*", "", src)
-    # the warp's sum is the substep kernels' deposit_lanes, from their header
+    # the hat's floor_t comes from the substep kernels' header; the warp step
+    # is the deposit's own (deposit_cell), not the substep kernels' deposit_lanes
     assert re.findall(r'#include "([^"]+)"', code) == ["substep_math.cuh"]
     header = re.sub(r"//[^\n]*", "", (csrc / "substep_math.cuh").read_text())
-    assert "deposit_lanes" in header and "deposit_lanes_k" not in code
+    assert "deposit_lanes" in header and "deposit_lanes" not in code
     for text in (code, header):
         assert "atomic" not in text
         assert "#include <torch" not in text and "ATen" not in text
