@@ -21,8 +21,11 @@ first failed check.  Phases, each printed:
      kernels and of every instantiation of the bulk-copy ring
   3. each kernel against its plain PyTorch version on the same inputs:
      the main substeps in f32 and bf16_weights at full width and in f64
-     with three modes; the angle table as the kernels read it, bit for
-     bit; each layout's substeps at the shape of its
+     with three modes; wherever the substeps are compared, the modes their
+     last block solves (solve=True) against Stepper._solve of their own
+     projections, bit for bit, on a launch and on a CUDA graph replay; the
+     angle table as the kernels read it, bit for bit; each layout's
+     substeps at the shape of its
      verification case in f32 (and bf16_weights where it has a bf16 build),
      and every variant of the reference's _pallas_cases in f64; five Stepper
      steps in f32 and bf16; k steps replayed from a CUDA graph against k
@@ -87,8 +90,10 @@ first failed check.  Phases, each printed:
      bit, and a run with 32 modes whose mode 1 grows at the root's rate; nine
      species (the species table) against plain in f32 and f64, graph =
      eager, and Landau damping's root; the phase table at the main shape and
-     the headline in both layouts, with the step minus its two kernels and
-     the idle share of a graph replay; and run.py --profile, whose trace
+     the headline in both layouts, with the step minus its two kernels,
+     the idle share of a graph replay and its kernels per step (the step's
+     two, and E, rho and their copies once a graph); and run.py --profile,
+     whose trace
      holds each substep kernel as often as the counters say
   8. (run after 7, before 6) multi-device runs on the one card: the main
      case in f32 and bf16_weights through Simulation(mesh=1) on a one-rank
@@ -98,8 +103,10 @@ first failed check.  Phases, each printed:
      without the all_reduces in turns; then two gloo ranks on the one card,
      each in its own process, eager steps within the f32 bounds of the run
      without a mesh, and their ms/step
-  6. timing: ms per call of each substep, unit, carry and hat-deposit
-     kernel and its plain version (for a hat deposit also its index_add_
+  6. timing: ms per call of each substep (solving its modes, as the
+     Stepper calls it), unit, carry and hat-deposit kernel and its plain
+     version, and of a step of the pingpong probe's carry (h on the card)
+     and its plain version (for a hat deposit also its index_add_
      alone, the kernels line's library_ms, and its deposit and row-sum
      kernels apart) (for each substep its bound, share, V, B, the bin and
      where the angle table or the grids sat), ms/step of the plain, the eager kernel and the CUDA
@@ -495,6 +502,7 @@ def compare_substeps(cfg, n: int, tol: dict | None, inputs=None,
 
     x, v, p, w, (mre0, mim0, mre1, mim1), sp = inputs or _inputs(cfg, n, "cuda")
     subs = FusedSubsteps(cfg, sp, stream_v1=stream_v1)
+    compare_kernel_modes(cfg, subs, (x, v, p, w, mre0, mim0, mre1, mim1))
     kw1, kv1, kproj1 = subs.substep1(x, v, p, w, mre0, mim0)
     streams = [t.clone() for t in (x, v, w)]
     kx2, kv2, kw2, kproj2 = subs.substep2(*streams[:2], p, streams[2], kw1, kv1, mre1, mim1,
@@ -551,6 +559,55 @@ def compare_substeps(cfg, n: int, tol: dict | None, inputs=None,
             errs.append(ab)
         worst[name] = max(errs)
     return worst
+
+
+def compare_kernel_modes(cfg, subs, inputs) -> None:
+    """The modes the substep kernels' last block solves (solve=True)
+    against Stepper._solve's products (spectral.solve_modes with the same
+    factor subs.g) of the kernels' own projections, bit for bit, on a
+    launch of both substeps and on a replay of a CUDA graph of them over the
+    same buffers; the projections equal a launch's without the solve."""
+    from pic1dp_tpu_torch.core.step import CountedGraph
+    from pic1dp_tpu_torch.ops import spectral as spectral_ops
+
+    x, v, p, w, mre0, mim0, mre1, mim1 = inputs
+    start = [t.clone() for t in (x, v, w)]
+    xs, vs, ws = streams = [t.clone() for t in start]
+
+    def both():
+        w1, v1, proj1, modes1 = subs.substep1(xs, vs, p, ws, mre0, mim0, solve=True)
+        *_, proj2, modes2 = subs.substep2(xs, vs, p, ws, w1, v1, mre1, mim1, mre0, mim0,
+                                          solve=True)
+        return proj1, modes1, proj2, modes2
+
+    def same(out) -> bool:
+        proj1, modes1, proj2, modes2 = out
+        return all(torch.equal(a, b) for got, proj in ((modes1, proj1), (modes2, proj2))
+                   for a, b in zip(got, spectral_ops.solve_modes(*proj, subs.g)))
+
+    launch = both()
+    unsolved = subs.substep1(*start[:2], p, start[2], mre0, mim0)[2]
+    torch.cuda.synchronize()
+    ok_launch = same(launch)
+    ok_proj = all(torch.equal(a, b) for a, b in zip(launch[0], unsolved))
+    for t, t0 in zip(streams, start):
+        t.copy_(t0)
+    box = []
+    graph = CountedGraph(lambda: box.append(both()))
+    for t, t0 in zip(streams, start):
+        t.copy_(t0)
+    graph.replay()
+    torch.cuda.synchronize()
+    ok_graph = same(box[0]) and all(
+        torch.equal(a, b) for pair in zip(box[0], launch) for a, b in zip(*pair))
+    label = "bf16_weights" if cfg.bf16_weights else cfg.dtype
+    say(f"[3 compare] {label} {subs.layout} n={cfg.nspecies}x{x.shape[-1]} nmode={cfg.nmode}"
+        f"{' grid bin' if subs.uses_grid_bin() else ''}: kernel-solved modes of both "
+        f"substeps = _solve of their projections bit for bit on a launch {ok_launch}, on a "
+        f"graph replay {ok_graph} (= the launch); projections = an unsolved launch's "
+        f"{ok_proj}")
+    check(ok_launch and ok_graph and ok_proj,
+          "the kernels' modes are _solve of their projections, bit for bit")
 
 
 def compare_layouts() -> dict:
@@ -1917,6 +1974,7 @@ def time_kernels(cfg, inputs=None, stream_v1: bool | None = None,
     """ms per call of each substep kernel of cfg and of its plain version
     (unless with_plain is False: many modes at 2^26 markers, where the
     plain version's per-mode temporaries take tens of GB) at cfg's shape,
+    each solving the modes of its projections as a Stepper's steps do,
     on the card's clock: calls captured in a CUDA graph and replayed
     (probes.graph_ms), so that a small case is not timed at the host's
     launch rate (these launches come after the main paths' counts were
@@ -1929,14 +1987,17 @@ def time_kernels(cfg, inputs=None, stream_v1: bool | None = None,
     x, v, p, w, (mre0, mim0, mre1, mim1), sp = inputs or _inputs(
         cfg, cfg.nparticle_max, "cuda")
     subs = sk.FusedSubsteps(cfg, sp, stream_v1=stream_v1)
-    w1, v1, _ = subs.substep1(x, v, p, w, mre0, mim0)
+    w1, v1 = subs.substep1(x, v, p, w, mre0, mim0, solve=True)[:2]
     k1, k2 = (k.name for k in subs.counters)
     out = {}
-    for name, fn in ((k1, lambda: subs.substep1(x, v, p, w, mre0, mim0)),
-                     (f"{k1}_plain", lambda: subs.substep1_plain(x, v, p, w, mre0, mim0)),
-                     (k2, lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1, mre0, mim0)),
+    for name, fn in ((k1, lambda: subs.substep1(x, v, p, w, mre0, mim0, solve=True)),
+                     (f"{k1}_plain", lambda: subs.substep1_plain(x, v, p, w, mre0, mim0,
+                                                                 solve=True)),
+                     (k2, lambda: subs.substep2(x, v, p, w, w1, v1, mre1, mim1, mre0, mim0,
+                                                solve=True)),
                      (f"{k2}_plain", lambda: subs.substep2_plain(x, v, p, w, w1, v1, mre1,
-                                                                 mim1, mre0, mim0))):
+                                                                 mim1, mre0, mim0,
+                                                                 solve=True))):
         if with_plain or not name.endswith("_plain"):
             out[name] = graph_ms(fn, x.device)
     n = x.numel()
@@ -1983,10 +2044,11 @@ def time_probe_kernels() -> dict:
     """ms per call of the unit and carry kernels and of their plain
     versions at 2^PROBE_LOG2, in the probes' configurations: trig x4 with
     fresh outputs on direct loads (4 blocks/SM) and on the 8 KB x 4 ring,
-    the in-place carry (these launches come after the probes' counts were
-    read)."""
+    the in-place carry, and a step of the pingpong probe's carry (the half
+    index h on the card; printed only) (these launches come after the
+    probes' counts were read)."""
     from pic1dp_tpu_torch.ops import stream_probes as sp
-    from pic1dp_tpu_torch.probes import fresh_streams
+    from pic1dp_tpu_torch.probes import fresh_streams, pingpong_probe
     from pic1dp_tpu_torch.probes.compute_probe import unit_inputs
 
     n, dev = 2**PROBE_LOG2, torch.device("cuda")
@@ -2006,6 +2068,16 @@ def time_probe_kernels() -> dict:
     say(f"[6 timing] per call at n=2^{PROBE_LOG2} (trig x4, fresh outputs; carry in "
         f"place): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    pingpong = {}
+    for name, kernel in (("stream_carry", sp.stream_carry),
+                         ("stream_carry_plain", sp.stream_carry_plain)):
+        c = pingpong_probe.carry("pingpong", fresh_streams(4, n, dev, 510))
+        pingpong_probe.step(c, kernel)
+        pingpong[name] = _events_ms(lambda: pingpong_probe.step(c, kernel), 10)
+        del c
+    say(f"[6 timing] pingpong carry (h on the card) per step at n=2^{PROBE_LOG2}: "
+        f"stream_carry {pingpong['stream_carry']:.4f} ms, its plain version "
+        f"{pingpong['stream_carry_plain']:.4f} ms")
     return out
 
 
@@ -2268,10 +2340,10 @@ def nine_species_phase() -> dict:
     return launches
 
 
-def idle_share(stepper, state, steps: int) -> tuple[float, float]:
-    """ms/step and the share of the time the card runs no kernel, over one
-    replay of a `steps`-step CUDA graph under torch.profiler (from the
-    first kernel's start to the last one's end)."""
+def idle_share(stepper, state, steps: int) -> tuple[float, float, float]:
+    """ms/step, the share of the time the card runs no kernel and the
+    kernels per step, over one replay of a `steps`-step CUDA graph under
+    torch.profiler (from the first kernel's start to the last one's end)."""
     stepper.graph_steps(state, steps)                  # captures the graph
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as out:
@@ -2290,7 +2362,7 @@ def idle_share(stepper, state, steps: int) -> tuple[float, float]:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     span = spans[-1][1] - spans[0][0]
-    return span / steps * 1e-3, 1.0 - busy / span
+    return span / steps * 1e-3, 1.0 - busy / span, len(spans) / steps
 
 
 def phase_table_phase() -> dict:
@@ -2313,14 +2385,14 @@ def phase_table_phase() -> dict:
             table = measure_phase_split(st, state, steps=10)
             rest = (table["full step (measured)"] - table["substep-1 kernel (fused)"]
                     - table["substep-2 kernel (fused)"])
-            ms, idle = idle_share(st, state, TIMING_STEPS)
+            ms, idle, per_step = idle_share(st, state, TIMING_STEPS)
             name = f"{label} {st.substeps.layout}"
             say(f"[7 phase table] {name}, n={cfg.nparticle_max} nx={cfg.nx} f32:")
             for line in format_phase_table(table).splitlines():
                 say(f"[7 phase table]   {line}")
             say(f"[7 phase table] {name}: step minus the two kernels {rest * 1e3:.4f} ms; "
                 f"{TIMING_STEPS}-step graph replay under the profiler {ms:.4f} ms/step, idle "
-                f"share {idle:.4f} (no kernel running)")
+                f"share {idle:.4f} (no kernel running), {per_step:.2f} kernels a step")
             check(all(np.isfinite(v) and v >= 0.0 for v in table.values()),
                   "phase table finite")
             out[name] = dict(table, idle=idle)

@@ -11,8 +11,12 @@ step-start values with dt/2; substep 2 re-integrates from the same values
 with the full dt using the midpoint fields and velocities
 (src/pic1dp_interaction.F90:178-193), in the update order x, w, v
 (:238-339).  Each substep is one fused call (ops/substep_kernels.py):
-gather E, push, and deposit the mode projections; between them the mode
-solve is two multiplies on the device, so a step never waits for the host.
+gather E, push, deposit the mode projections and solve the modes from them
+(on CUDA in the kernel's last block), so a step is the two kernels and never
+waits for the host.  E and rho on the grid are read by no substep: `advance`
+forms them once, after the last of its steps (a graph's end, the end of a
+multi_step call), from the last step's projections and modes; `step` is
+advance(state, 1).
 Linear runs freeze v and full-f runs leave w alone and deposit p, as the
 reference does; every number of species and every equilibrium runs.
 
@@ -27,7 +31,10 @@ parallel/mesh.ShardedStepper) steps one rank's block of the particle axis:
 every sum over markers ends in an all_reduce over the group (`reduce_sum`),
 where the JAX Stepper has its psums: the (2, nmode) projections of each
 substep and of the initial field, the EXPLICIT grid deposit, and in the
-diagnostics and particle optimization.  Without a group nothing changes.
+diagnostics and particle optimization.  A rank's projections are partial
+sums, so there the kernels solve no modes: `_solve` runs after each
+all_reduce, on the same factor g and with the same products.  Without a
+group nothing else changes.
 
 Nonlinear delta-f has two kernel layouts (ops/substep_kernels.py): substep 1
 streams the midpoint velocities v1 to substep 2, or substep 2 rebuilds them
@@ -126,6 +133,9 @@ class Stepper:
         self._graph_buffers = None   # the state the graphs were captured over
         self._warm = False
         self.group = group
+        # the substeps solve their own projections' modes unless those are
+        # a rank's partial sums
+        self.kernel_solves = group is None
         # a gloo collective cannot be captured in a CUDA graph; NCCL's can
         self._graphs_capture = group is None or torch_dist.get_backend(group) == "nccl"
 
@@ -141,16 +151,41 @@ class Stepper:
                      zip(buf.split([t.numel() for t in tensors]), tensors))
 
     def _solve(self, p_c, p_s):
-        return spectral_ops.solve_modes_from_projections(
-            p_c, p_s, self.spectral.grad_inv, self.cfg.lx)
+        """The modes of all-reduced projections, with the substeps' factor g
+        (FusedSubsteps.g = grad_inv / lx), as their kernels solve them."""
+        return spectral_ops.solve_modes(p_c, p_s, self.substeps.g)
 
-    def _with_field(self, state: SimState, x, v, w, p_c, p_s) -> SimState:
-        mode_re, mode_im = self._solve(p_c, p_s)
+    def _with_field(self, state: SimState, proj, modes) -> SimState:
+        """state's markers with the field of the (all-reduced) projections
+        and their modes: rho and E on the grid."""
+        (p_c, p_s), (mode_re, mode_im) = proj, modes
         return SimState(
-            x=x, v=v, p=state.p, w=w, live=state.live,
+            x=state.x, v=state.v, p=state.p, w=state.w, live=state.live,
             rho=self.spectral.rho_grid_from_projections(p_c, p_s, self.cfg.lx),
             electric=self.spectral.e_grid(mode_re, mode_im),
             mode_re=mode_re, mode_im=mode_im)
+
+    def _solved_substep1(self, state: SimState, mode_re, mode_im):
+        """Substep 1 from the step-start modes: (w1, v1, projections, modes),
+        the projections all-reduced over the group and solved (by the
+        kernel without a group)."""
+        w1, v1, proj, *modes = self._substep1(state.x, state.v, state.p, state.w, mode_re,
+                                              mode_im, solve=self.kernel_solves)
+        if self.kernel_solves:
+            return w1, v1, proj, modes[0]
+        proj = self.reduce_sum(*proj)
+        return w1, v1, proj, self._solve(*proj)
+
+    def _solved_substep2(self, state: SimState, w1, v1, modes1, mode_re0, mode_im0):
+        """Substep 2 (x, v and w updated in place): (projections, modes) as
+        _solved_substep1's."""
+        _, _, _, proj, *modes = self._substep2(state.x, state.v, state.p, state.w, w1, v1,
+                                               *modes1, mode_re0, mode_im0,
+                                               solve=self.kernel_solves)
+        if self.kernel_solves:
+            return proj, modes[0]
+        proj = self.reduce_sum(*proj)
+        return proj, self._solve(*proj)
 
     # ---- grid-space pieces ----
 
@@ -239,23 +274,31 @@ class Stepper:
         trig = spectral_ops.mode_trig(state.x, cfg.lx, cfg.nx, cfg.modes)
         val = state.w if cfg.deltaf else state.p.to(self.dtype)
         val = torch.where(state.live, val, 0.0) * self.sp.charge
-        p_c, p_s = self.reduce_sum(*spectral_ops.project_modes(trig, val))
-        return self._with_field(state, state.x, state.v, state.w, p_c, p_s)
+        proj = self.reduce_sum(*spectral_ops.project_modes(trig, val))
+        return self._with_field(state, proj, self._solve(*proj))
 
     def step(self, state: SimState) -> SimState:
         """One full RK2 step; on the matrix-free path x, v and w are updated
         in place."""
+        return self.advance(state, 1)
+
+    def advance(self, state: SimState, k: int) -> SimState:
+        """k full RK2 steps.  On the matrix-free path x, v and w are updated
+        in place, each step's modes carried to the next, and rho and E on
+        the grid formed once, after the last step (no substep reads them):
+        bit for bit the state of k calls of `step`.  What multi_step runs
+        and what a CUDA graph holds.  k = 0 returns state."""
         if self.explicit:
-            return self._step_grid(state)
-        w1, v1, (pc1, ps1) = self._substep1(
-            state.x, state.v, state.p, state.w, state.mode_re, state.mode_im)
-        pc1, ps1 = self.reduce_sum(pc1, ps1)
-        mre1, mim1 = self._solve(pc1, ps1)
-        x2, v2, w2, (pc2, ps2) = self._substep2(
-            state.x, state.v, state.p, state.w, w1, v1, mre1, mim1,
-            state.mode_re, state.mode_im)
-        pc2, ps2 = self.reduce_sum(pc2, ps2)
-        return self._with_field(state, x2, v2, w2, pc2, ps2)
+            for _ in range(k):
+                state = self._step_grid(state)
+            return state
+        if k < 1:
+            return state
+        modes = (state.mode_re, state.mode_im)
+        for _ in range(k):
+            w1, v1, _, modes1 = self._solved_substep1(state, *modes)
+            proj, modes = self._solved_substep2(state, w1, v1, modes1, *modes)
+        return self._with_field(state, proj, modes)
 
     def push_pair(self, state: SimState) -> SimState:
         """Both RK substeps' pushes WITHOUT the final deposit/solve; used by
@@ -273,13 +316,10 @@ class Stepper:
         if self.explicit:
             x2, v2, w2, rho1, e1 = self._grid_pushes(state)
         else:
-            w1, v1, (pc1, ps1) = self._substep1(
-                state.x, state.v, state.p, state.w, state.mode_re, state.mode_im)
-            pc1, ps1 = self.reduce_sum(pc1, ps1)
-            mre1, mim1 = self._solve(pc1, ps1)
-            x2, v2, w2, _ = self._substep2(
-                state.x, state.v, state.p, state.w, w1, v1, mre1, mim1,
-                state.mode_re, state.mode_im)
+            w1, v1, (pc1, ps1), (mre1, mim1) = self._solved_substep1(
+                state, state.mode_re, state.mode_im)
+            x2, v2, w2, _ = self._substep2(state.x, state.v, state.p, state.w, w1, v1, mre1,
+                                           mim1, state.mode_re, state.mode_im)
             rho1 = self.spectral.rho_grid_from_projections(pc1, ps1, self.cfg.lx)
             e1 = self.spectral.e_grid(mre1, mim1)
         return SimState(x=x2, v=v2, p=state.p, w=w2, live=state.live, rho=rho1,
@@ -308,8 +348,7 @@ class Stepper:
         NCCL group, has made the communicator a capture needs)."""
         if (self.explicit or state.x.device.type != "cuda" or not self._warm
                 or not self._graphs_capture):
-            for _ in range(k):
-                state = self.step(state)
+            state = self.advance(state, k)
             self._warm = state.x.device.type == "cuda" and not self.explicit
             return state
         return self.graph_steps(state, k)
@@ -318,9 +357,10 @@ class Stepper:
         """k steps replayed from CUDA graphs of at most GRAPH_STEPS steps,
         each captured once per step count over this state's buffers (the
         port of make_multi_step, pic1dp_tpu/core/step.py:433-502).  A replay
-        is bit for bit the same k eager steps: the same kernels on the same
-        buffers, with no float atomics.  x, v and w are updated in place, and
-        each graph ends by copying the new modes, E and rho into the state's
+        is bit for bit the same k eager steps: a graph holds `advance` of its
+        steps, the same kernels on the same buffers, with no float atomics.
+        x, v and w are updated in place, and each graph ends by forming E
+        and rho once and copying them and the new modes into the state's
         own tensors, so the state returned is `state` itself.  Graphs
         captured over another state's buffers are dropped, never replayed
         over this one."""
@@ -382,14 +422,13 @@ class CountedGraph:
 
 
 class _StepGraph(CountedGraph):
-    """n steps of a Stepper over one state's buffers; the graph ends by
-    copying the new modes, E and rho into the state's own tensors."""
+    """n steps of a Stepper over one state's buffers (Stepper.advance); the
+    graph ends by copying the new modes, E and rho into the state's own
+    tensors."""
 
     def __init__(self, stepper: Stepper, state: SimState, n: int):
         def steps():
-            out = state
-            for _ in range(n):
-                out = stepper.step(out)
+            out = stepper.advance(state, n)
             for field in ("mode_re", "mode_im", "electric", "rho"):
                 getattr(state, field).copy_(getattr(out, field))
 

@@ -139,6 +139,14 @@
 //     projections and sets the counter back to 0 for the next launch or
 //     graph replay.  There are no float atomics, so with a fixed grid the sum
 //     is the same from run to run.
+//   * The mode solve in the last block.  Where the launch is given `modes`,
+//     the last block also writes the E-field modes of the projections it
+//     has just stored, mode_re = -p_s g and mode_im = -p_c g with g =
+//     grad_inv / lx (the wrapper's buffer, made by torch): one rounded
+//     product each (__fmul_rn / __dmul_rn, never contracted), the bits of
+//     ops/spectral.solve_modes.  So a step launches no solve between or
+//     after its two kernels.  A rank of a particle-sharded run holds partial
+//     projections and gets no `modes`: it solves after the all_reduce.
 //
 // Substep 2 updates x, v and w in place: each thread reads its own elements
 // of each stream before it writes them, and no thread touches another's, so
@@ -275,7 +283,8 @@ __device__ __forceinline__ void store_vec(S* dst, const S (&src)[W]) {
 // the layout does not touch may be null), the modes (re0, im0: the
 // step-start modes of substep 2 where it rebuilds v1), the species table,
 // the grid bin's device buffer, the partials, projections and counter of
-// the final sum, and the angle table.
+// the final sum, the solve's factor and output (modes null: no solve), and
+// the angle table.
 template <typename T, typename PT, typename WT>
 struct Args {
   T* x;
@@ -293,6 +302,8 @@ struct Args {
                          // where they do not fit in shared memory, else null
   T* partials;           // (grid, 2, nmode)
   T* proj;               // (2, nmode)
+  const T* g;            // (nmode,) grad_inv / lx
+  T* modes;              // (2, nmode): mode_re, mode_im; null: no solve
   unsigned int* done;    // blocks finished; 0 between launches
   const Pair<T>* angles;  // (nmode, nx) pairs in device memory
   int angle_smem;        // dynamic shared memory bytes: the register bins'
@@ -384,13 +395,29 @@ __device__ __forceinline__ void deposit_at(const Params<T>& q, const Pair<T>* an
   }
 }
 
+__device__ __forceinline__ float neg_mul(float a, float b) { return __fmul_rn(-a, b); }
+__device__ __forceinline__ double neg_mul(double a, double b) { return __dmul_rn(-a, b); }
+
+// The solve of component c of a (2, nmode) projection row (c < nmode: p_c of
+// mode c, else p_s of mode c - nmode) from its stored value:
+// mode_im = -p_c g, mode_re = -p_s g (ops/spectral.solve_modes).
+template <typename T>
+__device__ __forceinline__ void store_mode(int nmode, const T* g, T* modes, int c, T proj) {
+  const bool cosine = c < nmode;
+  const int k = cosine ? c : c - nmode;
+  modes[(cosine ? nmode : 0) + k] = neg_mul(proj, g[k]);
+}
+
 // Deterministic block sum of the threads' sums of the NM modes (those below
 // nmode), written into a row of 2 nmode values [cos_0 .. cos_{nmode-1},
-// sin_0 .. sin_{nmode-1}].  Every thread of the block must call it.
+// sin_0 .. sin_{nmode-1}]; where modes is not null, their solve too
+// (store_mode).  Every thread of the block must call it.
 template <typename T, int NM>
 __device__ __forceinline__ void block_sum_store(const Params<T>& p,
                                                 const T (&acc_c)[NM],
-                                                const T (&acc_s)[NM], T* out) {
+                                                const T (&acc_s)[NM], T* out,
+                                                const T* g = nullptr,
+                                                T* modes = nullptr) {
   __shared__ T red[kWarps][2 * NM];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -416,7 +443,9 @@ __device__ __forceinline__ void block_sum_store(const Params<T>& p,
     const int k = cosine ? t : t - cnt;
     T sum = T(0);
     for (int w = 0; w < kWarps; ++w) sum += red[w][cosine ? k : NM + k];
-    out[(cosine ? 0 : p.nmode) + k] = sum;
+    const int c = (cosine ? 0 : p.nmode) + k;
+    out[c] = sum;
+    if (modes != nullptr) store_mode(p.nmode, g, modes, c, sum);
   }
   __syncthreads();
 }
@@ -440,8 +469,8 @@ __device__ __forceinline__ unsigned grid_blocks() {
 }
 
 // After this block's partials row is written: the last block to finish sums
-// the rows into the projections and sets the counter back to 0.  Every
-// thread of the block must call it.
+// the rows into the projections (and their modes, where a.modes is set)
+// and sets the counter back to 0.  Every thread of the block must call it.
 template <typename T, typename PT, typename WT, int NM, bool kSpecies>
 __device__ __forceinline__ void finish(const Params<T>& p, const Args<T, PT, WT>& a) {
   __shared__ bool last;
@@ -465,7 +494,7 @@ __device__ __forceinline__ void finish(const Params<T>& p, const Args<T, PT, WT>
       }
     }
   }
-  block_sum_store(p, acc_c, acc_s, a.proj);
+  block_sum_store(p, acc_c, acc_s, a.proj, a.g, a.modes);
   if (threadIdx.x == 0) *a.done = 0u;
 }
 
@@ -766,8 +795,9 @@ __device__ __forceinline__ void project_grid(const Params<T>& p, const Pair<T>* 
 // The grid bin's end: the last block to finish sums the partials rows into
 // the projections, 32 of the 2 nmode components a pass: lane l takes
 // component c0 + l, warp w rows w, w + kWarps, ... in order (coalesced
-// reads), then the warps are summed in order (red: kThreads values); it
-// sets the counter back to 0.  Every thread of the block must call it.
+// reads), then the warps are summed in order (red: kThreads values), and
+// where a.modes is set each component's solve (store_mode); it sets the
+// counter back to 0.  Every thread of the block must call it.
 template <bool kSpecies, typename T, typename PT, typename WT>
 __device__ __forceinline__ void grid_finish(const Params<T>& p, const Args<T, PT, WT>& a,
                                             T* red) {
@@ -793,6 +823,7 @@ __device__ __forceinline__ void grid_finish(const Params<T>& p, const Args<T, PT
       T sum = T(0);
       for (int w = 0; w < kWarps; ++w) sum += red[32 * w + lane];
       a.proj[k] = sum;
+      if (a.modes != nullptr) store_mode(p.nmode, a.g, a.modes, k, sum);
     }
     __syncthreads();
   }
@@ -1007,7 +1038,8 @@ int substep(const HostParams* h, int layout, Args<T, PT, WT> a, int grid, int gr
       h->nspecies > kMaxGridSpecies || grid % h->nspecies != 0 ||
       (h->nspecies > kMaxSpecies && a.species == nullptr) || a.angle_smem < 0 ||
       a.angle_smem > kAngleSmemMax || a.angle_smem % 16 != 0 || !aligned16(a.angles) ||
-      a.partials == nullptr || a.proj == nullptr || a.done == nullptr)
+      a.partials == nullptr || a.proj == nullptr || a.done == nullptr ||
+      (a.modes != nullptr && a.g == nullptr))
     return cudaErrorInvalidValue;
   a.aligned = aligned16(a.x) && aligned16(a.v) && aligned16(a.p) && aligned16(a.w) &&
               aligned16(a.w1) && aligned16(a.v1);
@@ -1084,7 +1116,9 @@ const char* pic1dp_error_string(int code) {
 // (nspecies, kSpeciesFields) table at the arithmetic type (null where the
 // run has at most kMaxSpecies species); grids the grid bin's device buffer
 // of grid (egrids (nx + 1) + 2 nx) values (null unless grid_smem gives 0
-// bytes); partials holds (grid, 2, nmode) values, proj (2, nmode); done is
+// bytes); partials holds (grid, 2, nmode) values, proj (2, nmode); g is the
+// (nmode,) factor grad_inv / lx and modes the (2, nmode) modes the last
+// block solves (both may be null: no solve); done is
 // an int that is 0 and is left 0; angles is the (nmode, nx) table of
 // (cos, sin) pairs, 16-byte aligned and padded to angle_smem bytes when
 // angle_smem > 0; grid_bin != 0 takes the grid bin at any nmode (probes
@@ -1094,8 +1128,9 @@ const char* pic1dp_error_string(int code) {
                                const void* v, const void* pw, const void* w,              \
                                const void* mre, const void* mim, const void* species,     \
                                void* grids, void* w1, void* v1, void* partials,           \
-                               void* proj, void* done, const void* angles,                \
-                               int angle_smem, int grid, int grid_bin, void* stream) {    \
+                               void* proj, const void* g, void* modes, void* done,        \
+                               const void* angles, int angle_smem, int grid,              \
+                               int grid_bin, void* stream) {                              \
     const Args<T, PT, WT> a{const_cast<T*>(static_cast<const T*>(x)),                     \
                             const_cast<T*>(static_cast<const T*>(v)),                     \
                             static_cast<const PT*>(pw),                                   \
@@ -1110,6 +1145,8 @@ const char* pic1dp_error_string(int code) {
                             static_cast<T*>(grids),                                       \
                             static_cast<T*>(partials),                                    \
                             static_cast<T*>(proj),                                        \
+                            static_cast<const T*>(g),                                     \
+                            static_cast<T*>(modes),                                       \
                             static_cast<unsigned int*>(done),                             \
                             static_cast<const Pair<T>*>(angles),                          \
                             angle_smem,                                                   \
@@ -1120,8 +1157,8 @@ const char* pic1dp_error_string(int code) {
                                const void* pw, void* w, const void* w1, const void* v1,   \
                                const void* mre, const void* mim, const void* mre0,        \
                                const void* mim0, const void* species, void* grids,        \
-                               void* partials, void* proj, void* done,                    \
-                               const void* angles, int angle_smem, int grid,              \
+                               void* partials, void* proj, const void* g, void* modes,    \
+                               void* done, const void* angles, int angle_smem, int grid,  \
                                int grid_bin, void* stream) {                              \
     const Args<T, PT, WT> a{static_cast<T*>(x),                                           \
                             static_cast<T*>(v),                                           \
@@ -1137,6 +1174,8 @@ const char* pic1dp_error_string(int code) {
                             static_cast<T*>(grids),                                       \
                             static_cast<T*>(partials),                                    \
                             static_cast<T*>(proj),                                        \
+                            static_cast<const T*>(g),                                     \
+                            static_cast<T*>(modes),                                       \
                             static_cast<unsigned int*>(done),                             \
                             static_cast<const Pair<T>*>(angles),                          \
                             angle_smem,                                                   \

@@ -52,12 +52,12 @@ class SpectralOperator(NamedTuple):
         ix = np.arange(nx)[:, None]
         m = np.asarray(modes)[None, :]
         theta = 2.0 * np.pi / nx * m * ix
-        grad_inv = lx / (2.0 * np.pi * np.asarray(modes, dtype=np.float64))
 
         def t(a):
             return torch.as_tensor(a, dtype=dtype, device=device)
 
-        return cls(fre=t(np.cos(theta)), fim=t(-np.sin(theta)), grad_inv=t(grad_inv))
+        return cls(fre=t(np.cos(theta)), fim=t(-np.sin(theta)),
+                   grad_inv=inverse_gradient(modes, lx, dtype, device))
 
     def solve(self, rho: torch.Tensor):
         """rho (nx,) -> (E (nx,), mode_re (nmode,), mode_im (nmode,))."""
@@ -80,6 +80,14 @@ class SpectralOperator(NamedTuple):
         rho_re = p_c * (1.0 / lx)
         rho_im = -p_s * (1.0 / lx)
         return 2.0 * (self.fre @ rho_re + self.fim @ rho_im)
+
+
+def inverse_gradient(modes: tuple[int, ...], lx: float, dtype: torch.dtype,
+                     device: torch.device | str) -> torch.Tensor:
+    """grad_inv, (nmode,): lx / (2 pi mode_m), in float64 rounded once to
+    dtype."""
+    grad_inv = lx / (2.0 * np.pi * np.asarray(modes, dtype=np.float64))
+    return torch.as_tensor(grad_inv, dtype=dtype, device=device)
 
 
 def _hat_fracs(x, lx: float, nx: int):
@@ -124,14 +132,19 @@ def project_modes(trig, val):
     return p_c, p_s
 
 
+def solve_modes(p_c, p_s, g):
+    """E-field mode components from raw projections and g = grad_inv / lx:
+    mode_re = -p_s g, mode_im = -p_c g, one rounded product each (the
+    substep kernels' last block computes the same products).  Device
+    tensors in, device tensors out: no host sync."""
+    return -p_s * g, -p_c * g
+
+
 def solve_modes_from_projections(p_c, p_s, grad_inv, lx: float):
     """E-field mode components from raw projections: the reference's
     (1/nx)-normalized transform plus grad_inv multiply
-    (src/pic1dp_field.F90:230-248), composed with rho = grid * nx / lx.
-    Device tensors in, device tensors out: no host sync."""
-    mode_re = -p_s * (grad_inv / lx)
-    mode_im = -p_c * (grad_inv / lx)
-    return mode_re, mode_im
+    (src/pic1dp_field.F90:230-248), composed with rho = grid * nx / lx."""
+    return solve_modes(p_c, p_s, grad_inv / lx)
 
 
 def efield_at(trig, mode_re, mode_im):

@@ -20,7 +20,10 @@ streams, in each of its layouts (pallas_kernels.py:499-508):
       substep 2:  read x0, v0, p                write x2, v2 over x0, v0
 
 each also returning the (2, nmode) mode projections of charge * (w | p) at
-the pushed positions, summed over species.  Every stream is at the config's
+the pushed positions, summed over species, and, asked with solve=True, the
+E-field modes solved from them (spectral.solve_modes with the factor g =
+grad_inv / lx that FusedSubsteps holds; the kernels' last block forms them,
+so a step launches no solve of its own).  Every stream is at the config's
 dtype, except under bf16_weights (delta-f only): there p and w1 are bfloat16
 (cfg.p_dtype), upcast for the arithmetic, and w1 is rounded to bfloat16 by
 round-to-nearest-even after substep 1 has deposited it unrounded
@@ -68,6 +71,7 @@ import torch
 
 from pic1dp_tpu_torch import distributions as dist
 from pic1dp_tpu_torch.config import Config, Equilibrium
+from pic1dp_tpu_torch.ops import spectral as spectral_ops
 from pic1dp_tpu_torch.ops.interp import wrap_x
 from pic1dp_tpu_torch.ops.spectral import efield_at, mode_trig, project_modes
 from pic1dp_tpu_torch.utils import nvcc
@@ -340,9 +344,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     prm = ctypes.POINTER(SubstepParams)
     for suffix in _SUFFIX.values():
         getattr(lib, f"pic1dp_substep1_{suffix}").argtypes = \
-            [prm, i32] + [ptr] * 14 + [i32, i32, i32, ptr]
-        getattr(lib, f"pic1dp_substep2_{suffix}").argtypes = \
             [prm, i32] + [ptr] * 16 + [i32, i32, i32, ptr]
+        getattr(lib, f"pic1dp_substep2_{suffix}").argtypes = \
+            [prm, i32] + [ptr] * 18 + [i32, i32, i32, ptr]
     lib.pic1dp_grid_angle_f32.argtypes = [ptr, i32, i64, ptr, ptr, ptr]
     for suffix in ("f32", "f64"):
         getattr(lib, f"pic1dp_angle_gather_{suffix}").argtypes = [ptr, i32, ptr, i64, ptr, ptr]
@@ -507,7 +511,10 @@ class FusedSubsteps:
     (layout); the other layouts ignore it.  Streams a layout does not write come back as None from
     substep 1 and are ignored by substep 2 (full-f takes no w1 or v1, linear
     and recompute no v1); substep 2 takes the step-start modes as well where
-    it rebuilds v1 from them (full-f and recompute).  blocks_per_sm caps the
+    it rebuilds v1 from them (full-f and recompute).  g, (nmode,) at
+    cfg.dtype on the species parameters' device, is grad_inv / lx, the
+    factor of the mode solve (spectral.solve_modes) that solve=True asks of
+    either substep and that Stepper._solve reads.  blocks_per_sm caps the
     grid (species_grid); grid_bin set takes the grid bin at any nmode (the
     probe of the bin line; a run leaves it False)."""
 
@@ -535,6 +542,11 @@ class FusedSubsteps:
         self.blocks_per_sm = BLOCKS_PER_SM
         self.grid_bin = False
         self._many_modes = cfg.nmode >= 1 and mode_bin(cfg.nmode) == GRID_BIN
+        # torch's own division on the device (on a CUDA tensor a product with
+        # the scalar's reciprocal, which may differ from a division in the
+        # last bit): the kernels read g and never divide
+        self.g = spectral_ops.inverse_gradient(cfg.modes, cfg.lx, dtype,
+                                               sp.charge.device) / cfg.lx
         self.angles = self._done = self.species = None
         if self._unsupported is None:
             device = sp.charge.device
@@ -576,24 +588,27 @@ class FusedSubsteps:
         cfg = self.cfg
         return efield_at(mode_trig(x, cfg.lx, cfg.nx, cfg.modes), mode_re, mode_im)
 
-    def substep1_plain(self, x, v, p, w, mode_re, mode_im):
-        """(x0, v0, p, w0) + step-start modes -> (w1, v1, (p_c, p_s)).  w1
-        is returned at p's storage dtype (rounded to nearest even under
-        bf16_weights); the projections deposit it unrounded.  w1 is None in
-        full-f and v1 None outside the streamed nonlinear delta-f layout."""
+    def substep1_plain(self, x, v, p, w, mode_re, mode_im, solve: bool = False):
+        """(x0, v0, p, w0) + step-start modes -> (w1, v1, (p_c, p_s)), and
+        with solve the midpoint modes (mode_re, mode_im) of those
+        projections last.  w1 is returned at p's storage dtype (rounded to
+        nearest even under bf16_weights); the projections deposit it
+        unrounded.  w1 is None in full-f and v1 None outside the streamed
+        nonlinear delta-f layout."""
         x1, v1, w1 = self._push(x, v, p, w, v, w, self._efield(x, mode_re, mode_im),
                                 0.5 * self.cfg.dt)
         proj = self._project(x1, self._deposit_val(p, w1))
         return (w1.to(p.dtype) if self.has_w else None,
-                v1 if self.layout == NONLINEAR else None, proj)
+                v1 if self.layout == NONLINEAR else None, proj) + self._solved(proj, solve)
 
     def substep2_plain(self, x, v, p, w, w1, v1, mode_re1, mode_im1,
-                       mode_re0=None, mode_im0=None):
+                       mode_re0=None, mode_im0=None, solve: bool = False):
         """(x0, v0, p, w0, w1, v1) + midpoint modes (and, where v1 is
-        rebuilt, the step-start modes) -> (x2, v2, w2, (p_c, p_s)); x2, v2, w2
-        are x, v, w updated in place where the layout updates them.  p and w1
-        are at p's storage dtype.  The rebuilt v1 is substep1_plain's
-        expression on the same values, so the same bits."""
+        rebuilt, the step-start modes) -> (x2, v2, w2, (p_c, p_s)), and with
+        solve the step's modes of those projections last; x2, v2, w2 are x,
+        v, w updated in place where the layout updates them.  p and w1 are at
+        p's storage dtype.  The rebuilt v1 is substep1_plain's expression on
+        the same values, so the same bits."""
         cfg = self.cfg
         if self.rebuilds_v1:
             self._need_step_start_modes(mode_re0, mode_im0)
@@ -609,7 +624,12 @@ class FusedSubsteps:
             v.copy_(v2)
         if self.has_w:
             w.copy_(w2)
-        return x, v, w, proj
+        return (x, v, w, proj) + self._solved(proj, solve)
+
+    def _solved(self, proj, solve: bool) -> tuple:
+        """((mode_re, mode_im),) of the projections where solve is set, else
+        ()."""
+        return (spectral_ops.solve_modes(*proj, self.g),) if solve else ()
 
     def _need_step_start_modes(self, mode_re0, mode_im0):
         if mode_re0 is None or mode_im0 is None:
@@ -618,9 +638,9 @@ class FusedSubsteps:
 
     # ---- dispatch ----
 
-    def substep1(self, x, v, p, w, mode_re, mode_im):
+    def substep1(self, x, v, p, w, mode_re, mode_im, solve: bool = False):
         if x.device.type == "cpu":
-            return self.substep1_plain(x, v, p, w, mode_re, mode_im)
+            return self.substep1_plain(x, v, p, w, mode_re, mode_im, solve)
         prm, lib, grid = self._prepare(dict(x=x, v=v, p=p, w=w), (mode_re, mode_im), 1)
         w1 = torch.empty_like(w, dtype=p.dtype) if self.has_w else None
         v1 = torch.empty_like(v) if self.layout == NONLINEAR else None
@@ -628,16 +648,18 @@ class FusedSubsteps:
         rc = getattr(lib, f"pic1dp_substep1_{self._suffix}")(
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
             *_pointers(x, v, p, w, mode_re, mode_im, self.species, self._grids(x, grid, 1),
-                       w1, v1, sums, sums[grid], self._done[0], self.angles),
+                       w1, v1, sums, sums[grid], self.g, sums[grid + 1] if solve else None,
+                       self._done[0], self.angles),
             self._angle_smem, grid, int(self.grid_bin),
             torch.cuda.current_stream(x.device).cuda_stream)
         self.counters[0].launched(rc, lib)
-        return w1, v1, (sums[grid, 0], sums[grid, 1])
+        return (w1, v1, (sums[grid, 0], sums[grid, 1])) + self._kernel_modes(sums, grid, solve)
 
-    def substep2(self, x, v, p, w, w1, v1, mode_re1, mode_im1, mode_re0=None, mode_im0=None):
+    def substep2(self, x, v, p, w, w1, v1, mode_re1, mode_im1, mode_re0=None, mode_im0=None,
+                 solve: bool = False):
         if x.device.type == "cpu":
             return self.substep2_plain(x, v, p, w, w1, v1, mode_re1, mode_im1,
-                                       mode_re0, mode_im0)
+                                       mode_re0, mode_im0, solve)
         streams = dict(x=x, v=v, p=p, w=w)
         modes = (mode_re1, mode_im1)
         if self.has_w:
@@ -654,16 +676,24 @@ class FusedSubsteps:
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
             *_pointers(x, v, p, w, streams.get("w1"), streams.get("v1"), mode_re1, mode_im1,
                        *start, self.species, self._grids(x, grid, 2), sums, sums[grid],
-                       self._done[1], self.angles),
+                       self.g, sums[grid + 1] if solve else None, self._done[1], self.angles),
             self._angle_smem, grid, int(self.grid_bin),
             torch.cuda.current_stream(x.device).cuda_stream)
         self.counters[1].launched(rc, lib)
-        return x, v, w, (sums[grid, 0], sums[grid, 1])
+        return (x, v, w, (sums[grid, 0], sums[grid, 1])) + self._kernel_modes(sums, grid, solve)
 
     def _sums(self, x, grid: int):
-        """One buffer of grid + 1 rows of (2, nmode): the blocks' partial
-        sums, then the projections the last block writes."""
-        return torch.empty((grid + 1, 2, self.cfg.nmode), dtype=x.dtype, device=x.device)
+        """One buffer of grid + 2 rows of (2, nmode): the blocks' partial
+        sums, then the projections and the modes (mode_re, mode_im) the last
+        block writes.  A launch reads no row of it, so the modes never alias
+        a launch's input."""
+        return torch.empty((grid + 2, 2, self.cfg.nmode), dtype=x.dtype, device=x.device)
+
+    @staticmethod
+    def _kernel_modes(sums, grid: int, solve: bool) -> tuple:
+        """((mode_re, mode_im),) of the sums buffer's last row where the
+        launch solved, else ()."""
+        return ((sums[grid + 1, 0], sums[grid + 1, 1]),) if solve else ()
 
     def uses_grid_bin(self) -> bool:
         """Whether the kernels run the grid bin (above 4 kept modes, or

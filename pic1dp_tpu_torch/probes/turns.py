@@ -1,7 +1,7 @@
 """Time the substep kernels and the Stepper, the bulk-copy ring, or the hat
 deposits, of two checkouts in turns.
 
-    python -m pic1dp_tpu_torch.probes.turns OTHER_ROOT [THIS_ROOT=.] [--ring | --hist]
+    python -m pic1dp_tpu_torch.probes.turns OTHER_ROOT [THIS_ROOT=.] [--ring | --hist | --tail]
 
 Each turn is one process started in a checkout's root, which times that
 checkout's own code with its own chip_smoke.py and kernel probe: every
@@ -48,6 +48,20 @@ diag_full_rho; the main run to t = 100 (host clock); the main graph step
 case of the default turns, which must equal the other checkout's.  The
 substep and hist sources are built, and both sources' ptxas lines are
 compared.
+
+With --tail the turns time the step around its two kernels: the graph
+step (a STEPS-step graph replay, CUDA events, the least of three), the
+idle share and the kernels a step of one replay under torch.profiler, for
+the main case in f32 and bf16_weights, the headline, Landau damping at
+102,400 markers, two-stream, nine species of 102,400 and 32 kept modes;
+the phase table's step minus its two kernels (utils/phase_split.py) at
+the main case, the headline and Landau; the main run to t = 100 (host
+clock) in f32, bf16_weights and with diag_full_rho, with the SHA-256 of
+each pic1dp.out; the SHA-256 of every case's state (x, v, w, the modes,
+E, rho) after one eager step and a STEPS-step graph; and the substep
+checksums of the default turns.  The substep and hist sources are built
+first (the runs deposit snapshots), and the ptxas lines of every entry
+function whose lines differ are printed for both checkouts.
 """
 
 from __future__ import annotations
@@ -266,6 +280,102 @@ for nmode in (16, 32, 64):
 print(json.dumps({"card": smi, "rows": rows, "checksums": sums}))
 """
 
+# what one turn of --tail runs: graph steps, idle shares, the phase table's
+# rest, the main runs' outputs, states after a graph and the substep
+# checksums
+_TAIL_TURN = r"""
+import dataclasses, hashlib, json, os, sys, tempfile, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from pic1dp_tpu_torch import Simulation
+from pic1dp_tpu_torch.config import SpeciesConfig, bump_on_tail_default
+from pic1dp_tpu_torch.core.loading import load_particles
+from pic1dp_tpu_torch.core.step import Stepper
+from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+from pic1dp_tpu_torch.utils.phase_split import measure_phase_split
+
+cs.say = lambda *a: print(*a, file=sys.stderr, flush=True)
+smi = cs.card()
+STEPS = 50
+rows, sums = {}, {}
+
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def profiled(st, state):
+    # idle share and kernels a step of one STEPS-step graph replay
+    with tempfile.TemporaryDirectory() as out:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            st.graph_steps(state, STEPS)
+            torch.cuda.synchronize()
+        path = os.path.join(out, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and "dur" in e)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return 1.0 - busy / (spans[-1][1] - spans[0][0]), len(spans) / STEPS
+
+
+main = bump_on_tail_default(time_max=100.0, verbosity=0)
+head = bump_on_tail_default(nparticle_max=cs.BENCH_N, nx=cs.BENCH_NX, verbosity=0)
+bf16 = dataclasses.replace(main, bf16_weights=True)
+for label, cfg in (("main f32", main), ("main bf16", bf16), ("headline f32", head),
+                   ("landau 102400", cs.landau_damping_cfg()), ("two-stream", cs.two_stream_cfg()),
+                   ("9x102400", cs.nine_species_cfg()), ("32 modes", cs.many_modes_cfg(32))):
+    st = Stepper(cfg, "cuda")
+    state = st.multi_step(st.initial_field(load_particles(cfg, "cuda")), 1)
+    state = st.graph_steps(state, STEPS)
+    torch.cuda.synchronize()
+    sums[f"{label} state after 1 + {STEPS} graph steps"] = digest(
+        state.x, state.v, state.w, state.mode_re, state.mode_im, state.electric, state.rho)
+    rows[f"{label} graph step"] = min(
+        cs._events_ms(lambda: st.graph_steps(state, STEPS), 1) / STEPS for _ in range(3))
+    rows[f"{label} idle share"], rows[f"{label} kernels a step"] = profiled(st, state)
+    if label in ("main f32", "headline f32", "landau 102400"):
+        table = measure_phase_split(st, state, steps=10)
+        rows[f"{label} step minus the two kernels"] = 1e3 * (
+            table["full step (measured)"] - table["substep-1 kernel (fused)"]
+            - table["substep-2 kernel (fused)"])
+    del st, state
+    torch.cuda.empty_cache()
+with tempfile.TemporaryDirectory() as out:
+    for label, cfg in (("f32", main), ("bf16_weights", bf16),
+                       ("diag_full_rho", dataclasses.replace(main, diag_full_rho=True))):
+        sim = Simulation(cfg, out_path=os.path.join(out, label), device="cuda")
+        start = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        rows[f"main run {label} to t = 100 (s)"] = time.perf_counter() - start
+        with open(os.path.join(out, label, "pic1dp.out"), "rb") as fh:
+            sums[f"main run {label} pic1dp.out"] = hashlib.sha256(fh.read()).hexdigest()[:16]
+        del sim
+        torch.cuda.empty_cache()
+""" + _CASES + r"""
+for label, c, inputs in cases:
+    make = (lambda: cs._loaded_inputs(c)) if inputs else (
+        lambda: cs._inputs(c, c.nparticle_max, "cuda"))
+    sums[f"substeps {label} {'bf16_weights' if c.bf16_weights else c.dtype} ns={c.nspecies}"] = \
+        checksum(c, make())
+    torch.cuda.empty_cache()
+for nmode in (16, 32, 64):
+    for stream_v1, lay in ((True, "streamed"), (False, "recompute")):
+        c = cs.many_modes_cfg(nmode)
+        sums[f"substeps {nmode} modes {lay} ns=1"] = checksum(
+            c, cs._inputs(c, c.nparticle_max, "cuda"), stream_v1)
+print(json.dumps({"card": smi, "rows": rows, "checksums": sums}))
+"""
+
 _BUILD = r"""
 import json, re, sys
 sys.path.insert(0, ".")
@@ -304,14 +414,16 @@ def turn(root: str, script: str = _TURN) -> dict:
 
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
-    mode = next((a for a in argv if a in ("--ring", "--hist")), None)
-    argv = [a for a in argv if a not in ("--ring", "--hist")]
+    flags = ("--ring", "--hist", "--tail")
+    mode = next((a for a in argv if a in flags), None)
+    argv = [a for a in argv if a not in flags]
     if not argv:
         raise SystemExit(__doc__)
     other = os.path.abspath(argv[0])
     this = os.path.abspath(argv[1] if len(argv) > 1 else ".")
     sources, script = {"--ring": (["stream_probes"], _RING_TURN),
                        "--hist": (["substep_kernels", "hist_kernels"], _HIST_TURN),
+                       "--tail": (["substep_kernels", "hist_kernels"], _TAIL_TURN),
                        None: (["substep_kernels", "stream_probes"], _TURN)}[mode]
     builds = [subprocess.Popen([sys.executable, "-c", _BUILD, *sources], cwd=root,
                                stdout=subprocess.PIPE, text=True) for root in (other, this)]
@@ -328,6 +440,10 @@ def main(argv=None) -> dict:
         print(f"ptxas, {src}: {len(ptxas[0][src])} entry functions in {other}, "
               f"{len(ptxas[1][src])} in {this}; of the {equal + len(differ)} they share by "
               f"name {equal} have equal lines, {len(differ)} differ: {differ}", flush=True)
+        if mode == "--tail":
+            for name in differ:
+                print(f"ptxas {name}\n  other {ptxas[0][src][name]}\n  this  "
+                      f"{ptxas[1][src][name]}", flush=True)
     runs = {"other": [], "this": []}
     for name, root in (("other", other), ("this", this), ("this", this), ("other", other)):
         runs[name].append(turn(root, script))

@@ -121,7 +121,10 @@ def measure_phase_split(stepper, state, steps: int = 10) -> "OrderedDict[str, fl
     def collect():
         spectral_ops.project_modes(trig(x), deposit_val())
 
-    # field solve: projections -> mode components -> grid E
+    # field solve: projections -> mode components -> grid E, as standalone
+    # torch ops (the price of the unfused phase: the production step solves
+    # the modes in the substep kernels' last block and forms E once a
+    # multi_step call, not once a step)
     pc0, ps0 = spectral_ops.project_modes(trig(x), deposit_val())
 
     def solve():
@@ -136,15 +139,17 @@ def measure_phase_split(stepper, state, steps: int = 10) -> "OrderedDict[str, fl
     table["field solve"] = 2.0 * _slope(repeat(solve), 64 * steps, device)
 
     # the two substep kernels (the plain versions on the CPU) in the layout
-    # the Stepper chose; substep 2 updates its copies of x, v and w in place
-    w1, v1, _ = stepper._substep1(x, v, p, w, mre, mim)
+    # the Stepper chose, solving the modes where its steps do; substep 2
+    # updates its copies of x, v and w in place
+    solves = stepper.kernel_solves
+    w1, v1 = stepper._substep1(x, v, p, w, mre, mim, solve=solves)[:2]
     x2, v2, w2 = x.clone(), v.clone(), w.clone()
 
     def substep1():
-        stepper._substep1(x, v, p, w, mre, mim)
+        stepper._substep1(x, v, p, w, mre, mim, solve=solves)
 
     def substep2():
-        stepper._substep2(x2, v2, p, w2, w1, v1, mre, mim, mre, mim)
+        stepper._substep2(x2, v2, p, w2, w1, v1, mre, mim, mre, mim, solve=solves)
 
     table["substep-1 kernel (fused)"] = _slope(repeat(substep1), steps, device)
     table["substep-2 kernel (fused)"] = _slope(repeat(substep2), steps, device)
