@@ -9,6 +9,20 @@ device back to back; the host waits for the device only at a snapshot, at
 most once per `output_interval`, at a step with a scheduled optimization
 (merge/remove/split), and at a checkpoint.
 
+`self.timers` (utils/timers.PhaseTimers), which the Simulation hands to its
+Stepper and its SnapshotWriter, holds the run's phases and counters: a
+snapshot is the phase "output", split into "output: energies",
+"output: ptcldist", "output: fields" (full_rho where it runs, the copies of
+the modes, E and rho) and "output: write"; every device-to-host copy of a
+snapshot is counted with its bytes ("snapshot d2h copies", "snapshot d2h
+bytes"); the Stepper times its graph captures ("step: capture") and counts
+replays.  `trace=True` turns tracing on: each multi_step call's steps are
+then the phase "step", timed on a CUDA device by timing events and read at
+the run's next synchronization (a snapshot, a checkpoint, the run's end),
+on the CPU by the host clock; and under a recording torch.profiler every
+phase is a "pic1dp.<phase>" span.  With tracing off there is no "step"
+phase.
+
 `mesh` splits the particle axis over the processes of a torch.distributed
 job, one device each (parallel/mesh.py): each rank loads the global state,
 keeps its block and steps it with a ShardedStepper.  Only rank 0 writes
@@ -57,11 +71,6 @@ from pic1dp_tpu_torch.utils.timers import PhaseTimers
 _EPS = math.sqrt(np.finfo(np.float64).eps)  # PETSC_SQRT_MACHINE_EPSILON
 
 
-def _to_host(tree):
-    """A NamedTuple of tensors as the same NamedTuple of numpy arrays."""
-    return type(tree)(*(t.detach().cpu().numpy() for t in tree))
-
-
 # config fields that may differ between a checkpoint and the run resuming
 # it: they affect neither the saved state nor its physics
 _RUN_ONLY = {"time_max", "ntime_max", "output_interval", "verbosity", "deposit_method",
@@ -73,17 +82,18 @@ class Simulation:
                  out_path: str | None = None, emulate_ranks: int = 1,
                  checkpoint_interval: float | None = None,
                  checkpoint_path: str | None = None,
-                 device: torch.device | str = "cuda", mesh=None):
+                 device: torch.device | str = "cuda", mesh=None, trace: bool = False):
         """`mesh`: None for one device; a parallel.mesh.Mesh, or its size
         (parallel.mesh.make_mesh on `device`; a CUDA device without an index
         becomes cuda:LOCAL_RANK), splits the particle axis over the job's
-        processes (module docstring)."""
+        processes (module docstring).  `trace`: the timers' tracing (module
+        docstring)."""
         self.cfg = cfg.validate()
         self.device = torch.device(device)
         self.checkpoint_interval = checkpoint_interval
         self.checkpoint_path = checkpoint_path or "."
         self._last_checkpoint_time = 0.0
-        self.timers = PhaseTimers()
+        self.timers = PhaseTimers(tracing=trace)
         self.mesh = None
         with self.timers.phase("initialize"):
             if mesh is not None:
@@ -92,14 +102,14 @@ class Simulation:
                 self.mesh = pmesh.make_mesh(mesh, self.device) if isinstance(mesh, int) \
                     else mesh
                 self.device = self.mesh.device
-                self.stepper = pmesh.ShardedStepper(cfg, self.mesh)
+                self.stepper = pmesh.ShardedStepper(cfg, self.mesh, timers=self.timers)
             else:
-                self.stepper = Stepper(cfg, self.device)
+                self.stepper = Stepper(cfg, self.device, timers=self.timers)
         self._is_io_process = self.mesh is None or self.mesh.rank == 0
         self._has_output = out_path is not None
         self.pertb_shape = pertb_shape
         self.emulate_ranks = emulate_ranks
-        self.writer = SnapshotWriter(cfg, out_path) \
+        self.writer = SnapshotWriter(cfg, out_path, timers=self.timers) \
             if out_path is not None and self._is_io_process else None
         self.state: SimState | None = None
         self.itime = 0
@@ -139,8 +149,10 @@ class Simulation:
         return state
 
     def _sync(self) -> None:
+        """Wait for the device; the timers then read their device phases."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.timers.flush()
 
     def _check_termination(self) -> bool:
         """reference check_termination (src/pic1dp.F90:133-148)."""
@@ -181,9 +193,8 @@ class Simulation:
         if merge is None and remove is None and split is None:
             self.state = self.stepper.step(self.state)
         else:
-            # sub-phase timers nest inside run()'s "step" phase, mirroring
-            # the reference's overlapping wtimer slots (push/optimize/collect
-            # inside total, src/pic1dp_global.F90:38-50)
+            # the reference's wtimer slots of a step's parts (push/optimize/
+            # collect, src/pic1dp_global.F90:38-50)
             with self.timers.phase("step: push pair"):
                 state = self.stepper.push_pair(self.state)
             with self.timers.phase("optimize particle"):
@@ -219,21 +230,25 @@ class Simulation:
         """Compute + (optionally) write one snapshot; returns the scalars."""
         assert self.state is not None
         with self.timers.phase("output"):
-            eng = _to_host(self.stepper.energies(self.state))
-            ptcl = _to_host(self.stepper.ptcldist(self.state))
-            rho = self.state.rho
-            if self.cfg.diag_full_rho and self._has_output:
-                # exact full-spectrum grid charge for the diagnostic stream
-                # (reference writes the deposited rho, all modes); every
-                # rank takes part in its all_reduce
-                rho = self.stepper.full_rho(self.state)
-            mode_re, mode_im, electric, rho = (
-                t.cpu().numpy() for t in (self.state.mode_re, self.state.mode_im,
-                                          self.state.electric, rho))
-            nlive = None
-            if self.cfg.verbosity >= 3:
-                nlive, = self.stepper.reduce_sum(self.state.nparticles())
-                nlive = nlive.cpu().numpy()
+            with self.timers.phase("output: energies"):
+                eng = self.stepper.energies(self.state)
+                eng = type(eng)(*self._to_host(*eng))
+            with self.timers.phase("output: ptcldist"):
+                ptcl = self.stepper.ptcldist(self.state)
+                ptcl = type(ptcl)(*self._to_host(*ptcl))
+            with self.timers.phase("output: fields"):
+                rho = self.state.rho
+                if self.cfg.diag_full_rho and self._has_output:
+                    # exact full-spectrum grid charge for the diagnostic stream
+                    # (reference writes the deposited rho, all modes); every
+                    # rank takes part in its all_reduce
+                    rho = self.stepper.full_rho(self.state)
+                mode_re, mode_im, electric, rho = self._to_host(
+                    self.state.mode_re, self.state.mode_im, self.state.electric, rho)
+                nlive = None
+                if self.cfg.verbosity >= 3:
+                    nlive, = self._to_host(
+                        *self.stepper.reduce_sum(self.state.nparticles()))
             if self.writer is not None:
                 self.writer.write_snapshot(self.time, eng, mode_re, mode_im,
                                            electric, rho, ptcl)
@@ -248,6 +263,14 @@ class Simulation:
         return {"time": self.time, "field_energy": float(eng.field),
                 "marker": eng.marker, "total": eng.total, "pertb": eng.pertb,
                 "mode_re": mode_re, "mode_im": mode_im}
+
+    def _to_host(self, *tensors: torch.Tensor) -> list[np.ndarray]:
+        """A snapshot's tensors as numpy arrays, each device-to-host copy
+        counted with its bytes."""
+        self.timers.count("snapshot d2h copies", len(tensors))
+        self.timers.count("snapshot d2h bytes",
+                          sum(t.numel() * t.element_size() for t in tensors))
+        return [t.detach().cpu().numpy() for t in tensors]
 
     def _plain_steps_ahead(self, limit: int = 4096) -> tuple[int, int, float]:
         """Number of upcoming steps with no output, optimization, or
@@ -293,12 +316,11 @@ class Simulation:
             snapshot_callback(snap)
         while not self._check_termination():
             k, itime_k, time_k = self._plain_steps_ahead()
-            with self.timers.phase("step"):
-                if k > 0:
-                    self.state = self.stepper.multi_step(self.state, k)
-                    self.itime, self.time = itime_k, time_k
-                else:
-                    self.step_once()
+            if k > 0:
+                self.state = self.stepper.multi_step(self.state, k)
+                self.itime, self.time = itime_k, time_k
+            else:
+                self.step_once()
             if self._output_due() or self._check_termination():
                 self._sync()
                 snap = self.output_snapshot()

@@ -25,6 +25,10 @@ bfloat16; x, v, w and the fields stay float32.
 
 On a CUDA device `multi_step` replays k matrix-free steps from one CUDA
 graph, the port's counterpart of the reference's k steps in one `lax.scan`.
+The Stepper's `timers` (a Simulation hands it its own) time each capture
+("step: capture", host clock) and count the replays ("graph replays"); with
+tracing on, a multi_step call's steps, never a capture, are the device phase
+"step" (utils/timers.py).
 
 A Stepper given a torch.distributed process group (`group`, set by
 parallel/mesh.ShardedStepper) steps one rank's block of the particle axis:
@@ -77,6 +81,7 @@ from pic1dp_tpu_torch.ops.gather import gather
 from pic1dp_tpu_torch.ops.interp import wrap_x
 from pic1dp_tpu_torch.ops.spectral import SpectralOperator
 from pic1dp_tpu_torch.ops.substep_kernels import FusedSubsteps
+from pic1dp_tpu_torch.utils.timers import PhaseTimers
 
 
 class Stepper:
@@ -88,14 +93,16 @@ class Stepper:
     run is held against).  A matrix-free step (and push_pair) updates the
     state's x, v and w in place; an EXPLICIT step returns new tensors.
     `group`: the process group a rank's sums are all-reduced over (module
-    docstring); None for one device.
+    docstring); None for one device.  `timers`: where the steps, captures
+    and replays are timed and counted (module docstring); a new
+    PhaseTimers by default.
     """
 
     # steps per CUDA graph at most; a longer multi_step replays several
     GRAPH_STEPS = 128
 
     def __init__(self, cfg: Config, device: torch.device | str, plain: bool = False,
-                 group=None):
+                 group=None, timers: PhaseTimers | None = None):
         cfg.validate()
         if cfg.bf16_weights and cfg.nspecies > 1 and any(
                 abs(s.v0) > 2.0 * (s.temperature / s.mass) ** 0.5
@@ -133,6 +140,7 @@ class Stepper:
         self._graph_buffers = None   # the state the graphs were captured over
         self._warm = False
         self.group = group
+        self.timers = timers if timers is not None else PhaseTimers()
         # the substeps solve their own projections' modes unless those are
         # a rank's partial sums
         self.kernel_solves = group is None
@@ -348,7 +356,8 @@ class Stepper:
         NCCL group, has made the communicator a capture needs)."""
         if (self.explicit or state.x.device.type != "cuda" or not self._warm
                 or not self._graphs_capture):
-            state = self.advance(state, k)
+            with self.timers.device_phase("step", state.x.device, k):
+                state = self.advance(state, k)
             self._warm = state.x.device.type == "cuda" and not self.explicit
             return state
         return self.graph_steps(state, k)
@@ -363,7 +372,8 @@ class Stepper:
         and rho once and copying them and the new modes into the state's
         own tensors, so the state returned is `state` itself.  Graphs
         captured over another state's buffers are dropped, never replayed
-        over this one."""
+        over this one.  Missing graphs are captured before the replays
+        start, outside the device phase "step" that times them."""
         if state.x.device.type != "cuda":
             raise ValueError(f"CUDA graphs replay on a CUDA state, not {state.x.device}")
         if self.explicit:
@@ -385,10 +395,15 @@ class Stepper:
         if buffers != self._graph_buffers:
             self._graphs, self._graph_buffers = {}, buffers
         full, rest = divmod(k, self.GRAPH_STEPS)
+        graphs = []
         for n in [self.GRAPH_STEPS] * full + [rest] * (rest > 0):
             if n not in self._graphs:
-                self._graphs[n] = _StepGraph(self, state, n)
-            self._graphs[n].replay()
+                with self.timers.phase("step: capture"):
+                    self._graphs[n] = _StepGraph(self, state, n)
+            graphs.append(self._graphs[n])
+        with self.timers.device_phase("step", state.x.device, k):
+            for graph in graphs:
+                graph.replay()
         return state
 
     def energies(self, state: SimState) -> diagnostics.Energies:
@@ -403,9 +418,10 @@ class CountedGraph:
     launches while fn is captured, when nothing runs; those counts are taken
     back at once and added again at each replay, when the kernels do run.
     fn must have run eagerly once before (that loads every kernel the graph
-    will hold)."""
+    will hold).  `timers`, if given, counts the replays ("graph replays")."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, timers: PhaseTimers | None = None):
+        self.timers = timers
         kernels = substep_kernels.KERNELS
         before = [k.launches for k in kernels]
         self.graph = torch.cuda.CUDAGraph()
@@ -419,6 +435,8 @@ class CountedGraph:
         self.graph.replay()
         for k, d in zip(substep_kernels.KERNELS, self.launches):
             k.launches += d
+        if self.timers is not None:
+            self.timers.count("graph replays")
 
 
 class _StepGraph(CountedGraph):
@@ -432,4 +450,4 @@ class _StepGraph(CountedGraph):
             for field in ("mode_re", "mode_im", "electric", "rho"):
                 getattr(state, field).copy_(getattr(out, field))
 
-        super().__init__(steps)
+        super().__init__(steps, stepper.timers)

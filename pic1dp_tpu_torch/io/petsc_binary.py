@@ -24,18 +24,18 @@ import numpy as np
 VEC_FILE_CLASSID = 1211214  # PETSc VEC_FILE_CLASSID
 
 
-def write_int(fh: BinaryIO, values) -> None:
-    fh.write(np.asarray(values, dtype=">i4").tobytes())
+def write_int(fh: BinaryIO, values) -> int:
+    """Returns the bytes written, as the write functions below do."""
+    return fh.write(np.asarray(values, dtype=">i4").tobytes())
 
 
-def write_real(fh: BinaryIO, values) -> None:
-    fh.write(np.asarray(values, dtype=">f8").tobytes())
+def write_real(fh: BinaryIO, values) -> int:
+    return fh.write(np.asarray(values, dtype=">f8").tobytes())
 
 
-def write_vec(fh: BinaryIO, values) -> None:
+def write_vec(fh: BinaryIO, values) -> int:
     arr = np.asarray(values, dtype=">f8")
-    write_int(fh, [VEC_FILE_CLASSID, arr.size])
-    fh.write(arr.tobytes())
+    return write_int(fh, [VEC_FILE_CLASSID, arr.size]) + fh.write(arr.tobytes())
 
 
 def read_int(fh: BinaryIO, n: int) -> np.ndarray:

@@ -33,6 +33,7 @@ import torch.distributed as dist
 from pic1dp_tpu_torch.config import Config
 from pic1dp_tpu_torch.core.state import FIELDS, SimState
 from pic1dp_tpu_torch.core.step import Stepper
+from pic1dp_tpu_torch.utils.timers import PhaseTimers
 
 AXIS = "p"
 
@@ -116,12 +117,12 @@ class ShardedStepper(Stepper):
     call has made the communicator).  A gloo group's collectives cannot be
     captured: multi_step then runs eager steps, the kernels all the same."""
 
-    def __init__(self, cfg: Config, mesh: Mesh):
+    def __init__(self, cfg: Config, mesh: Mesh, timers: PhaseTimers | None = None):
         if cfg.nparticle_max % mesh.size:
             raise ValueError(
                 f"nparticle_max={cfg.nparticle_max} must be divisible by the "
                 f"mesh size {mesh.size}")
-        super().__init__(cfg, mesh.device, group=mesh.group)
+        super().__init__(cfg, mesh.device, group=mesh.group, timers=timers)
         self.mesh = mesh
 
     def make_multi_step(self, k: int):

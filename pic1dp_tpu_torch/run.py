@@ -13,7 +13,7 @@ overrides, on an explicit device:
     python -m pic1dp_tpu_torch.run -s shape=1                # the EXPLICIT grid path
     python -m pic1dp_tpu_torch.run -s "rng={'backend': 'multirand'}" --emulate-ranks 4
     python -m pic1dp_tpu_torch.run --phase-table             # per-phase ms/step, to stderr
-    python -m pic1dp_tpu_torch.run --profile trace_dir       # torch.profiler trace
+    python -m pic1dp_tpu_torch.run --profile trace_dir       # trace, program spans
     PIC1DP_STREAM_V1=0 python -m pic1dp_tpu_torch.run        # substep 2 rebuilds v1
     torchrun --nproc-per-node 4 -m pic1dp_tpu_torch.run --distributed --mesh 4
 
@@ -93,8 +93,10 @@ def main(argv=None) -> int:
                     help="join torchrun's processes into one torch.distributed job "
                     "first (parallel/launch.py)")
     ap.add_argument("--profile", metavar="<trace dir>", default=None,
-                    help="write a torch.profiler trace of the run (CPU and, on a "
-                    f"CUDA device, CUDA activity) to <trace dir>/{TRACE_FILE}")
+                    help="turn on the program's tracing (its phases as pic1dp.* spans, "
+                    "the device-timed step phase in the timers table) and write a "
+                    "torch.profiler trace of the run (CPU and, on a CUDA device, "
+                    f"CUDA activity) to <trace dir>/{TRACE_FILE}")
     ap.add_argument("--phase-table", action="store_true",
                     help="after the run, print the per-phase step decomposition "
                     "(reference wtimer granularity) to stderr")
@@ -135,7 +137,8 @@ def main(argv=None) -> int:
     sim = Simulation(cfg, out_path=None if args.no_output else args.out,
                      checkpoint_interval=args.checkpoint_interval,
                      checkpoint_path=None if args.no_output else args.out,
-                     emulate_ranks=args.emulate_ranks, device=device, mesh=mesh)
+                     emulate_ranks=args.emulate_ranks, device=device, mesh=mesh,
+                     trace=args.profile is not None)
     if args.resume:
         sim.restore_checkpoint(args.resume)
     if args.profile:
