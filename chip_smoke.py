@@ -1433,7 +1433,8 @@ def full_rho_phase(cfg) -> None:
                              out_path=os.path.join(out, str(flag)), device="cuda")
             sim.load()
             sim.state = sim.stepper.multi_step(sim.state, 20)
-            sim.output_snapshot()                       # warm-up
+            sim.output_snapshot()                       # warm-up: eager,
+            sim.output_snapshot()                       # then the graph's capture
             torch.cuda.synchronize()
             ms[flag] = _events_ms(sim.output_snapshot, 5)
             sim.writer.close()

@@ -19,12 +19,18 @@ When the particle axis is split over ranks (parallel/mesh.py), `reduce`
 sums a rank's partial sums over the ranks: the energies' marker sums and
 ptcldist's RAW histograms, before any derived quantity (normalization, the
 full-f equilibrium subtraction), as the JAX package's psums do.
+
+A snapshot's arrays travel to the host as one packed buffer
+(SnapshotLayout): Stepper.snapshot forms them and packs them on the device,
+the host copies the buffer once and reads each array as a view of the copy.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import math
+from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from pic1dp_tpu_torch import distributions as dist
@@ -142,6 +148,62 @@ def ptcldist(cfg: Config, sp: dist.SpeciesParams, state: SimState,
 
     return PtclDist(markr_xv=markr_xv, total_xv=total_xv, pertb_xv=pertb_xv,
                     markr_v=markr_v, total_v=total_v, pertb_v=pertb_v)
+
+
+class Snapshot(NamedTuple):
+    """What a snapshot record and the progress line need: device tensors
+    where Stepper.snapshot forms them, numpy views of one host copy where
+    SnapshotLayout.unpack reads them."""
+
+    energies: Energies
+    mode_re: Any
+    mode_im: Any
+    electric: Any
+    rho: Any             # the state's rho, or the full-spectrum rho (diag_full_rho)
+    ptcl: PtclDist
+    nlive: Any           # (ns,) int64 live markers, or None without live_count
+
+
+class SnapshotLayout:
+    """Where each array of a Snapshot lies in one flat buffer of the state's
+    float dtype, in the order of Snapshot's fields: the field energy, each
+    species' marker, total and perturbed energies, mode_re, mode_im, E, rho,
+    the six histograms in PtclDist's order and, with live_count, the live
+    counts.  Every array but the counts is of that dtype, so packing copies
+    its values exactly; the int64 counts are packed as their raw bytes
+    (8 / itemsize elements a count).  The layout follows from the config,
+    the dtype and live_count alone."""
+
+    def __init__(self, cfg: Config, dtype: torch.dtype, live_count: bool = False):
+        ns, nxo, nvo = cfg.nspecies, cfg.nx_opd, cfg.nv_opd
+        self.dtype, self.live_count = dtype, live_count
+        self.shapes = ([(), (ns,), (ns,), (ns,), (cfg.nmode,), (cfg.nmode,), (cfg.nx,),
+                        (cfg.nx,)] + [(ns, nvo, nxo)] * 3 + [(ns, nvo)] * 3)
+        if live_count:
+            self.shapes.append((ns * 8 // dtype.itemsize,))
+        self.sizes = [math.prod(shape) for shape in self.shapes]
+        self.numel = sum(self.sizes)
+
+    def pack(self, snap: Snapshot) -> torch.Tensor:
+        """The snapshot's arrays laid end to end in one new tensor."""
+        parts = [*snap.energies, snap.mode_re, snap.mode_im, snap.electric, snap.rho,
+                 *snap.ptcl]
+        if self.live_count:
+            parts.append(snap.nlive.view(self.dtype))
+        for part, shape in zip(parts, self.shapes):
+            if part.dtype != self.dtype or tuple(part.shape) != shape:
+                raise ValueError(f"a snapshot array of {part.dtype} {tuple(part.shape)} "
+                                 f"where the layout holds {self.dtype} {shape}")
+        return torch.cat([part.reshape(-1) for part in parts])
+
+    def unpack(self, flat: np.ndarray) -> Snapshot:
+        """A Snapshot of views of `flat`, a host copy of a packed buffer."""
+        views, at = [], 0
+        for shape, size in zip(self.shapes, self.sizes):
+            views.append(flat[at:at + size].reshape(shape))
+            at += size
+        nlive = views[14].view(np.int64) if self.live_count else None
+        return Snapshot(Energies(*views[:4]), *views[4:8], PtclDist(*views[8:14]), nlive)
 
 
 def dist_pertb_abs_v(v, w, live, v_max: float, nv: int) -> torch.Tensor:

@@ -9,19 +9,27 @@ device back to back; the host waits for the device only at a snapshot, at
 most once per `output_interval`, at a step with a scheduled optimization
 (merge/remove/split), and at a checkpoint.
 
+A snapshot's device half (Stepper.snapshot) writes everything its record
+and the progress line need into one packed buffer (diagnostics.SnapshotLayout),
+which the host copies once, into a new array each snapshot, so that what a
+snapshot callback keeps stays valid.  On a CUDA device that chain is a CUDA
+graph from the second snapshot on (Stepper.snapshot_graph); the first runs
+it eagerly, and so do the CPU, the EXPLICIT path and a gloo group.
+
 `self.timers` (utils/timers.PhaseTimers), which the Simulation hands to its
 Stepper and its SnapshotWriter, holds the run's phases and counters: a
-snapshot is the phase "output", split into "output: energies",
-"output: ptcldist", "output: fields" (full_rho where it runs, the copies of
-the modes, E and rho) and "output: write"; every device-to-host copy of a
-snapshot is counted with its bytes ("snapshot d2h copies", "snapshot d2h
-bytes"); the Stepper times its graph captures ("step: capture") and counts
-replays.  `trace=True` turns tracing on: each multi_step call's steps are
-then the phase "step", timed on a CUDA device by timing events and read at
-the run's next synchronization (a snapshot, a checkpoint, the run's end),
-on the CPU by the host clock; and under a recording torch.profiler every
-phase is a "pic1dp.<phase>" span.  With tracing off there is no "step"
-phase.
+snapshot is the phase "output", split into "output: capture" (where a
+snapshot graph is captured), "output: device" (the graph's replay or the
+eager chain, ending in the one copy) and "output: write"; the counters
+"snapshot graph replays", "snapshot graph captures" and "snapshot eager" say
+how each snapshot ran, and "snapshot d2h copies" and "snapshot d2h bytes"
+count its copy; the Stepper times its step graphs' captures ("step:
+capture") and counts their replays.  `trace=True` turns tracing on: each
+multi_step call's steps are then the phase "step", timed on a CUDA device
+by timing events and read at the run's next synchronization (a snapshot, a
+checkpoint, the run's end), on the CPU by the host clock; and under a
+recording torch.profiler every phase is a "pic1dp.<phase>" span.  With
+tracing off there is no "step" phase.
 
 `mesh` splits the particle axis over the processes of a torch.distributed
 job, one device each (parallel/mesh.py): each rank loads the global state,
@@ -61,7 +69,7 @@ import numpy as np
 import torch
 
 from pic1dp_tpu_torch.config import Config
-from pic1dp_tpu_torch.core.diagnostics import Energies
+from pic1dp_tpu_torch.core.diagnostics import Energies, SnapshotLayout
 from pic1dp_tpu_torch.core.loading import PertbShape, load_particles
 from pic1dp_tpu_torch.core.state import FIELDS, SimState, torch_dtype
 from pic1dp_tpu_torch.core.step import Stepper
@@ -111,6 +119,8 @@ class Simulation:
         self.emulate_ranks = emulate_ranks
         self.writer = SnapshotWriter(cfg, out_path, timers=self.timers) \
             if out_path is not None and self._is_io_process else None
+        self.snapshot_layout = SnapshotLayout(cfg, self.stepper.dtype,
+                                              live_count=cfg.verbosity >= 3)
         self.state: SimState | None = None
         self.itime = 0
         self.time = 0.0
@@ -230,30 +240,25 @@ class Simulation:
         """Compute + (optionally) write one snapshot; returns the scalars."""
         assert self.state is not None
         with self.timers.phase("output"):
-            with self.timers.phase("output: energies"):
-                eng = self.stepper.energies(self.state)
-                eng = type(eng)(*self._to_host(*eng))
-            with self.timers.phase("output: ptcldist"):
-                ptcl = self.stepper.ptcldist(self.state)
-                ptcl = type(ptcl)(*self._to_host(*ptcl))
-            with self.timers.phase("output: fields"):
-                rho = self.state.rho
-                if self.cfg.diag_full_rho and self._has_output:
-                    # exact full-spectrum grid charge for the diagnostic stream
-                    # (reference writes the deposited rho, all modes); every
-                    # rank takes part in its all_reduce
-                    rho = self.stepper.full_rho(self.state)
-                mode_re, mode_im, electric, rho = self._to_host(
-                    self.state.mode_re, self.state.mode_im, self.state.electric, rho)
-                nlive = None
-                if self.cfg.verbosity >= 3:
-                    nlive, = self._to_host(
-                        *self.stepper.reduce_sum(self.state.nparticles()))
+            # exact full-spectrum grid charge for the diagnostic stream
+            # (reference writes the deposited rho, all modes); every rank
+            # takes part in its all_reduce
+            full_rho = self.cfg.diag_full_rho and self._has_output
+            graph = self.stepper.snapshot_graph(self.state, self.snapshot_layout, full_rho)
+            with self.timers.phase("output: device"):
+                if graph is None:
+                    self.timers.count("snapshot eager")
+                    packed = self.stepper.snapshot(self.state, self.snapshot_layout, full_rho)
+                else:
+                    graph.replay()
+                    packed = graph.out
+                snap = self.snapshot_layout.unpack(self._to_host(packed))
+            eng = snap.energies
             if self.writer is not None:
-                self.writer.write_snapshot(self.time, eng, mode_re, mode_im,
-                                           electric, rho, ptcl)
+                self.writer.write_snapshot(self.time, eng, snap.mode_re, snap.mode_im,
+                                           snap.electric, snap.rho, snap.ptcl)
         if self.cfg.verbosity >= 1:
-            self._print_progress(eng, mode_re, mode_im, nlive)
+            self._print_progress(eng, snap.mode_re, snap.mode_im, snap.nlive)
         if not np.isfinite(eng.field):
             raise FloatingPointError(
                 f"non-finite field energy at t = {self.time:.4f} "
@@ -262,15 +267,14 @@ class Simulation:
                 f"is in {self.checkpoint_path!r}.")
         return {"time": self.time, "field_energy": float(eng.field),
                 "marker": eng.marker, "total": eng.total, "pertb": eng.pertb,
-                "mode_re": mode_re, "mode_im": mode_im}
+                "mode_re": snap.mode_re, "mode_im": snap.mode_im}
 
-    def _to_host(self, *tensors: torch.Tensor) -> list[np.ndarray]:
-        """A snapshot's tensors as numpy arrays, each device-to-host copy
-        counted with its bytes."""
-        self.timers.count("snapshot d2h copies", len(tensors))
-        self.timers.count("snapshot d2h bytes",
-                          sum(t.numel() * t.element_size() for t in tensors))
-        return [t.detach().cpu().numpy() for t in tensors]
+    def _to_host(self, packed: torch.Tensor) -> np.ndarray:
+        """A snapshot's packed buffer in a new host array: one device-to-host
+        copy, counted with its bytes."""
+        self.timers.count("snapshot d2h copies")
+        self.timers.count("snapshot d2h bytes", packed.numel() * packed.element_size())
+        return packed.detach().cpu().numpy()
 
     def _plain_steps_ahead(self, limit: int = 4096) -> tuple[int, int, float]:
         """Number of upcoming steps with no output, optimization, or

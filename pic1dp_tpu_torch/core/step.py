@@ -30,6 +30,12 @@ The Stepper's `timers` (a Simulation hands it its own) time each capture
 tracing on, a multi_step call's steps, never a capture, are the device phase
 "step" (utils/timers.py).
 
+A snapshot's device half (`snapshot`: energies, ptcldist, full_rho where it
+runs, the live counts) writes one packed buffer (diagnostics.SnapshotLayout).
+On a CUDA device `snapshot_graph` holds it as a CUDA graph over the state's
+buffers, captured at the second snapshot (the first runs eagerly) and
+replayed at every later one; a replay is the eager chain's bits.
+
 A Stepper given a torch.distributed process group (`group`, set by
 parallel/mesh.ShardedStepper) steps one rank's block of the particle axis:
 every sum over markers ends in an all_reduce over the group (`reduce_sum`),
@@ -74,6 +80,7 @@ from pic1dp_tpu_torch.config import Config, ParticleShape
 from pic1dp_tpu_torch.core import diagnostics
 from pic1dp_tpu_torch.core import optimize as opt_mod
 from pic1dp_tpu_torch.core.state import SimState, torch_dtype
+from pic1dp_tpu_torch.ops import hist_kernels
 from pic1dp_tpu_torch.ops import spectral as spectral_ops
 from pic1dp_tpu_torch.ops import substep_kernels
 from pic1dp_tpu_torch.ops.deposit import deposit
@@ -139,6 +146,8 @@ class Stepper:
         self._graphs: dict[int, _StepGraph] = {}
         self._graph_buffers = None   # the state the graphs were captured over
         self._warm = False
+        self._snapshot_graph = self._snapshot_key = None
+        self._snapshot_warm: set[tuple[bool, bool]] = set()   # snapshot's eager runs
         self.group = group
         self.timers = timers if timers is not None else PhaseTimers()
         # the substeps solve their own projections' modes unless those are
@@ -389,9 +398,8 @@ class Stepper:
         # state as they stand, since they then address exactly its tensors.
         # The graphs' own temporaries (w1, v1, the partial sums) live in
         # their private pool, which no other allocation can take.
-        buffers = tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in (
-            state.x, state.v, state.p, state.w, state.mode_re, state.mode_im,
-            state.electric, state.rho))
+        buffers = _addresses(state, ("x", "v", "p", "w", "mode_re", "mode_im", "electric",
+                                     "rho"))
         if buffers != self._graph_buffers:
             self._graphs, self._graph_buffers = {}, buffers
         full, rest = divmod(k, self.GRAPH_STEPS)
@@ -412,31 +420,83 @@ class Stepper:
     def ptcldist(self, state: SimState) -> diagnostics.PtclDist:
         return diagnostics.ptcldist(self.cfg, self.sp, state, reduce=self.reduce_sum)
 
+    def snapshot(self, state: SimState, layout: diagnostics.SnapshotLayout,
+                 full_rho: bool = False) -> torch.Tensor:
+        """A snapshot's device half, packed by `layout` into one new tensor:
+        energies, ptcldist, the modes, E and rho (full_rho's where
+        `full_rho`) and, where the layout holds them, the live counts, all
+        reduced over the group.  What a snapshot graph holds; the state is
+        only read."""
+        eng = self.energies(state)
+        ptcl = self.ptcldist(state)
+        rho = self.full_rho(state) if full_rho else state.rho
+        nlive = self.reduce_sum(state.nparticles())[0] if layout.live_count else None
+        if state.x.device.type == "cuda":
+            self._snapshot_warm.add((full_rho, layout.live_count))
+        return layout.pack(diagnostics.Snapshot(eng, state.mode_re, state.mode_im,
+                                                state.electric, rho, ptcl, nlive))
+
+    def snapshot_graph(self, state: SimState, layout: diagnostics.SnapshotLayout,
+                       full_rho: bool = False) -> "_SnapshotGraph | None":
+        """The CUDA graph of `snapshot` over this state's buffers, or None
+        where the snapshot runs eagerly: on the CPU, on the EXPLICIT path
+        (its steps hand back new tensors, so the buffers move every
+        interval), with a gloo group (its all_reduce cannot be captured), and
+        until `snapshot` has run eagerly on this Stepper with these
+        arguments (that configures the hist kernels outside any capture and,
+        with an NCCL group, has made the communicator).  A missing graph is
+        captured here, as the phase "output: capture" (counted as "snapshot
+        graph captures"); one captured over other buffers is dropped first,
+        as graph_steps drops its graphs, never replayed over this state."""
+        if (self.explicit or state.x.device.type != "cuda" or not self._graphs_capture
+                or (full_rho, layout.live_count) not in self._snapshot_warm):
+            return None
+        key = (full_rho, layout.live_count,
+               _addresses(state, ("x", "v", "p", "w", "live", "mode_re", "mode_im",
+                                  "electric", "rho")))
+        if key != self._snapshot_key:
+            self._snapshot_graph = self._snapshot_key = None
+            with self.timers.phase("output: capture"):
+                self._snapshot_graph = _SnapshotGraph(self, state, layout, full_rho)
+                self.timers.count("snapshot graph captures")
+            self._snapshot_key = key
+        return self._snapshot_graph
+
+
+def _addresses(state: SimState, fields) -> tuple:
+    """Address, shape and dtype of each of the state's tensors `fields`:
+    what a CUDA graph captured over them reads and writes."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                 for t in (getattr(state, f) for f in fields))
+
 
 class CountedGraph:
-    """fn() captured in a CUDA graph.  The substep wrappers count their
-    launches while fn is captured, when nothing runs; those counts are taken
-    back at once and added again at each replay, when the kernels do run.
-    fn must have run eagerly once before (that loads every kernel the graph
-    will hold).  `timers`, if given, counts the replays ("graph replays")."""
+    """fn() captured in a CUDA graph.  The substep and hist kernel wrappers
+    count their launches while fn is captured, when nothing runs; those
+    counts are taken back at once and added again at each replay, when the
+    kernels do run.  fn must have run eagerly once before (that loads every
+    kernel the graph will hold).  `timers`, if given, counts the replays
+    under `counter`.  fn itself is not kept."""
 
-    def __init__(self, fn, timers: PhaseTimers | None = None):
-        self.timers = timers
-        kernels = substep_kernels.KERNELS
-        before = [k.launches for k in kernels]
+    KERNELS = substep_kernels.KERNELS + hist_kernels.KERNELS
+
+    def __init__(self, fn, timers: PhaseTimers | None = None,
+                 counter: str = "graph replays"):
+        self.timers, self.counter = timers, counter
+        before = [k.launches for k in self.KERNELS]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             fn()
-        self.launches = [k.launches - b for k, b in zip(kernels, before)]
-        for k, b in zip(kernels, before):
+        self.launches = [k.launches - b for k, b in zip(self.KERNELS, before)]
+        for k, b in zip(self.KERNELS, before):
             k.launches = b
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, d in zip(substep_kernels.KERNELS, self.launches):
+        for k, d in zip(self.KERNELS, self.launches):
             k.launches += d
         if self.timers is not None:
-            self.timers.count("graph replays")
+            self.timers.count(self.counter)
 
 
 class _StepGraph(CountedGraph):
@@ -451,3 +511,16 @@ class _StepGraph(CountedGraph):
                 getattr(state, field).copy_(getattr(out, field))
 
         super().__init__(steps, stepper.timers)
+
+
+class _SnapshotGraph(CountedGraph):
+    """Stepper.snapshot over one state's buffers; each replay writes the
+    packed buffer `out`, which lives in the graph's pool (counted as
+    "snapshot graph replays")."""
+
+    def __init__(self, stepper: Stepper, state: SimState,
+                 layout: diagnostics.SnapshotLayout, full_rho: bool):
+        out = []
+        super().__init__(lambda: out.append(stepper.snapshot(state, layout, full_rho)),
+                         stepper.timers, "snapshot graph replays")
+        self.out, = out

@@ -249,7 +249,8 @@ with tempfile.TemporaryDirectory() as out:
                          out_path=os.path.join(out, str(flag)), device="cuda")
         sim.load()
         sim.state = sim.stepper.multi_step(sim.state, 20)
-        sim.output_snapshot()
+        for _ in range(2):       # eager, then the snapshot graph's capture (if any)
+            sim.output_snapshot()
         torch.cuda.synchronize()
         rows[f"snapshot{' diag_full_rho' if flag else ''}"] = cs._events_ms(sim.output_snapshot, 10)
         sim.writer.close()

@@ -28,3 +28,8 @@ def devices():
     devs = jax.devices()
     assert len(devs) >= 8, f"expected >= 8 virtual CPU devices, got {len(devs)}"
     return devs
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs an NVIDIA GPU; skips where torch.cuda finds none")

@@ -1,6 +1,6 @@
 """The port's timers and tracer (utils/timers.py) and where a run uses them:
 phases nested with their self time, counters, the snapshot split into its
-parts with every device-to-host copy counted, the device-timed "step" phase
+parts with its one device-to-host copy counted, the device-timed "step" phase
 and its timing events, the pic1dp.* spans under torch.profiler, and that
 tracing changes nothing a run writes."""
 
@@ -20,7 +20,7 @@ from pic1dp_tpu_torch.io.writer import SnapshotWriter
 from pic1dp_tpu_torch.utils.timers import PhaseTimers
 
 KW = dict(nx=64, nparticle_max=8192, time_max=1.0, dtype="float64", verbosity=0)
-PARTS = ("output: energies", "output: ptcldist", "output: fields", "output: write")
+PARTS = ("output: device", "output: write")
 
 
 def _run(tmp_path, trace, **kw):
@@ -157,15 +157,17 @@ def test_tracing_on_nests_the_spans_in_the_callers(tmp_path):
     assert steps and not any(_inside(ev, out) for ev in steps for out in outputs)
 
 
-@pytest.mark.parametrize("verbosity, copies", [(0, 14), (3, 15)])
+@pytest.mark.parametrize("verbosity, copies", [(0, 1), (3, 1)])
 def test_every_snapshot_copy_is_counted(tmp_path, verbosity, copies, capsys):
-    """4 energies, 6 x-v and v histograms, modes re and im, E and rho; the
-    live count at verbosity 3."""
+    """One packed buffer a snapshot, the live counts in it at verbosity 3;
+    on the CPU every snapshot runs the chain eagerly."""
     sim = _run(tmp_path, trace=False, verbosity=verbosity)
     snaps = sim.timers.calls("output")
     assert snaps == 3
     assert sim.timers.counter("snapshot d2h copies") == copies * snaps
     assert sim.timers.counter("snapshot d2h bytes") > 0
+    assert sim.timers.counter("snapshot eager") == snaps
+    assert sim.timers.counter("snapshot graph replays") == 0
 
 
 def test_bytes_written_are_the_records(tmp_path):
