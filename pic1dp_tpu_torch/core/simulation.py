@@ -24,12 +24,13 @@ eager chain, ending in the one copy) and "output: write"; the counters
 "snapshot graph replays", "snapshot graph captures" and "snapshot eager" say
 how each snapshot ran, and "snapshot d2h copies" and "snapshot d2h bytes"
 count its copy; the Stepper times its step graphs' captures ("step:
-capture") and counts their replays.  `trace=True` turns tracing on: each
-multi_step call's steps are then the phase "step", timed on a CUDA device
-by timing events and read at the run's next synchronization (a snapshot, a
-checkpoint, the run's end), on the CPU by the host clock; and under a
-recording torch.profiler every phase is a "pic1dp.<phase>" span.  With
-tracing off there is no "step" phase.
+capture") and counts their replays and, on a mesh, counts the all_reduces
+("all_reduces", "all_reduce bytes") and times the eager ones ("reduce").
+`trace=True` turns tracing on: each multi_step call's steps are then the
+phase "step", timed on a CUDA device by timing events and read at the run's
+next synchronization (a snapshot, a checkpoint, the run's end), on the CPU
+by the host clock; and under a recording torch.profiler every phase is a
+"pic1dp.<phase>" span.  With tracing off there is no "step" phase.
 
 `mesh` splits the particle axis over the processes of a torch.distributed
 job, one device each (parallel/mesh.py): each rank loads the global state,

@@ -43,8 +43,10 @@ where the JAX Stepper has its psums: the (2, nmode) projections of each
 substep and of the initial field, the EXPLICIT grid deposit, and in the
 diagnostics and particle optimization.  A rank's projections are partial
 sums, so there the kernels solve no modes: `_solve` runs after each
-all_reduce, on the same factor g and with the same products.  Without a
-group nothing else changes.
+all_reduce, on the same factor g and with the same products.  The timers
+count each all_reduce and its bytes ("all_reduces", "all_reduce bytes"),
+those captured in a CUDA graph at the graph's replays, and time each eager
+one as the host phase "reduce".  Without a group nothing else changes.
 
 Nonlinear delta-f has two kernel layouts (ops/substep_kernels.py): substep 1
 streams the midpoint velocities v1 to substep 2, or substep 2 rebuilds them
@@ -69,6 +71,7 @@ gather; deposit_chunk is ignored.
 
 from __future__ import annotations
 
+import gc
 import os
 import warnings
 
@@ -159,11 +162,20 @@ class Stepper:
     def reduce_sum(self, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """The tensors (of one dtype) summed over the ranks of the group, in
         one all_reduce of them laid end to end (the reference's
-        MPI_Allreduce); the tensors themselves without a group."""
+        MPI_Allreduce); the tensors themselves without a group.  Each
+        all_reduce is counted ("all_reduces", "all_reduce bytes"; one
+        captured in a graph at each of the graph's replays) and, where it
+        runs eagerly, timed as the host phase "reduce"."""
         if self.group is None:
             return tensors
         buf = torch.cat([t.reshape(-1) for t in tensors])
-        torch_dist.all_reduce(buf, group=self.group)
+        self.timers.count("all_reduces")
+        self.timers.count("all_reduce bytes", buf.numel() * buf.element_size())
+        if buf.is_cuda and torch.cuda.is_current_stream_capturing():
+            torch_dist.all_reduce(buf, group=self.group)
+        else:
+            with self.timers.phase("reduce"):
+                torch_dist.all_reduce(buf, group=self.group)
         return tuple(part.view(t.shape) for part, t in
                      zip(buf.split([t.numel() for t in tensors]), tensors))
 
@@ -472,11 +484,12 @@ def _addresses(state: SimState, fields) -> tuple:
 
 class CountedGraph:
     """fn() captured in a CUDA graph.  The substep and hist kernel wrappers
-    count their launches while fn is captured, when nothing runs; those
-    counts are taken back at once and added again at each replay, when the
-    kernels do run.  fn must have run eagerly once before (that loads every
-    kernel the graph will hold).  `timers`, if given, counts the replays
-    under `counter`.  fn itself is not kept."""
+    count their launches while fn is captured, when nothing runs, and so
+    does `timers` what fn counts there (Stepper.reduce_sum's all_reduces);
+    those counts are taken back at once and added again at each replay,
+    when the work does run.  fn must have run eagerly once before (that
+    loads every kernel the graph will hold).  `timers`, if given, also
+    counts the replays under `counter`.  fn itself is not kept."""
 
     KERNELS = substep_kernels.KERNELS + hist_kernels.KERNELS
 
@@ -484,18 +497,31 @@ class CountedGraph:
                  counter: str = "graph replays"):
         self.timers, self.counter = timers, counter
         before = [k.launches for k in self.KERNELS]
+        counts = timers.counters() if timers is not None else {}
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            fn()
+        # a graph destroyed during a capture invalidates the capture, and
+        # the cyclic collector may free another run's graphs at any moment
+        # (a caller's reference cycle did so on four cards): it is held off
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = [k.launches - b for k, b in zip(self.KERNELS, before)]
         for k, b in zip(self.KERNELS, before):
             k.launches = b
+        self.counts = timers.take_back(counts) if timers is not None else {}
 
     def replay(self) -> None:
         self.graph.replay()
         for k, d in zip(self.KERNELS, self.launches):
             k.launches += d
         if self.timers is not None:
+            for name, n in self.counts.items():
+                self.timers.count(name, n)
             self.timers.count(self.counter)
 
 

@@ -13,7 +13,9 @@ and its end-of-run percentage table (src/pic1dp_output.F90:576-627):
     "<parent>: <part>", as "output: write" inside "output"); the table
     prints each phase's seconds and its self time, its seconds less those
     of its children;
-  * counters (`count`) add up what the run did: copies, bytes, replays;
+  * counters (`count`) add up what the run did: copies, bytes, replays,
+    all_reduces; what is counted while a CUDA graph is captured is taken
+    back (`take_back`) and counted again at each of its replays;
   * sums and counts are kept per name, never a record per call.
 
 Host phases are on the host clock, which sees asynchronous device work only
@@ -170,6 +172,23 @@ class PhaseTimers:
 
     def counter(self, name: str) -> int:
         return self._counters.get(name, 0)
+
+    def counters(self) -> dict[str, int]:
+        """A copy of every counter."""
+        return dict(self._counters)
+
+    def take_back(self, before: dict[str, int]) -> dict[str, int]:
+        """What the counters gained since `before` (a copy by `counters`),
+        taken back out of them: the counts of work captured in a CUDA
+        graph, which runs only when the graph is replayed."""
+        gained = {name: n - before.get(name, 0) for name, n in self._counters.items()
+                  if n != before.get(name, 0)}
+        for name in gained:
+            if name in before:
+                self._counters[name] = before[name]
+            else:
+                del self._counters[name]
+        return gained
 
     def report(self) -> str:
         """Percentage table in the spirit of reference output_wtimer
