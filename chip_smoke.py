@@ -1055,6 +1055,48 @@ def hist_case(label: str, fn, plain, terms, args, per_channel: bool = False,
     return abs_err(got, want) if got.numel() else 0.0
 
 
+def compare_pass(label: str, x, v, live, p, w, lx: float, v_max: float, nx: int,
+                 nv: int) -> None:
+    """hist_kernels.xv_pass, the snapshot's marker pass over one species (x,
+    v, live, p, w of shape (n,)): its histograms bit for bit those of
+    hist_xv on the plain chain's three channels (xv_channels), its moments
+    within HIST_TOL of their terms' size (sum of |v^2 value|) from the
+    plain version's terms summed in float64 (torch's own sum beside), and a
+    second launch and a CUDA graph replay bit for bit the first."""
+    from pic1dp_tpu_torch.ops import hist_kernels as hk
+
+    args = (x, v, live, p, w, lx, v_max, nx, nv)
+    hist, moments = hk.xv_pass(*args)
+    vals = hk.xv_channels(live, p, w, x.dtype)
+    want_hist = hk.hist_xv(x, v, vals, lx, v_max, nx, nv)
+    terms = torch.where(live, v * v, 0.0) * vals
+    want = terms.double().sum(dim=1)
+    scale = terms.double().abs().sum(dim=1).clamp_min(1e-300)
+    err = float(((moments.double() - want).abs() / scale).max())
+    torch_err = float(((terms.sum(dim=1).double() - want).abs() / scale).max())
+    again = hk.xv_pass(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hk.xv_pass(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = hk.xv_pass(*args)
+    g.replay()
+    torch.cuda.synchronize()
+    tol = HIST_TOL[str(x.dtype).split(".")[-1]]
+    same_hist = torch.equal(hist, want_hist)
+    repeat = all(torch.equal(a, b) for a, b in zip((*again, *captured), (hist, moments) * 2))
+    say(f"[3 compare] xv_pass {label}: histograms bitwise those of hist_xv on the three "
+        f"channels {same_hist}; moments {err:.3e} of their terms' size from the f64 sum "
+        f"(limit {tol:g}; torch's own sum {torch_err:.3e}); a second launch and a CUDA graph "
+        f"replay bitwise equal {repeat}")
+    check(same_hist, f"xv_pass {label}: histograms = hist_xv's bit for bit")
+    check(err <= tol, f"xv_pass {label}: moments within {tol:g} of their terms' size")
+    check(repeat, f"xv_pass {label} repeats bit for bit")
+
+
 def compare_hists() -> dict:
     """The three hat-deposit kernels against their plain versions (hist_case)
     in f32 and f64: at the main shape (6.4M markers of one species, the 64 x
@@ -1064,8 +1106,10 @@ def compare_hists() -> dict:
     the x-v histogram with 1, 2 and 3 channels on a grid with one grid copy
     a block in f32 and past shared memory in f64 (HIST_WIDE); the grid
     charge at nx 1024, 4096 and 32768 (past shared
-    memory); no markers, markers all past v_max and all dead.  Returns each
-    kernel's largest absolute error at the main shape in f32."""
+    memory); no markers, markers all past v_max and all dead.  The marker
+    pass (compare_pass) at the main shape, p in bfloat16 too, on each of the
+    nine species, on the wide grid and with every marker past v_max.
+    Returns each kernel's largest absolute error at the main shape in f32."""
     from pic1dp_tpu_torch.config import bump_on_tail_default
     from pic1dp_tpu_torch.ops import hist_kernels as hk
 
@@ -1100,6 +1144,11 @@ def compare_hists() -> dict:
                                      *charge(cfg.nx), (x, val), graph=True)}
         if dtype == "float32":
             err.update(main)
+        compare_pass(f"{dtype} n={FULL_N} {nvo}x{nxo}", x[0], v[0], live[0], p[0], w[0], lx, vm,
+                     nxo, nvo)
+        if dtype == "float32":
+            compare_pass(f"{dtype}, p bfloat16, n={FULL_N} {nvo}x{nxo}", x[0], v[0], live[0],
+                         p[0].to(torch.bfloat16), w[0], lx, vm, nxo, nvo)
         del x, v, p, w, live, vals, val
         x, v, p, w, live = hist_markers(OPT_N, 1, dtype, lx, vm, SEED + 1)
         hist_case(f"hist_v {dtype} n={OPT_N} nv={nv}", *prof, (v, w, live))
@@ -1107,6 +1156,8 @@ def compare_hists() -> dict:
         for s in range(9):
             hist_case(f"hist_xv {dtype} species {s} of 9 n={HIST_N_ODD} {nvo}x{nxo} k=3",
                       *xv(nxo, nvo), (x[s], v[s], hist_vals(x[s], p[s], w[s], live[s])), True)
+            compare_pass(f"{dtype} species {s} of 9 n={HIST_N_ODD}", x[s], v[s], live[s], p[s],
+                         w[s], lx, vm, nxo, nvo)
         val = torch.where(live, w, 0.0) * -1.0
         hist_case(f"hist_v {dtype} 9 x {HIST_N_ODD}", *prof, (v, w, live), graph=True)
         for nx in (cfg.nx, *HIST_GRID_NX):
@@ -1119,7 +1170,11 @@ def compare_hists() -> dict:
                 x.element_size(), hk.XV, wv * wx).form == hk.BUFFER else "shared memory"
             hist_case(f"hist_xv {dtype} n={HIST_N_ODD} {wv}x{wx} k={k} (grids in {where})",
                       *xv(wx, wv), (x[0], v[0], vals[:k]), True, graph=k == 3)
+        compare_pass(f"{dtype} n={HIST_N_ODD} {wv}x{wx} (grids in {where})", x[0], v[0],
+                     live[0], p[0], w[0], lx, vm, wx, wv)
         fast = torch.full_like(v, 2.0 * vm)
+        compare_pass(f"{dtype}, every marker past v_max", x[0], fast[0], live[0], p[0], w[0], lx,
+                     vm, nxo, nvo)
         dead = torch.zeros_like(live)
         empty = x[:, :0].contiguous()
         for label, fn, plain, _, args in (
@@ -1209,6 +1264,9 @@ def run_case(phase: str, label: str, cfg, out_dir: str | None = None) -> tuple[l
     say(f"[{phase}] {label}: hat-deposit launches {hists} (one hist_xv a species and "
         f"snapshot)")
     check(hists == want, f"{label}: hat-deposit launches {want}")
+    passes = sim.timers.counter("snapshot marker passes")
+    check(passes == ns * len(snaps), f"{label}: one marker pass a species and snapshot "
+                                     f"({passes})")
     launches.update(hists)
     check(len(snaps) == round(cfg.time_max / cfg.output_interval) + 1,
           f"{label} snapshot count")
@@ -2095,12 +2153,16 @@ def time_hists() -> tuple[dict, dict, dict]:
     the one PyTorch call that computes the same scatter (index_add_ of the
     plain version's bins and terms, made beforehand), from CUDA-graph
     replays (probes.graph_ms), in f32 at its path's shape: the x-v histogram
-    at the main shape (6.4M markers, the 64 x 64 grid, three channels), the
-    profile at the optimization run's 2^21 (and at 6.4M, printed only), the
-    grid charge at the main shape (nx 192).  The bound: the marker streams
-    and the output once over HBM (x, v and k channels; v, w and the live
-    byte; x and val), or per marker 14 + 8k, 11 and 8 operations (the hat
-    cells and weights, a product and an add per term), whichever is larger.
+    at the main shape (6.4M markers, the 64 x 64 grid) as a snapshot runs
+    it, the marker pass (xv_pass: three channels from live, p and w, and
+    their moments; and, printed only, hist_xv on the three-channel stack as
+    before the pass), the profile at the optimization run's 2^21 (and at
+    6.4M, printed only), the grid charge at the main shape (nx 192).  The
+    bound: the marker streams and the output once over HBM (x, v, the live
+    byte, p and w, or x, v and k channels; v, w and the live byte; x and
+    val), or per marker 14 + 8k + 3k, 14 + 8k, 11 and 8 operations (the hat
+    cells and weights, a product and an add per term, the moments' two
+    products and an add), whichever is larger.
     Beside them the kernel's two launches apart, the deposit and the row
     sum (probes.kernel_ms: their device time in a profiled graph replay).
     Returns (ms, bounds, library ms) by kernel and "<name>_plain"."""
@@ -2112,14 +2174,22 @@ def time_hists() -> tuple[dict, dict, dict]:
     lx, vm, nxo, nvo, nv, dev = cfg.lx, cfg.v_max, cfg.nx_opd, cfg.nv_opd, cfg.nv, \
         torch.device("cuda")
     per_call, bounds, library = {}, {}, {}
-    for name, n in (("hist_xv", FULL_N), ("hist_v", OPT_N), ("hist_v", FULL_N),
-                    ("grid_charge", FULL_N)):
+    for name, n, form in (("hist_xv", FULL_N, "pass"), ("hist_xv", FULL_N, "vals"),
+                          ("hist_v", OPT_N, ""), ("hist_v", FULL_N, ""),
+                          ("grid_charge", FULL_N, "")):
         x, v, p, w, live = hist_markers(n, 1, "float32", lx, vm, SEED)
-        if name == "hist_xv":
+        if form == "pass":
+            args = (x[0], v[0], live[0], p[0], w[0], lx, vm, nxo, nvo)
+            fn, plain = hk.xv_pass, hk.xv_pass_plain
+            vals = hist_vals(x[0], p[0], w[0], live[0])
+            terms = lambda *a: hk.hist_xv_terms(x[0], v[0], vals, lx, vm, nxo, nvo)
+            nout, k, shape = nvo * nxo, 3, f"{nvo} x {nxo}, the marker pass (xv_pass)"
+            nbytes, ops = n * (4 + 4 + 1 + 4 + 4) + k * nout * 4, n * (14 + 8 * k + 3 * k)
+        elif form == "vals":
             vals = hist_vals(x[0], p[0], w[0], live[0])
             args = (x[0], v[0], vals, lx, vm, nxo, nvo)
             fn, plain, terms = hk.hist_xv, hk.hist_xv_plain, hk.hist_xv_terms
-            nout, k, shape = nvo * nxo, 3, f"{nvo} x {nxo}, k = 3"
+            nout, k, shape = nvo * nxo, 3, f"{nvo} x {nxo}, hist_xv of k = 3 channels"
             nbytes, ops = n * (2 + k) * 4 + k * nout * 4, n * (14 + 8 * k)
         elif name == "hist_v":
             args = (v, w, live, vm, nv)

@@ -20,6 +20,12 @@ sums a rank's partial sums over the ranks: the energies' marker sums and
 ptcldist's RAW histograms, before any derived quantity (normalization, the
 full-f equilibrium subtraction), as the JAX package's psums do.
 
+On CUDA a snapshot takes both from one pass over the markers a species
+(marker_pass, ops/hist_kernels.xv_pass): the x-v histogram kernel reads
+live, p and w itself and sums the energies' v^2 moments in the same pass,
+so no marker-sized array is formed; energies and ptcldist, the plain
+version, run on the CPU and in the tests that hold the pass.
+
 A snapshot's arrays travel to the host as one packed buffer
 (SnapshotLayout): Stepper.snapshot forms them and packs them on the device,
 the host copies the buffer once and reads each array as a view of the copy.
@@ -56,10 +62,17 @@ def unreduced(*tensors):
 
 def energies(cfg: Config, sp: dist.SpeciesParams, state: SimState,
              reduce: Reduce = unreduced) -> Energies:
-    field = torch.sum(state.electric ** 2) * (cfg.lx / cfg.nx)
     v2 = torch.where(state.live, state.v * state.v, 0.0)
-    marker, total, pertb = reduce(torch.sum(v2, dim=1), torch.sum(v2 * state.p, dim=1),
-                                  torch.sum(v2 * state.w, dim=1))
+    return _energies(cfg, sp, state, *reduce(torch.sum(v2, dim=1),
+                                             torch.sum(v2 * state.p, dim=1),
+                                             torch.sum(v2 * state.w, dim=1)))
+
+
+def _energies(cfg: Config, sp: dist.SpeciesParams, state: SimState, marker, total,
+              pertb) -> Energies:
+    """Energies from the raw marker sums over every rank: sum_live v^2,
+    v^2 p and v^2 w, each (ns,)."""
+    field = torch.sum(state.electric ** 2) * (cfg.lx / cfg.nx)
     if cfg.deltaf:
         if cfg.linear:
             # linear: p = f0/g, perturbed energy must be added to get total
@@ -102,26 +115,24 @@ def ptcldist(cfg: Config, sp: dist.SpeciesParams, state: SimState,
              reduce: Reduce = unreduced) -> PtclDist:
     """Marker/total/perturbed distribution snapshots
     (reference src/pic1dp_output.F90:196-477)."""
+    out_xv, out_v = [], []
+    for s in range(cfg.nspecies):
+        vals = hist_kernels.xv_channels(state.live[s], state.p[s], state.w[s], state.x.dtype)
+        hxv, hv = deposit_xv(state.x[s], state.v[s], vals, cfg.lx, cfg.v_max,
+                             cfg.nx_opd, cfg.nv_opd)
+        out_xv.append(hxv)
+        out_v.append(hv)
+    # the RAW histograms: f0 must come off the sum over ranks, not once per rank
+    return _ptcldist(cfg, sp, state, *reduce(torch.stack(out_xv, dim=1),
+                                             torch.stack(out_v, dim=1)))
+
+
+def _ptcldist(cfg: Config, sp: dist.SpeciesParams, state: SimState, hxv, hv) -> PtclDist:
+    """PtclDist from the raw histograms over every rank: hxv (3, ns, nv,
+    nx) and hv (3, ns, nv) of the channels live, p and w."""
     nx, nv = cfg.nx_opd, cfg.nv_opd
     delx_inv = nx / cfg.lx
     delv_inv = (nv - 1) / (2.0 * cfg.v_max)
-
-    out_xv, out_v = [], []
-    for s in range(cfg.nspecies):
-        live = state.live[s]
-        vals = torch.stack([
-            live.to(state.x.dtype),
-            torch.where(live, state.p[s], 0.0).to(state.x.dtype),
-            torch.where(live, state.w[s], 0.0),
-        ])
-        hxv, hv = deposit_xv(state.x[s], state.v[s], vals, cfg.lx, cfg.v_max, nx, nv)
-        out_xv.append(hxv)
-        out_v.append(hv)
-    hxv = torch.stack(out_xv, dim=1)  # (3, ns, nv, nx)
-    hv = torch.stack(out_v, dim=1)    # (3, ns, nv)
-    # the RAW histograms: f0 must come off the sum over ranks, not once per rank
-    hxv, hv = reduce(hxv, hv)
-
     markr_xv, total_xv, pertb_xv = hxv[0], hxv[1], hxv[2]
     markr_v, total_v, pertb_v = hv[0], hv[1], hv[2]
 
@@ -148,6 +159,28 @@ def ptcldist(cfg: Config, sp: dist.SpeciesParams, state: SimState,
 
     return PtclDist(markr_xv=markr_xv, total_xv=total_xv, pertb_xv=pertb_xv,
                     markr_v=markr_v, total_v=total_v, pertb_v=pertb_v)
+
+
+def _stack(tensors, dim: int) -> torch.Tensor:
+    """torch.stack, or a view of the one tensor (no copy for one species)."""
+    return tensors[0].unsqueeze(dim) if len(tensors) == 1 else torch.stack(tensors, dim)
+
+
+def marker_pass(cfg: Config, sp: dist.SpeciesParams, state: SimState,
+                reduce: Reduce = unreduced) -> tuple[Energies, PtclDist]:
+    """energies and ptcldist from one pass over each species' markers
+    (hist_kernels.xv_pass): its histograms are ptcldist's bit for bit, and
+    its moments are the energies' raw sums, summed in the pass's order.
+    Each is reduced over the ranks as energies and ptcldist reduce it."""
+    hxv, hv, moments = [], [], []
+    for s in range(cfg.nspecies):
+        h, m = hist_kernels.xv_pass(state.x[s], state.v[s], state.live[s], state.p[s],
+                                    state.w[s], cfg.lx, cfg.v_max, cfg.nx_opd, cfg.nv_opd)
+        hxv.append(h)
+        hv.append(h.sum(dim=2))
+        moments.append(m)
+    eng = _energies(cfg, sp, state, *reduce(*_stack(moments, 1)))
+    return eng, _ptcldist(cfg, sp, state, *reduce(_stack(hxv, 1), _stack(hv, 1)))
 
 
 class Snapshot(NamedTuple):

@@ -22,10 +22,12 @@ snapshot is the phase "output", split into "output: capture" (where a
 snapshot graph is captured), "output: device" (the graph's replay or the
 eager chain, ending in the one copy) and "output: write"; the counters
 "snapshot graph replays", "snapshot graph captures" and "snapshot eager" say
-how each snapshot ran, and "snapshot d2h copies" and "snapshot d2h bytes"
-count its copy; the Stepper times its step graphs' captures ("step:
-capture") and counts their replays and, on a mesh, counts the all_reduces
-("all_reduces", "all_reduce bytes") and times the eager ones ("reduce").
+how each snapshot ran, "snapshot marker passes" its passes over the
+markers (one a species on a CUDA device, none on the CPU), and "snapshot d2h
+copies" and "snapshot d2h bytes" count its copy; the Stepper times its step
+graphs' captures ("step: capture") and counts their replays and, on a mesh,
+counts the all_reduces ("all_reduces", "all_reduce bytes") and times the
+eager ones ("reduce").
 `trace=True` turns tracing on: each multi_step call's steps are then the
 phase "step", timed on a CUDA device by timing events and read at the run's
 next synchronization (a snapshot, a checkpoint, the run's end), on the CPU

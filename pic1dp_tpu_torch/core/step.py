@@ -32,9 +32,11 @@ tracing on, a multi_step call's steps, never a capture, are the device phase
 
 A snapshot's device half (`snapshot`: energies, ptcldist, full_rho where it
 runs, the live counts) writes one packed buffer (diagnostics.SnapshotLayout).
-On a CUDA device `snapshot_graph` holds it as a CUDA graph over the state's
-buffers, captured at the second snapshot (the first runs eagerly) and
-replayed at every later one; a replay is the eager chain's bits.
+On a CUDA device its energies and ptcldist come from one pass over each
+species' markers (diagnostics.marker_pass), counted as "snapshot marker
+passes", and `snapshot_graph` holds the whole as a CUDA graph over the
+state's buffers, captured at the second snapshot (the first runs eagerly)
+and replayed at every later one; a replay is the eager chain's bits.
 
 A Stepper given a torch.distributed process group (`group`, set by
 parallel/mesh.ShardedStepper) steps one rank's block of the particle axis:
@@ -435,12 +437,15 @@ class Stepper:
     def snapshot(self, state: SimState, layout: diagnostics.SnapshotLayout,
                  full_rho: bool = False) -> torch.Tensor:
         """A snapshot's device half, packed by `layout` into one new tensor:
-        energies, ptcldist, the modes, E and rho (full_rho's where
-        `full_rho`) and, where the layout holds them, the live counts, all
-        reduced over the group.  What a snapshot graph holds; the state is
-        only read."""
-        eng = self.energies(state)
-        ptcl = self.ptcldist(state)
+        energies, ptcldist (on CUDA from one marker pass a species, each
+        counted), the modes, E and rho (full_rho's where `full_rho`) and,
+        where the layout holds them, the live counts, all reduced over the
+        group.  What a snapshot graph holds; the state is only read."""
+        if state.x.device.type == "cuda":
+            eng, ptcl = diagnostics.marker_pass(self.cfg, self.sp, state, self.reduce_sum)
+            self.timers.count("snapshot marker passes", self.cfg.nspecies)
+        else:
+            eng, ptcl = self.energies(state), self.ptcldist(state)
         rho = self.full_rho(state) if full_rho else state.rho
         nlive = self.reduce_sum(state.nparticles())[0] if layout.live_count else None
         if state.x.device.type == "cuda":

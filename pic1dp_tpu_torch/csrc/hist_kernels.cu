@@ -6,10 +6,15 @@
 // Three instantiations of one kernel family replace them (the `kind`):
 //
 //   kXV  the x-v snapshot histogram (pic1dp_tpu/core/diagnostics.py:78
-//        deposit_xv): k value channels (k, n) of one species onto the
-//        (nv, nx) diagnostic grid, hat weights in x (periodic) and in v
-//        (inclusive [-v_max, v_max], markers with |v| >= v_max skipped):
-//        four corners a marker;
+//        deposit_xv): k value channels of one species onto the (nv, nx)
+//        diagnostic grid, hat weights in x (periodic) and in v (inclusive
+//        [-v_max, v_max], markers with |v| >= v_max skipped): four corners
+//        a marker.  The channels are the k rows of a (k, n) array (kVals),
+//        or the snapshot's three read from the state itself (kState): the
+//        live byte, p (of T or bfloat16) and w, as 1, p and w where live
+//        and 0 where dead.  Each block also sums v^2 value over all of its
+//        markers, those with |v| >= v_max included (kState: the live ones),
+//        its channel's moment: the energies' raw sums (diagnostics.py:57);
 //   kV   the |delta f|(v) profile that drives merge/remove/split
 //        (diagnostics.py:184 dist_pertb_abs_v): |w| of the live markers with
 //        |v| < v_max onto nv points per species, (ns, n) -> (ns, nv);
@@ -56,16 +61,19 @@
 //   kBuffer where not even one copy fits in shared memory: kWarps with one
 //           warp a block, whose copy is its slice of a device buffer.
 //
-// Each block writes its row of partials (G rows of k nbins values); a
-// second kernel sums the G rows of every output value: row group g of 16
-// sums rows g, g + 16, ... in order, the groups' sums added in group order
-// (hist_sum_kernel).  No counter, so nothing needs resetting between
+// Each block writes its part of a row of partials (G rows, one a marker
+// range: k nbins values, then for kXV the k channels' moments); a second
+// kernel sums the G rows of every output value: row group g of 16 sums
+// rows g, g + 16, ... in order, the groups' sums added in group order
+// (hist_sum_kernel).  A kXV block's moment is its lanes' own sums (each
+// round's markers over a fixed tree, the rounds in order), added over a
+// fixed tree of the warp's lanes, then warp by warp in warp order.  No counter, so nothing needs resetting between
 // launches or graph replays.  Sums are taken at T, the output's type, as
 // the plain versions' index_add_ takes them; only the order differs.
 //
 // What bounds them on this card: the bytes of the marker streams (x, v and
-// k channels for kXV; v, w and the live byte for kV; x and val for kX) over
-// HBM, and for kXV the warp steps: __match_any_sync costs the SM a step for
+// k channels for kXV, or x, v, the live byte, p and w; v, w and the live
+// byte for kV; x and val for kX) over HBM, and for kXV the warp steps: __match_any_sync costs the SM a step for
 // about every distinct cell of a warp (hence the claim), and each warp's
 // chain of claims, sums and shared-memory read-modify-writes waits on
 // itself, so the SM needs as many warps as the copies allow (hence two a
@@ -99,6 +107,8 @@ constexpr int kSumGroups = 16;
 
 enum Kind { kXV = 0, kV = 1, kX = 2 };
 enum Form { kLanes = 0, kWarps = 1, kBuffer = 2 };
+// where kXV's channels come from: the rows of c, or the state
+enum Source { kVals = 0, kState = 1 };
 
 template <int KIND>
 constexpr int kMarkers = KIND == kXV ? kMXV : kMX;
@@ -140,18 +150,24 @@ template <typename T>
 struct Args {
   const T* a;                 // kXV, kX: x; kV: v
   const T* b;                 // kXV: v; kV: w; kX: val
-  const void* c;              // kXV: the k channels (k, n); kV: live (bool); kX: unused
+  const void* c;              // kXV: the k channels (k, n), or (kState) p; kV: live (bool);
+                              // kX: unused
+  int source;                 // kXV: kVals or kState
+  bool p_bf16;                // kState: p is bfloat16, else T
+  const unsigned char* live;  // kState: the live mask (bool)
+  const T* w;                 // kState: w
   long long n;                // markers (kV, kX: ns * n_species)
   long long n_species;        // kV: markers per species
   long long per_warp;         // markers per warp, a multiple of 32 kMarkers
-  int nx, nv, nbins;          // nbins: cells of one channel's grid (= outputs)
+  int nx, nv, nbins;          // nbins: cells of one channel's grid
   int k;                      // output channels (kXV), 1 otherwise
+  int row;                    // values of a row of partials: k nbins, + k moments (kXV)
   T x_scale;                  // nx / lx
   T v_max, v_scale;           // v_max, (nv - 1) / (2 v_max)
   int form, copies, warps;    // the block's Plan
-  bool vec;                   // every stream 16-byte aligned (the live mask 4-byte)
+  bool vec;                   // every stream 16-byte aligned (live, a bfloat16 p: 4-byte)
   T* grids;                   // kBuffer: the device buffer, a copy a block
-  T* partials;                // (G, k, nbins)
+  T* partials;                // (G, row)
 };
 
 __device__ __forceinline__ double abs_t(double s) { return fabs(s); }
@@ -233,6 +249,12 @@ __device__ __forceinline__ void load4(const unsigned char* p, unsigned char* o) 
   o[3] = f.w;
 }
 
+// A bfloat16's value at T, exactly (its bits are a float's upper half).
+template <typename T>
+__device__ __forceinline__ T bf16_value(unsigned bits) {
+  return static_cast<T>(__uint_as_float(bits << 16));
+}
+
 // out[j] = p[i + j] for the `valid` of the M markers from i that exist, 0
 // past them; vector loads where vec and all M exist (i is a multiple of M).
 template <typename U, int M>
@@ -247,14 +269,44 @@ __device__ __forceinline__ void load_run(const U* p, long long i, int valid, boo
   }
 }
 
-// One lane's kMarkers markers: the two streams a and b, and the block's
-// channel (kXV) or the live bytes (kV).
+// out[q] = the 4 / sizeof(U) values of p from i + q 4 / sizeof(U) as one
+// word, the first in the low bits, 0 past the `valid` of the M markers from
+// i; 4-byte loads where vec and all M exist (p + i 4-byte aligned).
+template <int M, typename U>
+__device__ __forceinline__ void load_words(const U* p, long long i, int valid, bool vec,
+                                           unsigned (&out)[M * sizeof(U) / 4]) {
+  constexpr int per = 4 / sizeof(U);
+  if (vec && valid == M) {
+#pragma unroll
+    for (int q = 0; q < M / per; ++q) out[q] = reinterpret_cast<const unsigned*>(p + i)[q];
+  } else {
+#pragma unroll
+    for (int q = 0; q < M / per; ++q) {
+      unsigned word = 0u;
+#pragma unroll
+      for (int e = 0; e < per; ++e)
+        if (q * per + e < valid)
+          word |= static_cast<unsigned>(p[i + q * per + e]) << (8 * sizeof(U) * e);
+      out[q] = word;
+    }
+  }
+}
+
+// One lane's kMarkers markers: the two streams a and b; for kXV the block's
+// channel and which markers count in its moment (bit j for marker j), and
+// from the state the live bytes and p's bfloat16 halves as loaded, four and
+// two a word, which `settle` turns into the channel only when the round
+// uses the batch (a use where it is loaded would wait there for the loads
+// that should stay in flight); the live bytes for kV.
 template <typename T, int KIND>
 struct Batch {
   static constexpr int M = kMarkers<KIND>;
   T a[M], b[M];
   T c[KIND == kXV ? M : 1];
   unsigned char live[KIND == kV ? M : 1];
+  unsigned live4[KIND == kXV ? M / 4 : 1];
+  unsigned half2[KIND == kXV ? M / 2 : 1];
+  unsigned counted;
 };
 
 template <typename T, int KIND>
@@ -263,9 +315,41 @@ __device__ __forceinline__ void load_batch(Batch<T, KIND>& m, const Args<T>& a, 
   load_run(a.a, i, valid, a.vec, m.a);
   load_run(a.b, i, valid, a.vec, m.b);
   if constexpr (KIND == kXV) {
-    load_run(static_cast<const T*>(a.c) + ch * a.n, i, valid, a.vec, m.c);
+    if (a.source == kVals) {
+      load_run(static_cast<const T*>(a.c) + ch * a.n, i, valid, a.vec, m.c);
+    } else {
+      // channel 0 the live byte, 1 p, 2 w
+      constexpr int M = kMarkers<KIND>;
+      load_words<M>(a.live, i, valid, a.vec, m.live4);
+      if (ch == 1 && a.p_bf16)
+        load_words<M>(static_cast<const unsigned short*>(a.c), i, valid, a.vec, m.half2);
+      else if (ch != 0)
+        load_run(ch == 1 ? static_cast<const T*>(a.c) : a.w, i, valid, a.vec, m.c);
+    }
   } else if constexpr (KIND == kV) {
     load_run(static_cast<const unsigned char*>(a.c), i, valid, a.vec, m.live);
+  }
+}
+
+// kXV: a loaded batch's channel and the markers its moment counts: from the
+// state 1, p (at T) or w where live and 0 where dead, the live ones; every
+// marker of the rows of c.
+template <typename T, int KIND>
+__device__ __forceinline__ void settle(Batch<T, KIND>& m, const Args<T>& a, int ch) {
+  constexpr int M = kMarkers<KIND>;
+  if (a.source == kVals) {
+    m.counted = ~0u;
+    return;
+  }
+  m.counted = 0u;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    const bool live = (m.live4[j / 4] >> (8 * (j % 4)) & 0xffu) != 0u;
+    const T val = ch == 0 ? T(1)
+                  : ch == 1 && a.p_bf16 ? bf16_value<T>(m.half2[j / 2] >> (16 * (j % 2)) & 0xffffu)
+                                        : m.c[j];
+    m.c[j] = live ? val : T(0);
+    m.counted |= static_cast<unsigned>(live) << j;
   }
 }
 
@@ -444,25 +528,43 @@ __device__ __forceinline__ void walk_lanes(const Args<T>& a, T* g, long long beg
 // grid steps one after another, so that only the grid steps wait on each
 // other.  The `share` warps of one copy (member 0, 1, ... of copy `copy`)
 // take the grid steps of a round in member order, between named barriers
-// of their own.
+// of their own.  Returns the lane's moment (kXV: v^2 value of its markers,
+// kState: the live ones; each round's M summed over a fixed tree, the
+// rounds in order), 0 for the others.
 template <typename T, int KIND>
-__device__ __forceinline__ void walk_warps(const Args<T>& a, T* grid, unsigned char* claim,
-                                           int ch, long long begin, long long end,
-                                           long long rounds, int share, int copy, int member) {
+__device__ __forceinline__ T walk_warps(const Args<T>& a, T* grid, unsigned char* claim, int ch,
+                                        long long begin, long long end, long long rounds,
+                                        int share, int copy, int member) {
   constexpr int R = kRows<KIND>, M = kMarkers<KIND>;
   const int slots = claim_bytes(KIND, a.nbins);
   const long long lane_off = static_cast<long long>(threadIdx.x & 31) * M;
   Batch<T, KIND> cur, nxt;
+  T moment = T(0);
   if (rounds > 0) load_batch(cur, a, ch, begin + lane_off, valid_from<M>(begin + lane_off, end));
   for (long long r = 0; r < rounds; ++r) {
     const long long base = begin + r * 32 * M, next = base + 32 * M + lane_off;
     if (r + 1 < rounds) load_batch(nxt, a, ch, next, valid_from<M>(next, end));
     const int valid = valid_from<M>(base + lane_off, end);
+    if constexpr (KIND == kXV) settle(cur, a, ch);
     Term<T, R> t[M];
     unsigned peers[M];
     bool lead[M];
 #pragma unroll
     for (int j = 0; j < M; ++j) marker_terms(a, cur, j, base + lane_off + j, valid, t[j]);
+    if constexpr (KIND == kXV) {
+      // the round's terms (0 where not counted) over a fixed tree, then onto
+      // the lane's sum: a chain of one add a round, not one a marker
+      T term[M];
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+        term[j] = j < valid && (cur.counted >> j & 1u) != 0u
+                      ? mul_rn(mul_rn(cur.b[j], cur.b[j]), cur.c[j]) : T(0);
+#pragma unroll
+      for (int d = 1; d < M; d *= 2)
+#pragma unroll
+        for (int j = 0; j < M; j += 2 * d) term[j] = add_rn(term[j], term[j + d]);
+      moment = add_rn(moment, term[0]);
+    }
 #pragma unroll
     for (int j = 0; j < M; ++j) peers[j] = lanes_of_cell<KIND>(claim, slots, t[j].cell);
 #pragma unroll
@@ -478,6 +580,16 @@ __device__ __forceinline__ void walk_warps(const Args<T>& a, T* grid, unsigned c
     }
     cur = nxt;
   }
+  return moment;
+}
+
+// The sum of the warp's 32 values, over a fixed tree (lane l adds lane l +
+// d for d = 16, 8, 4, 2, 1), in lane 0.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T s) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s = add_rn(s, __shfl_down_sync(0xffffffffu, s, d));
+  return s;
 }
 
 // a block's threads at most: its copies' sharing warps
@@ -492,7 +604,7 @@ __global__ void __launch_bounds__(kMaxThreads<KIND>) hist_kernel(Args<T> a) {
   const long long begin = (static_cast<long long>(b) * a.warps + warp) * a.per_warp;
   const long long end = begin + a.per_warp < a.n ? begin + a.per_warp : a.n;
   const long long rounds = a.per_warp / (32 * kMarkers<KIND>);
-  T* row = a.partials + (static_cast<long long>(b) * a.k + ch) * a.nbins;
+  T* row = a.partials + static_cast<long long>(b) * a.row + ch * a.nbins;
 
   if constexpr (KIND != kXV) {
     if (a.form == kLanes) {
@@ -534,12 +646,29 @@ __global__ void __launch_bounds__(kMaxThreads<KIND>) hist_kernel(Args<T> a) {
   for (long long j = threadIdx.x; j < a.copies * gstride; j += blockDim.x) grids[j] = T(0);
   __syncthreads();
   // two calls, so that the shared-memory one addresses shared memory directly
+  T moment;
   if (a.form == kBuffer)
-    walk_warps<T, KIND>(a, grids, claim, ch, begin, end, rounds, 1, 0, 0);
+    moment = walk_warps<T, KIND>(a, grids, claim, ch, begin, end, rounds, 1, 0, 0);
   else
-    walk_warps<T, KIND>(a, reinterpret_cast<T*>(smem_raw) + copy * gstride, claim, ch, begin,
-                        end, rounds, share, copy, member);
+    moment = walk_warps<T, KIND>(a, reinterpret_cast<T*>(smem_raw) + copy * gstride, claim, ch,
+                                 begin, end, rounds, share, copy, member);
+  if constexpr (KIND == kXV) {
+    // the warp's moment at the start of its claim table, which the warp has
+    // done with (8-byte aligned: the copies and the tables are multiples of 8)
+    moment = warp_sum(moment);
+    if ((threadIdx.x & 31) == 0) *reinterpret_cast<T*>(claim) = moment;
+  }
   __syncthreads();
+  if constexpr (KIND == kXV) {
+    // the block's moment: the warps' in warp order (thread 0's table is warp 0's)
+    if (threadIdx.x == 0) {
+      const int table = claim_bytes(KIND, a.nbins);
+      T acc = *reinterpret_cast<const T*>(claim);
+      for (int w = 1; w < a.warps; ++w)
+        acc = add_rn(acc, *reinterpret_cast<const T*>(claim + w * table));
+      a.partials[static_cast<long long>(b) * a.row + a.k * a.nbins + ch] = acc;
+    }
+  }
 
   // the tail: left half + its left neighbour's right half, copy by copy
   for (int o = threadIdx.x; o < a.nbins; o += blockDim.x) {
@@ -597,18 +726,27 @@ uintptr_t misalign(const void* p, uintptr_t to) {
 // Check a launch and run both kernels: the deposit on `blocks` x k blocks
 // of the plan's W warps, block b's warp w taking per_warp markers from
 // (b W + w) per_warp (none when there are no markers), then the sum of the
-// blocks' rows into out.
+// blocks' rows into out.  kXV takes its channels from the state where live
+// is given (kState: k = 3, c = p of p_bytes, 2 for bfloat16, and w), else
+// from c (kVals).
 template <typename T>
-int launch(int kind, int k, const void* a, const void* b, const void* c, long long n, int ns,
-           int nx, int nv, double lx, double v_max, void* grids, int blocks, long long per_warp,
-           void* partials, void* out, void* stream) {
+int launch(int kind, int k, const void* a, const void* b, const void* c, const void* live,
+           const void* w, int p_bytes, long long n, int ns, int nx, int nv, double lx,
+           double v_max, void* grids, int blocks, long long per_warp, void* partials, void* out,
+           void* stream) {
   const long long total = n * ns;
+  const bool state = live != nullptr;
   if (!valid_kind(kind, k) || ns < 1 || (kind == kXV && ns != 1) || nx < 1 || nv < 2 ||
       n < 0 || blocks < 0 || out == nullptr || !(lx > 0.0) || !(v_max > 0.0))
+    return cudaErrorInvalidValue;
+  if (state ? kind != kXV || k != kMaxK || c == nullptr || w == nullptr ||
+                  (p_bytes != 2 && p_bytes != static_cast<int>(sizeof(T)))
+            : w != nullptr)
     return cudaErrorInvalidValue;
   const long long nbins = kind == kXV ? static_cast<long long>(nv) * nx
                           : kind == kV ? static_cast<long long>(ns) * nv : nx;
   if (nbins * 32 * k > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  const int row = static_cast<int>(k * nbins + (kind == kXV ? k : 0));
   const Plan p = plan(static_cast<int>(sizeof(T)), kind, static_cast<int>(nbins));
   const long long span = p.warps * per_warp;   // markers a block
   const int markers = kind == kXV ? kMXV : kMX;
@@ -623,6 +761,10 @@ int launch(int kind, int k, const void* a, const void* b, const void* c, long lo
     args.a = static_cast<const T*>(a);
     args.b = static_cast<const T*>(b);
     args.c = c;
+    args.source = state ? kState : kVals;
+    args.p_bf16 = state && p_bytes == 2;
+    args.live = static_cast<const unsigned char*>(live);
+    args.w = static_cast<const T*>(w);
     args.n = total;
     args.n_species = n;
     args.per_warp = per_warp;
@@ -630,6 +772,7 @@ int launch(int kind, int k, const void* a, const void* b, const void* c, long lo
     args.nv = nv;
     args.nbins = static_cast<int>(nbins);
     args.k = k;
+    args.row = row;
     args.x_scale = static_cast<T>(nx / lx);
     args.v_max = static_cast<T>(v_max);
     args.v_scale = static_cast<T>((nv - 1) / (2.0 * v_max));
@@ -637,7 +780,10 @@ int launch(int kind, int k, const void* a, const void* b, const void* c, long lo
     args.copies = p.copies;
     args.warps = p.warps;
     args.vec = misalign(a, 16) == 0 && misalign(b, 16) == 0 &&
-               (kind != kXV || (misalign(c, 16) == 0 && (n * sizeof(T)) % 16 == 0)) &&
+               (kind != kXV || state ||
+                (misalign(c, 16) == 0 && (n * sizeof(T)) % 16 == 0)) &&
+               (!state || (misalign(live, 4) == 0 && misalign(w, 16) == 0 &&
+                           misalign(c, p_bytes == 2 ? 4 : 16) == 0)) &&
                (kind != kV || misalign(c, 4) == 0);
     args.grids = p.form == kBuffer ? static_cast<T*>(grids) : nullptr;
     args.partials = static_cast<T*>(partials);
@@ -651,9 +797,8 @@ int launch(int kind, int k, const void* a, const void* b, const void* c, long lo
   } else {
     blocks = 0;
   }
-  const int values = static_cast<int>(k * nbins);
-  hist_sum_kernel<T><<<(values + kSumValues - 1) / kSumValues, kSumValues * kSumGroups, 0, st>>>(
-      static_cast<const T*>(partials), blocks, values, static_cast<T*>(out));
+  hist_sum_kernel<T><<<(row + kSumValues - 1) / kSumValues, kSumValues * kSumGroups, 0, st>>>(
+      static_cast<const T*>(partials), blocks, row, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -712,22 +857,26 @@ int pic1dp_hist_configure(int itemsize, int kind, int nbins, int* form, int* cop
   return cudaErrorInvalidValue;
 }
 
-// One deposit and its sum (launch()); a, b, c as Args names them; n markers
+// One deposit and its sum (launch()); a, b, c as Args names them, and for
+// kXV from the state live, w and p's bytes (else null, null, 0); n markers
 // of each of ns species (kXV: ns = 1); k output channels; grids: the device
 // buffer of blocks x k x 2 nbins values where the plan is kBuffer, else
-// unused; partials: blocks x k x nbins values; out: k x nbins values.
-int pic1dp_hist_f32(int kind, int k, const void* a, const void* b, const void* c, long long n,
-                    int ns, int nx, int nv, double lx, double v_max, void* grids, int blocks,
-                    long long per_warp, void* partials, void* out, void* stream) {
-  return launch<float>(kind, k, a, b, c, n, ns, nx, nv, lx, v_max, grids, blocks, per_warp,
-                       partials, out, stream);
+// unused; partials: blocks rows of k nbins values, + k moments for kXV;
+// out: one such row.
+int pic1dp_hist_f32(int kind, int k, const void* a, const void* b, const void* c,
+                    const void* live, const void* w, int p_bytes, long long n, int ns, int nx,
+                    int nv, double lx, double v_max, void* grids, int blocks, long long per_warp,
+                    void* partials, void* out, void* stream) {
+  return launch<float>(kind, k, a, b, c, live, w, p_bytes, n, ns, nx, nv, lx, v_max, grids,
+                       blocks, per_warp, partials, out, stream);
 }
 
-int pic1dp_hist_f64(int kind, int k, const void* a, const void* b, const void* c, long long n,
-                    int ns, int nx, int nv, double lx, double v_max, void* grids, int blocks,
-                    long long per_warp, void* partials, void* out, void* stream) {
-  return launch<double>(kind, k, a, b, c, n, ns, nx, nv, lx, v_max, grids, blocks, per_warp,
-                        partials, out, stream);
+int pic1dp_hist_f64(int kind, int k, const void* a, const void* b, const void* c,
+                    const void* live, const void* w, int p_bytes, long long n, int ns, int nx,
+                    int nv, double lx, double v_max, void* grids, int blocks, long long per_warp,
+                    void* partials, void* out, void* stream) {
+  return launch<double>(kind, k, a, b, c, live, w, p_bytes, n, ns, nx, nv, lx, v_max, grids,
+                        blocks, per_warp, partials, out, stream);
 }
 
 }  // extern "C"

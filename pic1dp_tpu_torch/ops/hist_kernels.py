@@ -13,6 +13,10 @@ launch repeats bit for bit, from a CUDA graph too.
 
   * hist_xv (kernel HIST_XV): vals (k, n) of one species at (x, v) onto the
     (nv, nx) grid, four hat corners a marker, |v| >= v_max skipped;
+  * xv_pass (HIST_XV, reading its channels from the state): a snapshot's
+    one pass over a species' markers, the x-v histograms of live, p and w
+    (xv_channels) and the energies' raw sums, v^2 times each channel
+    summed over every marker, |v| >= v_max included (the moments);
   * profile (HIST_V): |w| of the live markers with |v| < v_max, v, w, live
     (ns, n), onto nv points per species;
   * grid_charge (GRID_CHARGE): val at x, both (ns, n), onto the periodic
@@ -21,7 +25,8 @@ launch repeats bit for bit, from a CUDA graph too.
 The plain versions hist_xv_plain, profile_plain and grid_charge_plain are
 one index_add_ of the terms *_terms forms, summed in the output's dtype as
 the kernels do; on the CPU index_add_ runs serially, so they are
-deterministic there.  A CPU tensor takes the plain
+deterministic there.  xv_pass_plain is hist_xv_plain of xv_channels and
+the moments as torch sums.  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  Nothing falls back.
 """
 
@@ -62,6 +67,16 @@ CLAIM_MAX = 2048          # kClaimMax: slots of a claim table at most
 
 # ---- the plain versions ----
 
+def xv_channels(live, p, w, dtype) -> torch.Tensor:
+    """The snapshot's three channels of one species (3, n) at dtype: 1, p
+    and w where live, 0 where dead (p converted exactly, bfloat16 too)."""
+    return torch.stack([
+        live.to(dtype),
+        torch.where(live, p, 0.0).to(dtype),
+        torch.where(live, w, 0.0),
+    ])
+
+
 def hist_xv_terms(x, v, vals, lx: float, v_max: float, nx: int, nv: int):
     """hist_xv_plain's scatter: the flat bins iv * nx + ix of the four hat
     corners of every marker (4n,) and their terms (4n, k), markers with
@@ -85,6 +100,15 @@ def hist_xv_plain(x, v, vals, lx: float, v_max: float, nx: int, nv: int) -> torc
     hist = torch.zeros((nv * nx, k), dtype=vals.dtype, device=vals.device)
     hist.index_add_(0, bins, terms)
     return hist.T.reshape(k, nv, nx)
+
+
+def xv_pass_plain(x, v, live, p, w, lx: float, v_max: float, nx: int, nv: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xv_pass's (hist (3, nv, nx), moments (3,)): hist_xv_plain of
+    xv_channels, and v^2 times each channel summed over every marker."""
+    vals = xv_channels(live, p, w, x.dtype)
+    return (hist_xv_plain(x, v, vals, lx, v_max, nx, nv),
+            torch.sum(torch.where(live, v * v, 0.0) * vals, dim=1))
 
 
 def profile_terms(v, w, live, v_max: float, nv: int):
@@ -138,12 +162,31 @@ def hist_xv(x, v, vals, lx: float, v_max: float, nx: int, nv: int) -> torch.Tens
     if vals.dim() != 2 or not 1 <= vals.shape[0] <= MAX_K:
         raise NotImplementedError(f"hist_xv takes 1 to {MAX_K} value channels (k, n), "
                                   f"got vals of shape {tuple(vals.shape)}")
-    n = x.numel()
-    _check("hist_xv", (x, v, vals), (n, n, vals.shape[0] * n), x.dtype)
+    n, k = x.numel(), vals.shape[0]
+    _check("hist_xv", (x, v, vals), (n, n, k * n), x.dtype)
     if x.dim() != 1 or v.shape != x.shape or vals.shape[1] != n:
         raise ValueError("hist_xv takes x and v of shape (n,) and vals of shape (k, n)")
-    return _launch(HIST_XV, XV, vals.shape[0], x, v, vals, n, 1, nx, nv, lx, v_max,
-                   nv * nx).reshape(vals.shape[0], nv, nx)
+    out = _launch(HIST_XV, XV, k, x, v, vals, n, 1, nx, nv, lx, v_max, nv * nx)
+    return out[:k * nv * nx].view(k, nv, nx)
+
+
+def xv_pass(x, v, live, p, w, lx: float, v_max: float, nx: int, nv: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xv_pass_plain's (hist (3, nv, nx), moments (3,)) of one species'
+    x, v, live, p and w (n,); on CUDA the HIST_XV kernel, which reads live,
+    p (of x's dtype or bfloat16) and w itself, one launch and one row sum."""
+    if x.device.type == "cpu":
+        return xv_pass_plain(x, v, live, p, w, lx, v_max, nx, nv)
+    n = x.numel()
+    if x.dim() != 1 or any(t.shape != x.shape for t in (v, live, p, w)):
+        raise ValueError("xv_pass takes x, v, live, p and w of one shape (n,)")
+    if p.dtype not in (x.dtype, torch.bfloat16) or p.device != x.device \
+            or not p.is_contiguous():
+        raise ValueError(f"xv_pass takes a contiguous p of {x.dtype} or bfloat16 beside x, "
+                         f"got {p.dtype} on {p.device}")
+    _check("xv_pass", (x, v, w), (n, n, n), x.dtype, live)
+    out = _launch(HIST_XV, XV, MAX_K, x, v, p, n, 1, nx, nv, lx, v_max, nv * nx, live, w)
+    return out[:MAX_K * nv * nx].view(MAX_K, nv, nx), out[MAX_K * nv * nx:]
 
 
 def profile(v, w, live, v_max: float, nv: int) -> torch.Tensor:
@@ -251,20 +294,27 @@ def plan(itemsize: int, kind: int, nbins: int) -> Plan:
 
 
 def _launch(kernel: CudaKernel, kind: int, k: int, a, b, c, n: int, ns: int, nx: int,
-            nv: int, lx: float, v_max: float, nbins: int) -> torch.Tensor:
+            nv: int, lx: float, v_max: float, nbins: int, live=None, w=None) -> torch.Tensor:
+    """One launch of `kernel` and its row sum into one row of k nbins
+    values, then for the x-v histogram the k channels' moments; live and w
+    given, the x-v histogram reads its channels from the state (c = p)."""
     lib = library().lib
     dev = a.device
     p, per_sm = _configure(kind, nbins, a.element_size(),
                            dev.index if dev.index is not None else torch.cuda.current_device())
     g, per_warp = blocks(n * ns, markers(kind), p.warps, per_sm, nvcc.sm_count(dev), k)
-    partials = torch.empty(g * k * nbins, dtype=a.dtype, device=dev)
+    row = k * nbins + (k if kind == XV else 0)
+    partials = torch.empty(g * row, dtype=a.dtype, device=dev)
     grids = (torch.empty(g * k * 2 * nbins, dtype=a.dtype, device=dev)
              if p.form == BUFFER and g else None)
-    out = torch.empty(k * nbins, dtype=a.dtype, device=dev)
+    out = torch.empty(row, dtype=a.dtype, device=dev)
     entry = lib.pic1dp_hist_f32 if a.dtype == torch.float32 else lib.pic1dp_hist_f64
-    rc = entry(kind, k, a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(), n, ns,
-               nx, nv, lx, v_max, None if grids is None else grids.data_ptr(), g, per_warp,
-               partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    state = live is not None
+    rc = entry(kind, k, a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(),
+               live.data_ptr() if state else None, w.data_ptr() if state else None,
+               c.element_size() if state else 0, n, ns, nx, nv, lx, v_max,
+               None if grids is None else grids.data_ptr(), g, per_warp, partials.data_ptr(),
+               out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     kernel.launched(rc, lib)
     return out
 
@@ -302,8 +352,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if tuple(consts) != want:
         raise RuntimeError(f"the constants of {_SRC} {tuple(consts)} are not this module's {want}")
     for entry in (lib.pic1dp_hist_f32, lib.pic1dp_hist_f64):
-        entry.argtypes = [i32, i32, ptr, ptr, ptr, i64, i32, i32, i32, f64, f64, ptr, i32, i64,
-                          ptr, ptr, ptr]
+        entry.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, f64, f64,
+                          ptr, i32, i64, ptr, ptr, ptr]
     lib.pic1dp_hist_configure.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 5
     lib.pic1dp_error_string.argtypes = [i32]
     lib.pic1dp_error_string.restype = ctypes.c_char_p

@@ -13,8 +13,12 @@ before any launch; the plan of a block's grids and the blocks' marker
 ranges; a numpy mirror of the kernels' order (lane copies for the profile
 and the grid charge; for the x-v histogram one channel a block, copies
 shared by two warps, halves at the lower cell and the fold; the row sum's
-fixed order) gives the plain sums; and the load and the deposits give the
-same bits at any torch thread count."""
+fixed order) gives the plain sums; a mirror of the marker pass's moment
+order (lanes, warp tree, warps, row groups) gives the energies' raw sums,
+counting markers past v_max and no dead one; the marker pass
+(diagnostics.marker_pass) gives ptcldist's histograms bit for bit and the
+energies within rounding; and the load and the deposits give the same bits
+at any torch thread count."""
 
 import dataclasses
 import math
@@ -37,6 +41,7 @@ from pic1dp_tpu_torch import config as tcfg_mod
 from pic1dp_tpu_torch import distributions as tdist
 from pic1dp_tpu_torch.core import diagnostics as tdiag
 from pic1dp_tpu_torch.core.loading import load_particles
+from pic1dp_tpu_torch.core.state import SimState
 from pic1dp_tpu_torch.ops import hist_kernels as hk
 from pic1dp_tpu_torch.ops.deposit import deposit
 
@@ -190,9 +195,10 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
 
 def test_cuda_path_checks_its_inputs():
     """Off the CPU a hat deposit launches or raises: mixed devices, a dtype
-    other than f32/f64 or mixed dtypes, a live mask that is not bool, more
-    than three channels, a non-contiguous tensor and a device without the
-    kernel raise before any launch."""
+    other than f32/f64 or mixed dtypes (for the marker pass's p, other than
+    x's or bfloat16), a live mask that is not bool, more than three
+    channels, a non-contiguous tensor and a device without the kernel raise
+    before any launch."""
     def meta(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -224,6 +230,17 @@ def test_cuda_path_checks_its_inputs():
         hk.profile(meta((2, n)), meta((2, n)), live, V_MAX, NV)
     with pytest.raises(ValueError, match="no grid_charge kernel for device meta"):
         hk.grid_charge(meta((2, n)), meta((2, n)), LX, NX)
+    flag = meta(n, torch.bool)
+    with pytest.raises(ValueError, match="bool live mask"):
+        hk.xv_pass(x, v, meta(n), x, v, LX, V_MAX, NX, NV)
+    with pytest.raises(ValueError, match="or bfloat16"):
+        hk.xv_pass(x, v, flag, meta(n, torch.float16), v, LX, V_MAX, NX, NV)
+    with pytest.raises(ValueError, match="contiguous p"):
+        hk.xv_pass(x, v, flag, meta(2 * n, torch.bfloat16)[::2], v, LX, V_MAX, NX, NV)
+    with pytest.raises(ValueError, match="one shape"):
+        hk.xv_pass(x, v, flag, meta(n + 1, torch.bfloat16), v, LX, V_MAX, NX, NV)
+    with pytest.raises(ValueError, match="no xv_pass kernel for device meta"):
+        hk.xv_pass(x, v, flag, meta(n, torch.bfloat16), v, LX, V_MAX, NX, NV)
     assert [k.launches for k in hk.KERNELS] == before
 
 
@@ -416,6 +433,139 @@ def test_mirror_of_the_kernels_order_gives_the_plain_sums():
         got = _mirror_warps(cells, left, right, NV * NX, NX, pl.warps, g, per_warp,
                             pl.warps // pl.copies)
         assert_rel(got.reshape(NV, NX), want[c], TOL, f"x-v channel {c}")
+
+
+def _mirror_moments(v, val, counts, warps, blocks, per_warp, dtype):
+    """The x-v histogram's moment of one channel in numpy at dtype, in the
+    kernel's order: each lane sums v^2 val of its counted markers a round
+    at a time, the round's M over a fixed tree (j adds j + d for d = 1, 2,
+    4, ...), the rounds in order; the warp's 32 lane sums over a fixed tree
+    (lane l adds lane l + d for d = 16, 8, 4, 2, 1); the block's warps in
+    warp order from warp 0's; then the row sum of the blocks'."""
+    m = hk.markers(hk.XV)
+    v, val = v.astype(dtype), val.astype(dtype)
+    term = np.where(counts, (v * v) * val, dtype(0))
+    b, w, lane, rnd, j = _order(v.size, m, warps, per_warp)
+    # each lane's terms by round and position in the round (0 past the end)
+    slots = np.zeros((blocks, warps, 32, per_warp // (32 * m), m), dtype=dtype)
+    slots[b, w, lane, rnd, j] = term
+    d = 1
+    while d < m:
+        slots[..., 0:m:2 * d] = slots[..., 0:m:2 * d] + slots[..., d:m:2 * d]
+        d *= 2
+    acc = np.zeros((blocks, warps, 32), dtype=dtype)
+    for r in range(slots.shape[3]):
+        acc = acc + slots[:, :, :, r, 0]
+    d = 16
+    while d:
+        acc[..., :d] = acc[..., :d] + acc[..., d:2 * d]
+        d //= 2
+    block = acc[:, 0, 0]
+    for wi in range(1, warps):
+        block = block + acc[:, wi, 0]
+    return _row_sum(block[:, None])[0], term
+
+
+def _state(x, v, p, w, live, dtype, p_dtype=None):
+    t = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a)).to(dt)
+    z = torch.zeros(NX, dtype=dtype)
+    return SimState(x=t(x), v=t(v), p=t(p, p_dtype or dtype), w=t(w), live=t(live, torch.bool),
+                    rho=z, electric=z.clone(), mode_re=torch.zeros(1, dtype=dtype),
+                    mode_im=torch.zeros(1, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype, n, nv, nx", [
+    (np.float32, N_ODD, NV, NX), (np.float64, N_ODD, NV, NX),
+    (np.float32, 4099, 128, 128), (np.float64, 4099, 128, 128)],
+    ids=["f32", "f64", "f32-xv128", "f64-buffer"])
+def test_mirror_of_the_moment_order_gives_the_energies(dtype, n, nv, nx):
+    """The moments of csrc/hist_kernels.cu's x-v pass, mirrored in the
+    kernel's order (lane, warp tree, warps, row groups) at the card's
+    plan, against diagnostics.energies' three raw sums (nonlinear delta-f:
+    sum_live v^2, v^2 p, v^2 w) within the rounding of the longest chain of
+    adds, on a state with dead markers and markers at and past +-v_max:
+    those count in the energies and not in the histograms, and dead
+    markers in neither."""
+    x, v, p, w, live = _markers(n, 1, seed=21)
+    v[0, 6:40] = np.linspace(1.0, 1.3, 34) * V_MAX * np.where(np.arange(34) % 2, 1.0, -1.0)
+    fast = np.abs(v[0]) >= V_MAX
+    assert (fast & live[0]).sum() > 10 and (~live[0]).sum() > 100
+    cfg = tcfg_mod.bump_on_tail_default(nx=NX, nx_opd=nx, nv_opd=nv, v_max=V_MAX, lx=LX,
+                                        nparticle_max=n, verbosity=0,
+                                        dtype=np.dtype(dtype).name)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    sp = tdist.SpeciesParams.from_config(cfg, tdt, "cpu")
+    st = _state(x, v, p, w, live, tdt)
+    eng = tdiag.energies(cfg, sp, st)
+    pl = hk.plan(np.dtype(dtype).itemsize, hk.XV, nv * nx)
+    g, per_warp = hk.blocks(n, hk.markers(hk.XV), pl.warps, 1, 132, 3)
+    vals = hk.xv_channels(st.live[0], st.p[0], st.w[0], tdt).numpy()
+    eps = np.finfo(dtype).eps
+    chain = per_warp // (32 * hk.markers(hk.XV)) + 3 + 5 + pl.warps + g // hk.SUM_GROUPS \
+        + hk.SUM_GROUPS
+    for c, want in enumerate((eng.marker, eng.total, eng.pertb)):
+        got, term = _mirror_moments(st.v[0].numpy(), vals[c], live[0], pl.warps, g, per_warp,
+                                    dtype)
+        scale = np.abs(term).astype(np.float64).sum()
+        assert abs(float(got) - float(want[0])) <= 2 * chain * eps * scale, c
+        # the fast markers count: the sum without them is smaller by their terms
+        without, _ = _mirror_moments(st.v[0].numpy(), vals[c], live[0] & ~fast, pl.warps, g,
+                                     per_warp, dtype)
+        extra = math.fsum(term[fast].astype(np.float64))
+        assert abs(extra) > 100 * chain * eps * scale
+        assert abs(float(got) - float(without) - extra) <= 4 * chain * eps * scale, c
+    # not in the histograms: they equal the histograms without the fast markers
+    hist, moments = hk.xv_pass_plain(st.x[0], st.v[0], st.live[0], st.p[0], st.w[0], LX, V_MAX,
+                                     nx, nv)
+    keep = torch.from_numpy(~fast)
+    slow, _ = hk.xv_pass_plain(*(t[0][keep] for t in (st.x, st.v, st.live, st.p, st.w)), LX,
+                               V_MAX, nx, nv)
+    assert torch.equal(hist, slow)
+    # dead markers in neither: their v, p and w moved, nothing changes
+    dead = ~st.live[0]
+    moved = [t[0].clone() for t in (st.v, st.p, st.w)]
+    for t in moved:
+        t[dead] = 3.0
+    hist2, moments2 = hk.xv_pass_plain(st.x[0], moved[0], st.live[0], moved[1], moved[2], LX,
+                                       V_MAX, nx, nv)
+    assert torch.equal(hist, hist2) and torch.equal(moments, moments2)
+
+
+MARKER_PASS_CASES = {
+    "deltaf": dict(),
+    "linear": dict(linear=True),
+    "fullf_three": dict(deltaf=False, species=3),
+    "bf16_weights": dict(bf16_weights=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MARKER_PASS_CASES))
+def test_marker_pass_is_energies_and_ptcldist(case):
+    """diagnostics.marker_pass (the CUDA snapshot's path, here on
+    xv_pass_plain) against energies and ptcldist (the plain path): the six
+    histograms bit for bit, the energies within rounding of their terms,
+    in every branch of the derived quantities."""
+    kw = dict(MARKER_PASS_CASES[case])
+    ns = kw.pop("species", 1)
+    dtype = "float32" if kw.get("bf16_weights") else "float64"
+    cfg = tcfg_mod.bump_on_tail_default(nx=32, nx_opd=16, nv_opd=16, nparticle_max=8192,
+                                        verbosity=0, dtype=dtype, **kw)
+    if ns > 1:
+        sp = [tcfg_mod.SpeciesConfig(charge=-1.0, mass=1.0 + s, temperature=1.0, density=1.0 / ns,
+                                     v0=0.0, nparticle_init=8192 - 500 * s) for s in range(ns)]
+        cfg = dataclasses.replace(cfg, species=tuple(sp)).validate()
+    st = load_particles(cfg, "cpu")
+    st.v[:, :20] = 1.1 * cfg.v_max
+    tsp = tdist.SpeciesParams.from_config(cfg, st.x.dtype, "cpu")
+    eng, ptcl = tdiag.marker_pass(cfg, tsp, st)
+    for name, a, b in zip(tdiag.PtclDist._fields, ptcl, tdiag.ptcldist(cfg, tsp, st)):
+        assert torch.equal(a, b), name
+    v2 = torch.where(st.live, st.v * st.v, 0.0).double()
+    scale = (v2 * (1.0 + st.p.double().abs() + st.w.double().abs())).sum(dim=1)
+    eps = torch.finfo(st.x.dtype).eps
+    for name, a, b in zip(tdiag.Energies._fields, eng, tdiag.energies(cfg, tsp, st)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert float((a.double() - b.double()).abs().max()) <= 64 * eps * float(scale.max()), name
 
 
 def test_source_has_no_float_atomic_and_no_torch_header():

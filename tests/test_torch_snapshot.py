@@ -3,8 +3,12 @@ Stepper.snapshot, Stepper.snapshot_graph): unpacked, it holds the separate
 energies, ptcldist and field arrays bit for bit; a run writes the same
 pic1dp.out as from those arrays; what a snapshot callback keeps stays valid;
 one copy a snapshot.  The tests marked `chip` run on a CUDA device only:
-a graph replay is the eager chain bit for bit, and an optimization event
-that moves the state's buffers leads to a new capture.  This file imports
+the marker pass (diagnostics.marker_pass) gives the plain chain's six
+histograms bit for bit and its energies within 1e-6 of their terms' size,
+dead and fast markers included; a graph replay is the eager chain bit for
+bit; two runs write the same pic1dp.out and count one marker pass a
+species and snapshot; and an optimization event that moves the state's
+buffers leads to a new capture.  This file imports
 no jax, so the card's machine runs it:
 python -m pytest --noconftest -p no:cacheprovider tests/test_torch_snapshot.py -m chip"""
 
@@ -19,6 +23,7 @@ from pic1dp_tpu_torch import Simulation
 from pic1dp_tpu_torch.config import OptimizationConfig, SpeciesConfig
 from pic1dp_tpu_torch.config import bump_on_tail_default as bot
 from pic1dp_tpu_torch.config import landau_damping
+from pic1dp_tpu_torch.core import diagnostics
 from pic1dp_tpu_torch.core import step as step_mod
 from pic1dp_tpu_torch.core.diagnostics import Energies, PtclDist, Snapshot, SnapshotLayout
 from pic1dp_tpu_torch.io.writer import SnapshotWriter
@@ -56,12 +61,15 @@ def _same(a, b) -> bool:
 
 def _separate(sim: Simulation) -> list[np.ndarray]:
     """The snapshot's arrays as the Simulation formed them before they were
-    packed: energies, ptcldist, the field arrays and the live counts, each
-    formed and copied on its own."""
+    packed: energies and ptcldist (on a CUDA device from the marker pass),
+    the field arrays and the live counts, each formed and copied on its own."""
     st, stepper = sim.state, sim.stepper
     rho = stepper.full_rho(st) if sim.cfg.diag_full_rho else st.rho
-    arrays = [*stepper.energies(st), st.mode_re, st.mode_im, st.electric, rho,
-              *stepper.ptcldist(st)]
+    if st.x.is_cuda:
+        eng, ptcl = diagnostics.marker_pass(sim.cfg, stepper.sp, st, stepper.reduce_sum)
+    else:
+        eng, ptcl = stepper.energies(st), stepper.ptcldist(st)
+    arrays = [*eng, st.mode_re, st.mode_im, st.electric, rho, *ptcl]
     if sim.cfg.verbosity >= 3:
         arrays.append(stepper.reduce_sum(st.nparticles())[0])
     return [t.detach().cpu().numpy() for t in arrays]
@@ -180,7 +188,62 @@ CHIP_CASES = {
     "diag_full_rho_verbosity3_f64": lambda: bot(**dict(
         SMALL, nparticle_max=1 << 16, diag_full_rho=True, verbosity=3, dtype="float64")),
     "three_species_fullf": lambda: _landau(deltaf=False, species=THREE),
+    "linear": lambda: _landau(linear=True),
 }
+
+
+def _dead_and_fast(sim: Simulation) -> None:
+    """Every 13th marker dead (p = w = 0, as the loader leaves them) and
+    every 17th from the first past +-v_max, in place."""
+    st, vm = sim.state, sim.cfg.v_max
+    st.live[:, ::13] = False
+    st.p[:, ::13] = 0.0
+    st.w[:, ::13] = 0.0
+    fast = st.v[:, 1::17]
+    fast.copy_(torch.where(fast < 0, -1.2 * vm, 1.2 * vm) + 0.01 * fast)
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", sorted(CHIP_CASES))
+def test_the_marker_pass_is_the_plain_chain(cuda, case):
+    """The pass's six histograms equal ptcldist's (the three-channel stack
+    through hist_xv) bit for bit; each energy is within 1e-6 of its terms'
+    size of energies' (torch's sums of v^2 times live, p and w), with dead
+    markers and markers past v_max in the state."""
+    sim = _stepped(CHIP_CASES[case](), device=cuda)
+    _dead_and_fast(sim)
+    cfg, st, sp = sim.cfg, sim.state, sim.stepper.sp
+    assert bool((st.v.abs() >= cfg.v_max).any()) and not bool(st.live.all())
+    eng, ptcl = diagnostics.marker_pass(cfg, sp, st)
+    for name, a, b in zip(PtclDist._fields, ptcl, diagnostics.ptcldist(cfg, sp, st)):
+        assert _same(a.cpu().numpy(), b.cpu().numpy()), name
+    v2 = torch.where(st.live, st.v * st.v, 0.0).double()
+    sums = {k: (v2 * t.double().abs()).sum(dim=1)
+            for k, t in (("1", torch.ones_like(v2)), ("p", st.p), ("w", st.w))}
+    scale = {"field": None, "marker": sums["1"],
+             "total": sums["p"] + (sums["w"] if cfg.linear else 0.0),
+             "pertb": sums["w"] if cfg.deltaf else sums["p"]}
+    for name, a, b in zip(Energies._fields, eng, diagnostics.energies(cfg, sp, st)):
+        if scale[name] is None:
+            assert _same(a.cpu().numpy(), b.cpu().numpy()), name
+            continue
+        err = (a.double() - b.double()).abs()
+        assert bool((err <= 1e-6 * scale[name]).all()), (name, err, scale[name])
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", ["one_species", "three_species_fullf"])
+def test_runs_repeat_and_count_their_marker_passes(cuda, tmp_path, case):
+    """Two runs write pic1dp.out byte for byte alike, and each counts one
+    marker pass a species and snapshot, the graph's replays included."""
+    cfg = CHIP_CASES[case]()
+    outs = []
+    for k in range(2):
+        keys, t = _run(cfg, tmp_path / str(k), cuda)
+        assert t.counter("snapshot graph replays") == len(keys) - 1
+        assert t.counter("snapshot marker passes") == cfg.nspecies * len(keys)
+        outs.append((tmp_path / str(k) / "pic1dp.out").read_bytes())
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.chip

@@ -168,6 +168,8 @@ def test_every_snapshot_copy_is_counted(tmp_path, verbosity, copies, capsys):
     assert sim.timers.counter("snapshot d2h bytes") > 0
     assert sim.timers.counter("snapshot eager") == snaps
     assert sim.timers.counter("snapshot graph replays") == 0
+    # the marker pass is the CUDA path's; the CPU runs energies and ptcldist
+    assert sim.timers.counter("snapshot marker passes") == 0
 
 
 def test_bytes_written_are_the_records(tmp_path):
