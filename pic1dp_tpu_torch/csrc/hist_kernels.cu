@@ -90,7 +90,7 @@ constexpr int kMaxCopies = 8;         // grid copies (kLanes: warps) a block at 
 constexpr int kShare = 2;             // kXV: warps that share one grid copy
 constexpr int kLaneWarpsMin = 4;      // kLanes where this many warps' lane copies fit
 // markers a lane takes per round (multiples of 4), the fastest of 4 to 32
-// timed (probes/hist_forms.py): kXV, and kV and kX
+// timed on an H100 (PERF.md §6, the hist kernels' redesign): kXV, and kV and kX
 constexpr int kMXV = 8;
 constexpr int kMX = 16;
 constexpr int kMaxK = 3;

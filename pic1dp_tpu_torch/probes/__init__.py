@@ -17,8 +17,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -129,12 +132,7 @@ def kernel_ms(fn, device: torch.device, tries: int = 3) -> dict[str, float]:
     torch.profiler after a warm-up replay; the mean duration of the
     trace's kernel records of each name (the profiler now and then drops a
     batch of records: a mean over those it kept, and a replay again, up to
-    `tries` in all, where it kept none).  Card only.  It imports what it
-    needs itself: probes/turns.py runs its source in another checkout."""
-    import json
-    import os
-    import tempfile
-
+    `tries` in all, where it kept none).  Card only."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):

@@ -326,21 +326,6 @@ def test_overlap_probe_runs_on_cpu(capsys):
     assert "no verdict" in out and "consumer-warp sweep" in out and "SASS" not in out
 
 
-def test_turns_ring_rows_name_rows_of_both_probes():
-    """probes/turns.py --ring picks its rows from the probes' own tables by
-    kernel and label: the labels it names exist, and every ring of both
-    probes is among its rows."""
-    from pic1dp_tpu_torch.probes import pipeline_probe, turns
-
-    assert "direct 4 blocks/SM" in [lbl for lbl, *_ in overlap_probe.CASES]
-    assert "default 4 blocks/SM aliased" in [lbl for lbl, *_ in pipeline_probe.CASES]
-    assert "bulk 8 KB x 4 aliased" in [lbl for lbl, k, *_ in pipeline_probe.CASES
-                                       if k is sp.stream_bulk]
-    assert "sp.stream_bulk_units" in turns._RING_TURN and "sp.stream_bulk " in turns._RING_TURN
-    with pytest.raises(SystemExit):
-        turns.main(["--ring"])
-
-
 def test_pingpong_probe_runs_as_a_module_on_cpu():
     proc = subprocess.run([sys.executable, "-m", "pic1dp_tpu_torch.probes.pingpong_probe",
                            "12", "--device", "cpu"], cwd=REPO,

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and
-chip_smoke.py refuses to run without a CUDA card instead of falling back."""
+"""The port stands alone: it imports neither jax nor the JAX package, nor
+anything of the repository above it, and chip_smoke.py refuses to run
+without a CUDA card instead of falling back."""
 
 import ast
 import os
@@ -14,9 +15,9 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "pic1dp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
-def _imported_modules(path: Path) -> set[str]:
+def _imports_in(tree: ast.AST) -> set[str]:
     names = set()
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
@@ -24,11 +25,57 @@ def _imported_modules(path: Path) -> set[str]:
     return names
 
 
+def _imported_modules(path: Path) -> set[str]:
+    return _imports_in(ast.parse(path.read_text(), filename=str(path)))
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_jax_package_import(path):
     bad = {m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "pic1dp_tpu")}
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+PACKAGE = REPO / "pic1dp_tpu_torch"
+SUBPACKAGES = ("analysis", "core", "examples", "io", "ops", "parallel", "probes", "rng", "utils")
+TOP_LEVEL = ("__init__", "config", "distributions", "run")
+# what sits beside the package in the repository: scripts, harnesses, tests
+ABOVE = ("chip_smoke", "benchmark", "bench", "tests", "_chipcheck")
+
+
+def _imports_with_scripts(path: Path) -> set[str]:
+    """_imported_modules, and the imports of every string literal in the
+    file that parses as Python (a script the module runs in another
+    process)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = _imports_in(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and "import" in node.value:
+            try:
+                names |= _imports_in(ast.parse(node.value))
+            except SyntaxError:
+                pass
+    return names
+
+
+@pytest.mark.parametrize("group", SUBPACKAGES + ("top-level",))
+def test_package_imports_nothing_above_it(group):
+    """No module of the package imports the repository's scripts,
+    harnesses or tests, in its own code or in a script it runs."""
+    if group == "top-level":
+        files = sorted(PACKAGE.glob("*.py"))
+        assert [p.stem for p in files] == sorted(TOP_LEVEL)
+        assert {p.parent.name for p in PACKAGE.glob("*/__init__.py")} == set(SUBPACKAGES)
+    else:
+        files = sorted((PACKAGE / group).rglob("*.py"))
+        assert files
+    bad = {}
+    for p in files:
+        above = sorted(m for m in _imports_with_scripts(p) if m.split(".")[0] in ABOVE)
+        if above:
+            bad[str(p.relative_to(REPO))] = above
+    assert not bad, f"modules import from above the package: {bad}"
 
 
 def test_port_imports_without_jax_in_a_fresh_process():

@@ -1,10 +1,8 @@
 """The stream probe kernels' plain version (ops/stream_probes.py) against a
 numpy transcription of the TPU probe kernel body (bench/kernel_probe.py
 :143-158, the same body as bench/probe_pipeline.py:70-87), and both probe
-entry points end to end on the CPU; the variants of the grid-bin and
-hat-deposit form probes apply to their sources, and the turns probe's
-scripts compile.  The CUDA kernels themselves run only on the card
-(chip_smoke.py holds them bitwise to stream_plain)."""
+entry points end to end on the CPU.  The CUDA kernels themselves run only
+on the card (chip_smoke.py holds them bitwise to stream_plain)."""
 
 import os
 import subprocess
@@ -234,48 +232,3 @@ def test_probe_without_cuda_refuses():
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
-
-
-def test_grid_forms_variants_apply():
-    """probes/grid_forms.py finds in csrc/substep_kernels.cu each piece it
-    swaps: every variant is a source of its own, the kernel's unchanged."""
-    from pic1dp_tpu_torch.probes import grid_forms
-
-    src = (grid_forms.CSRC / "substep_kernels.cu").read_text()
-    variants = grid_forms.variant_sources()
-    assert list(variants) == list(grid_forms.FORMS)
-    assert variants["kernel"] == src
-    assert len({text for text in variants.values()}) == len(variants)
-    assert "deposit_lanes(r.rho" in src
-    assert all("deposit_lanes(r.rho" not in variants[k]
-               for k in ("match_half", "lane_serial", "atomic"))
-
-
-def test_hist_forms_variants_apply():
-    """probes/hist_forms.py finds in csrc/hist_kernels.cu each piece it
-    swaps: every variant that changes the source is a source of its own,
-    the kernel's unchanged; the others change only the module's settings,
-    each one that exists."""
-    from pic1dp_tpu_torch.ops import hist_kernels as hk
-    from pic1dp_tpu_torch.probes import hist_forms
-
-    src = (hist_forms.CSRC / "hist_kernels.cu").read_text()
-    variants = hist_forms.variant_sources()
-    assert variants["kernel"] == src
-    assert len(set(variants.values())) == len(variants)
-    for name, (_, pairs, settings) in hist_forms.FORMS.items():
-        assert (name in variants) == (name == "kernel" or bool(pairs))
-        assert all(hasattr(hk, k) and getattr(hk, k) != v for k, v in settings.items())
-
-
-def test_turn_scripts_compile_and_ptxas_diff_counts():
-    """probes/turns.py: every script a turn or a build runs is Python, and
-    ptxas_diff counts the entries two builds share with equal lines."""
-    from pic1dp_tpu_torch.probes import turns
-
-    for name in ("_TURN", "_RING_TURN", "_HIST_TURN", "_BUILD"):
-        compile(getattr(turns, name), name, "exec")
-    assert "def kernel_ms(" in turns._HIST_TURN and "def checksum(" in turns._HIST_TURN
-    other = {"a": ["64 registers"], "b": ["32 registers"], "c": ["8 registers"]}
-    this = {"a": ["64 registers"], "b": ["40 registers"], "d": ["1 register"]}
-    assert turns.ptxas_diff(other, this) == (1, ["b"])
