@@ -1984,10 +1984,10 @@ def stream_bytes(cfg, substep: int, lay: str) -> int:
     f = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     n = torch.empty((), dtype=getattr(torch, cfg.p_dtype)).element_size()
     reads = {NONLINEAR: {1: [f, f, n, f], 2: [f, f, n, f, n, f]},
-             RECOMPUTE: {1: [f, f, n, f], 2: [f, f, n, f, n]},
+             RECOMPUTE: {1: [f, f, n, f], 2: [f, f, n, f]},
              LINEAR: {1: [f, f, n, f], 2: [f, f, n, f, n]},
              FULLF: {1: [f, f, n], 2: [f, f, n]}}[lay][substep]
-    writes = {NONLINEAR: {1: [n, f], 2: [f, f, f]}, RECOMPUTE: {1: [n], 2: [f, f, f]},
+    writes = {NONLINEAR: {1: [n, f], 2: [f, f, f]}, RECOMPUTE: {1: [], 2: [f, f, f]},
               LINEAR: {1: [n], 2: [f, f]}, FULLF: {1: [], 2: [f, f]}}[lay][substep]
     return sum(reads) + sum(writes)
 
@@ -1999,10 +1999,12 @@ def substep_ops(cfg, substep: int, lay: str, n: int, blocks: int,
     forms of the function, whichever bin runs it.  Per marker: substep 1's
     push 32 (one wrap 8, the w update 5, the drive 17, v 2), substep 2's 40
     (two wraps), one gather of E at a position and one deposit, and where
-    substep 2 rebuilds v1 one gather at x0 and 2 more.  In the per-mode form
-    of the register bins (at most 4 modes) a gather or deposit takes 4 for
-    its cell and 13 per kept mode (the table entry's fold 9, the sum 4; no
-    transcendental, the angles come from the table).  In the grid form
+    substep 2 rebuilds v1 one gather at x0 and 2 more, and where it rebuilds
+    w1 too (the recompute layout) 22 more (the w update and the drive).  In
+    the per-mode form of the register bins (at most 4 modes) a gather or
+    deposit takes 4 for its cell and 13 per kept mode (the table entry's
+    fold 9, the sum 4; no transcendental, the angles come from the table).
+    In the grid form
     (grid_bin, by default above 4 modes) a gather takes 4 for the cell and
     3 for the lerp, a deposit 4 for the cell, 3 for the two hat weights and
     2 adds, and each block forms each of its E grids and projects its
@@ -2012,7 +2014,7 @@ def substep_ops(cfg, substep: int, lay: str, n: int, blocks: int,
     if grid_bin is None:
         grid_bin = mode_bin(cfg.nmode) == GRID_BIN
     rebuild = substep == 2 and lay in (FULLF, RECOMPUTE)
-    push = 32 if substep == 1 else 40
+    push = (32 if substep == 1 else 40) + (22 if substep == 2 and lay == RECOMPUTE else 0)
     if not grid_bin:
         position = 4 + 13 * cfg.nmode
         return n * (2 * position + push + (position + 2 if rebuild else 0))

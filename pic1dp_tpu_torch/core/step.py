@@ -51,10 +51,12 @@ those captured in a CUDA graph at the graph's replays, and time each eager
 one as the host phase "reduce".  Without a group nothing else changes.
 
 Nonlinear delta-f has two kernel layouts (ops/substep_kernels.py): substep 1
-streams the midpoint velocities v1 to substep 2, or substep 2 rebuilds them
-from the step-start modes (two fewer streams per marker, one more gather
-of E).  Both give the same bits.  substep_kernels.layout takes the one
-measured faster on the H100 for the config's kernel (PERF.md);
+streams the midpoint velocities v1 and weights w1 to substep 2, or substep 2
+rebuilds both from E at x0 of the step-start modes (the recompute layout:
+four fewer streams per marker, one more gather of E).  Both give the same
+bits.  Each substep 2 that rebuilds w1 is counted as "w1 rebuilds".
+substep_kernels.layout takes the one measured faster on the H100 for the
+config's kernel (PERF.md);
 PIC1DP_STREAM_V1=1 or 0 overrides it (stream or rebuild), read once, when
 the Stepper is made, as the JAX Stepper reads it
 (pic1dp_tpu/core/step.py:122-128).
@@ -210,13 +212,22 @@ class Stepper:
     def _solved_substep2(self, state: SimState, w1, v1, modes1, mode_re0, mode_im0):
         """Substep 2 (x, v and w updated in place): (projections, modes) as
         _solved_substep1's."""
-        _, _, _, proj, *modes = self._substep2(state.x, state.v, state.p, state.w, w1, v1,
-                                               *modes1, mode_re0, mode_im0,
-                                               solve=self.kernel_solves)
+        _, _, _, proj, *modes = self._counted_substep2(state, w1, v1, modes1, mode_re0,
+                                                       mode_im0, solve=self.kernel_solves)
         if self.kernel_solves:
             return proj, modes[0]
         proj = self.reduce_sum(*proj)
         return proj, self._solve(*proj)
+
+    def _counted_substep2(self, state: SimState, w1, v1, modes1, mode_re0, mode_im0,
+                          solve: bool = False):
+        """The substep 2 call on the state's markers (x, v and w updated in
+        place), counted as a "w1 rebuilds" where the layout rebuilds w1 (in
+        a CUDA graph at each replay)."""
+        if self.substeps.rebuilds_w1:
+            self.timers.count("w1 rebuilds")
+        return self._substep2(state.x, state.v, state.p, state.w, w1, v1, *modes1, mode_re0,
+                              mode_im0, solve=solve)
 
     # ---- grid-space pieces ----
 
@@ -349,8 +360,8 @@ class Stepper:
         else:
             w1, v1, (pc1, ps1), (mre1, mim1) = self._solved_substep1(
                 state, state.mode_re, state.mode_im)
-            x2, v2, w2, _ = self._substep2(state.x, state.v, state.p, state.w, w1, v1, mre1,
-                                           mim1, state.mode_re, state.mode_im)
+            x2, v2, w2, _ = self._counted_substep2(state, w1, v1, (mre1, mim1),
+                                                   state.mode_re, state.mode_im)
             rho1 = self.spectral.rho_grid_from_projections(pc1, ps1, self.cfg.lx)
             e1 = self.spectral.e_grid(mre1, mim1)
         return SimState(x=x2, v=v2, p=state.p, w=w2, live=state.live, rho=rho1,
@@ -410,8 +421,9 @@ class Stepper:
         # captured address (same shapes and dtypes, contiguous as
         # apply_optimizations returns them) the graphs are valid for the new
         # state as they stand, since they then address exactly its tensors.
-        # The graphs' own temporaries (w1, v1, the partial sums) live in
-        # their private pool, which no other allocation can take.
+        # The graphs' own temporaries (w1 and v1 where the layout streams
+        # them, the partial sums) live in their private pool, which no other
+        # allocation can take.
         buffers = _addresses(state, ("x", "v", "p", "w", "mode_re", "mode_im", "electric",
                                      "rho"))
         if buffers != self._graph_buffers:

@@ -24,10 +24,12 @@
 //               x0 with the step-start modes (the recompute layout,
 //               :601-603), writes x2, v2;
 //   kRecompute  nonlinear delta-f without stream_v1 (:501-507, :599-603):
-//               substep 1 reads x0, v0, p, w0, writes w1;
-//               substep 2 reads x0, v0, p, w0, w1 and rebuilds v1 as full-f
-//               does, with the same device functions and expression as
-//               substep 1's v1 (so the same bits), writes x2, v2, w2;
+//               substep 1 reads x0, v0, p, w0 and writes no marker stream;
+//               substep 2 reads x0, v0, p, w0 and rebuilds v1 as full-f
+//               does and w1 from the same E at x0 (midpoint_w), with the
+//               same device functions and expressions as substep 1's (so
+//               the same bits; under bf16_weights w1 rounded to bfloat16
+//               and back, as the stream would carry it), writes x2, v2, w2;
 //
 // and both species modes, the template parameter kSpecies:
 //
@@ -98,8 +100,9 @@
 //
 // What bounds them on this card: memory traffic.  Per marker in f32,
 // nonlinear substep 1 moves 6 values (24 bytes, 20 with bf16_weights) and
-// substep 2 9 values (36 bytes, 32); linear 20 and 28 bytes; full-f 12 and
-// 20.  Against that they do a few tens of flops per marker and mode, far
+// substep 2 9 values (36 bytes, 32); recompute 16 and 28 bytes (14 and 26);
+// linear 20 and 28 bytes; full-f 12 and 20.  Against that they do a few
+// tens of flops per marker and mode, far
 // below the H100's ~20 f32 flops per byte of HBM bandwidth.  Three parts of
 // the design serve the bytes:
 //
@@ -508,7 +511,7 @@ __device__ __forceinline__ void load_group(Group<T, PT, WT, W>& g,
   load_vec<W, kNc>(g.v, a.v + i);
   load_vec<W, true>(g.p, a.p + i);
   if constexpr (L != kFullf) load_vec<W, kNc>(g.w, a.w + i);
-  if constexpr (SUB == 2 && L != kFullf) load_vec<W, true>(g.w1, a.w1 + i);
+  if constexpr (SUB == 2 && L != kFullf && L != kRecompute) load_vec<W, true>(g.w1, a.w1 + i);
   if constexpr (SUB == 2 && L == kNonlinear) load_vec<W, true>(g.v1, a.v1 + i);
 }
 
@@ -516,7 +519,7 @@ template <int SUB, int L, int W, typename T, typename PT, typename WT>
 __device__ __forceinline__ void store_group(const Group<T, PT, WT, W>& g,
                                             const Args<T, PT, WT>& a, long long i) {
   if constexpr (SUB == 1) {
-    if constexpr (L != kFullf) store_vec<W>(a.w1 + i, g.w1);
+    if constexpr (L != kFullf && L != kRecompute) store_vec<W>(a.w1 + i, g.w1);
     if constexpr (L == kNonlinear) store_vec<W>(a.v1 + i, g.v1);
   } else {
     store_vec<W>(a.x + i, g.x);
@@ -525,11 +528,33 @@ __device__ __forceinline__ void store_group(const Group<T, PT, WT, W>& g,
   }
 }
 
+// The midpoint weight w1 from the step-start values w0, v0, the weight p
+// and E at x0, e0, before it is rounded to the stream's storage: substep 1's
+// w1, and in the recompute layout substep 2's rebuilt one (one expression,
+// so the same bits).
+template <int L, bool kSpecies, typename T>
+__device__ __forceinline__ T midpoint_w(const Params<T>& q, T pp, T w0, T v0, T e0) {
+  return w0 + q.dtqm_half * (L == kLinear ? pp * e0 : (pp - w0) * e0) *
+                  minus_dlnf0_dv<T, kSpecies>(q, v0);
+}
+
+// w1 as substep 2 reads it: the stream's value, upcast; in the recompute
+// layout rebuilt from the step-start values and E at x0 and rounded through
+// the stream's storage type, as the stream would have carried it.
+template <int L, bool kSpecies, typename T, typename WT>
+__device__ __forceinline__ T substep2_w1(const Params<T>& q, const WT& streamed, T pp, T w0,
+                                         T v0, T e0) {
+  if constexpr (L == kRecompute)
+    return upcast(to_storage<WT>(midpoint_w<L, kSpecies>(q, pp, w0, v0, e0)));
+  else
+    return L == kFullf ? T(0) : upcast(streamed);
+}
+
 // Substep 1 on W markers: gather E at x0 from the step-start modes, push by
 // dt/2 in the reference's order x, w, v, and deposit charge * w1 (full-f:
-// charge * p) at x1.  w1 and v1 go to the group (then to fresh buffers:
-// substep 2 still reads w0 and v0); the deposit uses w1 before it is rounded
-// to WT.
+// charge * p) at x1.  w1 and v1 go to the group (then to fresh buffers
+// where the layout streams them: substep 2 still reads w0 and v0); the
+// deposit uses w1 before it is rounded to WT.
 template <int L, bool kSpecies, int NM, int W, typename T, typename PT, typename WT>
 __device__ __forceinline__ void push1(const Params<T>& q, const Pair<T>* ang,
                                       const Modes<T, NM>& md, Group<T, PT, WT, W>& g,
@@ -539,8 +564,7 @@ __device__ __forceinline__ void push1(const Params<T>& q, const Pair<T>* ang,
     const T x = g.x[k], v = g.v[k], pp = upcast(g.p[k]), w = L == kFullf ? T(0) : g.w[k];
     const T e = field_at(q, ang, x, md.re, md.im);
     const T x1 = wrap(q, x + q.dt_half * v);
-    const T w1 = w + q.dtqm_half * (L == kLinear ? pp * e : (pp - w) * e) *
-                         minus_dlnf0_dv<T, kSpecies>(q, v);
+    const T w1 = midpoint_w<L, kSpecies>(q, pp, w, v, e);
     g.w1[k] = to_storage<WT>(w1);
     g.v1[k] = v + q.dtqm_half * e;
     deposit_at(q, ang, x1, q.charge * (L == kFullf ? pp : w1), acc_c, acc_s);
@@ -548,11 +572,11 @@ __device__ __forceinline__ void push1(const Params<T>& q, const Pair<T>* ang,
 }
 
 // Substep 2 on W markers: recompute x1 = wrap(x0 + dt/2 v0) in registers,
-// take v1 by the layout (streamed; rebuilt from the step-start modes at x0
-// by substep 1's own expression; or v0), gather E at x1 from the midpoint
-// modes, push by the full dt from the step-start values, and deposit
-// charge * w2 (full-f: charge * p) at x2.  x2, v2 and w2 replace x0, v0 and
-// w0 in the group.
+// take v1 and w1 by the layout (streamed; rebuilt from E at x0 of the
+// step-start modes by substep 1's own expressions; or v0), gather E at x1
+// from the midpoint modes, push by the full dt from the step-start values,
+// and deposit charge * w2 (full-f: charge * p) at x2.  x2, v2 and w2
+// replace x0, v0 and w0 in the group.
 template <int L, bool kSpecies, int NM, int W, typename T, typename PT, typename WT>
 __device__ __forceinline__ void push2(const Params<T>& q, const Pair<T>* ang,
                                       const Modes<T, NM>& md, Group<T, PT, WT, W>& g,
@@ -561,13 +585,14 @@ __device__ __forceinline__ void push2(const Params<T>& q, const Pair<T>* ang,
   for (int k = 0; k < W; ++k) {
     const T x0 = g.x[k], v0 = g.v[k], pp = upcast(g.p[k]),
             w0 = L == kFullf ? T(0) : g.w[k];
-    const T w1 = L == kFullf ? T(0) : upcast(g.w1[k]);
-    T v1 = v0;
+    T v1 = v0, e0 = T(0);
     if constexpr (L == kNonlinear) {
       v1 = g.v1[k];
     } else if constexpr (L == kFullf || L == kRecompute) {
-      v1 = v0 + q.dtqm_half * field_at(q, ang, x0, md.re0, md.im0);
+      e0 = field_at(q, ang, x0, md.re0, md.im0);
+      v1 = v0 + q.dtqm_half * e0;
     }
+    const T w1 = substep2_w1<L, kSpecies>(q, g.w1[k], pp, w0, v0, e0);
     const T x1 = wrap(q, x0 + q.dt_half * v0);
     const T e = field_at(q, ang, x1, md.re, md.im);
     const T x2 = wrap(q, x0 + q.dt * v1);
@@ -682,8 +707,9 @@ __device__ __forceinline__ void deposit_group(const GridRefs<T>& r, int nx, cons
 }
 
 // push1 and push2 in the grid form: E from the E grids by grid_gather, the
-// deposit onto the warp's charge grid.  Substep 1's v1 and substep 2's rebuilt
-// v1 are the same FMA of the same gather from equal grids, so the same bits.
+// deposit onto the warp's charge grid.  Substep 1's v1 and w1 and substep 2's
+// rebuilt ones are the same expressions of the same gather from equal grids,
+// so the same bits.
 template <int SUB, int L, bool kSpecies, int W, typename T, typename PT, typename WT>
 __device__ __forceinline__ void grid_push(const Params<T>& q, const GridRefs<T>& r,
                                           Group<T, PT, WT, W>& g, bool on) {
@@ -699,20 +725,20 @@ __device__ __forceinline__ void grid_push(const Params<T>& q, const GridRefs<T>&
     const T x1 = wrap(q, x0 + q.dt_half * v0);
     if constexpr (SUB == 1) {
       const T e = grid_gather(r.eg, c0, f0);
-      const T w1 = w0 + q.dtqm_half * (L == kLinear ? pp * e : (pp - w0) * e) *
-                            minus_dlnf0_dv<T, kSpecies>(q, v0);
+      const T w1 = midpoint_w<L, kSpecies>(q, pp, w0, v0, e);
       g.w1[k] = to_storage<WT>(w1);
       g.v1[k] = fma_t(q.dtqm_half, e, v0);
       hat_cell(q, x1, &frac[k], &cell[k]);
       val[k] = q.charge * (L == kFullf ? pp : w1);
     } else {
-      const T w1 = L == kFullf ? T(0) : upcast(g.w1[k]);
-      T v1 = v0;
+      T v1 = v0, e0 = T(0);
       if constexpr (L == kNonlinear) {
         v1 = g.v1[k];
       } else if constexpr (L == kFullf || L == kRecompute) {
-        v1 = fma_t(q.dtqm_half, grid_gather(r.eg0, c0, f0), v0);
+        e0 = grid_gather(r.eg0, c0, f0);
+        v1 = fma_t(q.dtqm_half, e0, v0);
       }
+      const T w1 = substep2_w1<L, kSpecies>(q, g.w1[k], pp, w0, v0, e0);
       T f1;
       int c1;
       hat_cell(q, x1, &f1, &c1);
@@ -912,9 +938,10 @@ substep1_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T
     substep_body<1, T, PT, WT, NM, L, kSpecies>(p, a, tab);
 }
 
-// Substep 2 (reads x0, v0, p, w0, w1, v1 and the midpoint modes, and the
-// step-start modes where it rebuilds v1; writes x2, v2, w2 over x0, v0, w0
-// where the layout updates them, and the projections at x2).
+// Substep 2 (reads x0, v0, p, w0, w1 and v1 where the layout streams them,
+// the midpoint modes, and the step-start modes where it rebuilds v1 (and,
+// in the recompute layout, w1); writes x2, v2, w2 over x0, v0, w0 where the
+// layout updates them, and the projections at x2).
 template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies, bool kGrid>
 __global__ void __launch_bounds__(kThreads, (kMinBlocks<T, kGrid>))
 substep2_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T> tab) {

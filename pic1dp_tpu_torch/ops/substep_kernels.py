@@ -8,9 +8,10 @@ streams, in each of its layouts (pallas_kernels.py:499-508):
       substep 1:  read x0, v0, p, w0            write w1, v1
       substep 2:  read x0, v0, p, w0, w1, v1    write x2, v2, w2 over x0, v0, w0
     nonlinear delta-f, recompute (stream_v1=False; substep 2 rebuilds v1
-    from the step-start modes, the same bits as substep 1's v1):
-      substep 1:  read x0, v0, p, w0            write w1
-      substep 2:  read x0, v0, p, w0, w1        write x2, v2, w2 over x0, v0, w0
+    and w1 from E at x0 of the step-start modes, the same bits as substep
+    1's, w1 rounded to p's storage dtype as a stream would carry it):
+      substep 1:  read x0, v0, p, w0            write nothing
+      substep 2:  read x0, v0, p, w0            write x2, v2, w2 over x0, v0, w0
     linear delta-f (v frozen, drive p E):
       substep 1:  read x0, v0, p, w0            write w1
       substep 2:  read x0, v0, p, w0, w1        write x2, w2 over x0, w0
@@ -121,7 +122,7 @@ SUBSTEP2_LINEAR_BF16 = CudaKernel("substep2_linear_bf16", _SRC, f"{_TPU}:604")
 SUBSTEP1_FULLF = CudaKernel("substep1_fullf", _SRC, f"{_TPU}:629")
 SUBSTEP2_FULLF = CudaKernel("substep2_fullf", _SRC, f"{_TPU}:601")
 # nonlinear delta-f without stream_v1 (:501-507): substep 1 stores no v1
-# (:588), substep 2 rebuilds it (:601)
+# (:588) and here no w1 either, substep 2 rebuilds both (:601)
 SUBSTEP1_RECOMPUTE = CudaKernel("substep1_recompute", _SRC, f"{_TPU}:588")
 SUBSTEP2_RECOMPUTE = CudaKernel("substep2_recompute", _SRC, f"{_TPU}:601")
 SUBSTEP1_RECOMPUTE_BF16 = CudaKernel("substep1_recompute_bf16", _SRC, f"{_TPU}:588")
@@ -197,14 +198,16 @@ REBUILD_V1_MIN_MARKERS = 2**20
 
 def rebuilds_v1_faster(cfg: Config) -> bool:
     """Whether nonlinear delta-f runs faster with substep 2 rebuilding v1
-    than with v1 streamed, on the H100 (PERF.md, both layouts in turns):
-    above REBUILD_V1_MIN_MARKERS markers with one kept mode, where the two
-    streams it saves dominate (0.85-0.94x the streamed graph step, one
-    species or the species loop, f32 and bf16), and with more than 4, where
-    the grid bin rebuilds v1 from a second E grid in shared memory for two
-    shared-memory reads a marker.  With 2 to 4 modes the 4-mode bin's extra
-    per-mode gather costs more than the streams (1.02-1.06x), and at 1M
-    markers or fewer the steps are launch-bound and equal within 2%."""
+    and w1 (from one gather of E at x0) than with both streamed, on the
+    H100 (PERF.md, both layouts in turns): above REBUILD_V1_MIN_MARKERS
+    markers with one kept mode, where the four streams it saves dominate
+    (0.67-0.89x the streamed graph step, one species or the species loop,
+    f32 and bf16), and with more than 4, where the grid bin rebuilds them
+    from a second E grid in shared memory for two shared-memory reads a
+    marker (0.97-0.99x).  With 2 to 4 modes the 4-mode bin's extra per-mode
+    gather costs more than the streams (1.07-1.12x), and at 1M markers or
+    fewer the steps are launch-bound and the streamed one is as fast or
+    faster (1.01-1.14x)."""
     return (cfg.nmode >= 1 and mode_bin(cfg.nmode) != 4
             and cfg.nspecies * cfg.nparticle_max > REBUILD_V1_MIN_MARKERS)
 
@@ -507,11 +510,12 @@ class FusedSubsteps:
     any CUDA graph capture, and a launch refuses streams on another device;
     so is the species table.  stream_v1 picks the nonlinear
     delta-f layout: v1 streamed from substep 1 to substep 2 (True) or
-    rebuilt by substep 2 (False, RECOMPUTE), by default the config's own
-    (layout); the other layouts ignore it.  Streams a layout does not write come back as None from
-    substep 1 and are ignored by substep 2 (full-f takes no w1 or v1, linear
-    and recompute no v1); substep 2 takes the step-start modes as well where
-    it rebuilds v1 from them (full-f and recompute).  g, (nmode,) at
+    rebuilt by substep 2 (False, RECOMPUTE, which rebuilds w1 too), by
+    default the config's own (layout); the other layouts ignore it.  Streams
+    a layout does not write come back as None from substep 1 and are ignored
+    by substep 2 (full-f and recompute take no w1 or v1, linear no v1);
+    substep 2 takes the step-start modes as well where it rebuilds v1 from
+    them (full-f and recompute).  g, (nmode,) at
     cfg.dtype on the species parameters' device, is grad_inv / lx, the
     factor of the mode solve (spectral.solve_modes) that solve=True asks of
     either substep and that Stepper._solve reads.  blocks_per_sm caps the
@@ -525,8 +529,13 @@ class FusedSubsteps:
         self.layout = layout(cfg, stream_v1)
         self.has_v = self.layout != LINEAR
         self.has_w = self.layout != FULLF
-        # substep 2 rebuilds v1 from the step-start modes
+        # substep 2 rebuilds v1 from the step-start modes, and in the
+        # recompute layout w1 from the same E at x0
         self.rebuilds_v1 = self.layout in (FULLF, RECOMPUTE)
+        self.rebuilds_w1 = self.layout == RECOMPUTE
+        # the streams substep 1 writes for substep 2
+        self.streams_w1 = self.has_w and not self.rebuilds_w1
+        self.streams_v1 = self.layout == NONLINEAR
         # what each kernel takes, per stream: p and w1 at cfg.p_dtype, the
         # other streams and the modes at cfg.dtype
         dtype, narrow = getattr(torch, cfg.dtype), getattr(torch, cfg.p_dtype)
@@ -593,13 +602,18 @@ class FusedSubsteps:
         with solve the midpoint modes (mode_re, mode_im) of those
         projections last.  w1 is returned at p's storage dtype (rounded to
         nearest even under bf16_weights); the projections deposit it
-        unrounded.  w1 is None in full-f and v1 None outside the streamed
-        nonlinear delta-f layout."""
-        x1, v1, w1 = self._push(x, v, p, w, v, w, self._efield(x, mode_re, mode_im),
-                                0.5 * self.cfg.dt)
+        unrounded.  w1 is None in full-f and recompute, v1 None outside the
+        streamed nonlinear delta-f layout."""
+        x1, v1, w1 = self._midpoint(x, v, p, w, mode_re, mode_im)
         proj = self._project(x1, self._deposit_val(p, w1))
-        return (w1.to(p.dtype) if self.has_w else None,
-                v1 if self.layout == NONLINEAR else None, proj) + self._solved(proj, solve)
+        return (w1.to(p.dtype) if self.streams_w1 else None,
+                v1 if self.streams_v1 else None, proj) + self._solved(proj, solve)
+
+    def _midpoint(self, x, v, p, w, mode_re, mode_im):
+        """Substep 1's push from the step-start values and modes: (x1, v1,
+        w1), w1 unrounded.  What substep 2 rebuilds v1 and w1 from."""
+        return self._push(x, v, p, w, v, w, self._efield(x, mode_re, mode_im),
+                          0.5 * self.cfg.dt)
 
     def substep2_plain(self, x, v, p, w, w1, v1, mode_re1, mode_im1,
                        mode_re0=None, mode_im0=None, solve: bool = False):
@@ -607,14 +621,18 @@ class FusedSubsteps:
         rebuilt, the step-start modes) -> (x2, v2, w2, (p_c, p_s)), and with
         solve the step's modes of those projections last; x2, v2, w2 are x,
         v, w updated in place where the layout updates them.  p and w1 are at
-        p's storage dtype.  The rebuilt v1 is substep1_plain's expression on
-        the same values, so the same bits."""
+        p's storage dtype.  The rebuilt v1, and in the recompute layout the
+        rebuilt w1 (which ignores the w1 given, rounded to p's storage dtype
+        as substep 1 returns it where it streams), are substep1_plain's
+        expressions on the same values, so the same bits."""
         cfg = self.cfg
         if self.rebuilds_v1:
             self._need_step_start_modes(mode_re0, mode_im0)
-            v_mid = v + 0.5 * cfg.dt * self._efield(x, mode_re0, mode_im0) * self.q_over_m
+            _, v_mid, w_mid = self._midpoint(x, v, p, w, mode_re0, mode_im0)
+            if self.rebuilds_w1:
+                w1 = w_mid.to(p.dtype)
         else:
-            v_mid = v1 if self.layout == NONLINEAR else v
+            v_mid = v1 if self.streams_v1 else v
         x1 = wrap_x(x + 0.5 * cfg.dt * v, cfg.lx)
         e1 = self._efield(x1, mode_re1, mode_im1)
         x2, v2, w2 = self._push(x, v, p, w, v_mid, w1, e1, cfg.dt)
@@ -642,8 +660,8 @@ class FusedSubsteps:
         if x.device.type == "cpu":
             return self.substep1_plain(x, v, p, w, mode_re, mode_im, solve)
         prm, lib, grid = self._prepare(dict(x=x, v=v, p=p, w=w), (mode_re, mode_im), 1)
-        w1 = torch.empty_like(w, dtype=p.dtype) if self.has_w else None
-        v1 = torch.empty_like(v) if self.layout == NONLINEAR else None
+        w1 = torch.empty_like(w, dtype=p.dtype) if self.streams_w1 else None
+        v1 = torch.empty_like(v) if self.streams_v1 else None
         sums = self._sums(x, grid)
         rc = getattr(lib, f"pic1dp_substep1_{self._suffix}")(
             ctypes.byref(prm), _LAYOUT_IDS[self.layout],
@@ -662,9 +680,9 @@ class FusedSubsteps:
                                        mode_re0, mode_im0, solve)
         streams = dict(x=x, v=v, p=p, w=w)
         modes = (mode_re1, mode_im1)
-        if self.has_w:
+        if self.streams_w1:
             streams["w1"] = w1
-        if self.layout == NONLINEAR:
+        if self.streams_v1:
             streams["v1"] = v1
         if self.rebuilds_v1:
             self._need_step_start_modes(mode_re0, mode_im0)

@@ -56,10 +56,10 @@ PORT_PATTERNS = (
 )
 # bytes per marker of one call: substep 1 reads x v p w, writes w1 v1;
 # substep 2 reads x v p w w1 v1, writes x v w.  bf16_weights narrows p, w1;
-# the recompute layout drops the v1 stream (substep 1 writes w1 only,
-# substep 2 reads x v p w w1)
+# the recompute layout drops the w1 and v1 streams (substep 1 writes
+# nothing, substep 2 reads x v p w)
 SUBSTEP_BYTES = {("f32", "nonlinear"): (24, 36), ("bf16", "nonlinear"): (20, 32),
-                 ("f32", "recompute"): (20, 32), ("bf16", "recompute"): (16, 28)}
+                 ("f32", "recompute"): (16, 28), ("bf16", "recompute"): (14, 26)}
 SWEEP_BLOCKS_PER_SM = (2, 4, 8, 16)
 # (kept modes, markers at most, nx) of the grid-bin rows: the main width
 # and, with n markers, the headline's nx

@@ -63,7 +63,9 @@ def _against_pallas(jcfg, tcfg, x, v, p, w, mode_re, mode_im, label, layouts=(Tr
         mw1, mv1, mproj1 = _kernel_model(subs, x, v, p, w, (mode_re, mode_im), substep=1)
         tag = f"{label} {subs.layout}"
         assert (mv1 is None) == (jv1 is None) == (subs.layout != sk.NONLINEAR)
-        assert_rel(mw1, jw1, 1e-12, f"{tag} w1")
+        assert (mw1 is None) == (subs.layout == sk.RECOMPUTE)
+        if mw1 is not None:
+            assert_rel(mw1, jw1, 1e-12, f"{tag} w1")
         if mv1 is not None:
             assert_rel(mv1, jv1, 1e-12, f"{tag} v1")
         for k, (got, want) in enumerate(zip(mproj1, jproj1)):
@@ -158,7 +160,9 @@ def test_grid_form_with_few_markers_on_a_wide_grid():
         subs = _substeps(tcfg, stream_v1)
         w1, v1, proj1 = subs.substep1_plain(*t, *map(torch.from_numpy, modes[:2]))
         mw1, mv1, mproj1 = _kernel_model(subs, x, v, p, w, tuple(modes[:2]), substep=1)
-        assert_rel(mw1, w1, 1e-12, "w1")
+        assert (mw1 is None) == (w1 is None) == (subs.layout == sk.RECOMPUTE)
+        if w1 is not None:
+            assert_rel(mw1, w1, 1e-12, "w1")
         assert_rel(np.stack(mproj1), torch.stack(proj1), 1e-12, "proj1")
         streams = [a.clone() for a in t]
         x2, v2, w2, proj2 = subs.substep2_plain(
@@ -166,7 +170,7 @@ def test_grid_form_with_few_markers_on_a_wide_grid():
             *map(torch.from_numpy, modes[2:]), *map(torch.from_numpy, modes[:2]))
         mx2, mv2, mw2, mproj2 = _kernel_model(
             subs, x, v, p, w, (modes[2], modes[3], modes[0], modes[1]), substep=2,
-            w1=host(w1), v1=None if v1 is None else host(v1))
+            w1=None if w1 is None else host(w1), v1=None if v1 is None else host(v1))
         for f, got, want in (("x2", mx2, x2), ("v2", mv2, v2), ("w2", mw2, w2)):
             assert_rel(got, want, 1e-12, f)
         assert_rel(np.stack(mproj2), torch.stack(proj2), 1e-12, "proj2")

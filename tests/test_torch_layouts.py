@@ -85,10 +85,13 @@ def _compare(name, dtype, stream_v1):
     jw1, jv1, jproj1 = fused.substep1(js.x, js.v, js.p, js.w, js.mode_re, js.mode_im)
     w1, v1, proj1 = subs.substep1_plain(ts.x, ts.v, ts.p, ts.w, ts.mode_re, ts.mode_im)
     assert (v1 is None) == (jv1 is None) == (subs.layout != sk.NONLINEAR)
-    if dtype == "bf16":
+    # the recompute layout returns no w1: substep 2 rebuilds it (JAX's
+    # kernel still streams it, and its substep 2 takes it)
+    assert (w1 is None) == (subs.layout == sk.RECOMPUTE)
+    if w1 is not None and dtype == "bf16":
         assert w1.dtype == torch.bfloat16
         assert_bf16_close(w1.float(), np.asarray(jw1, np.float32), 1e-4, f"{name}:w1")
-    else:
+    elif w1 is not None:
         close("w1", w1, jw1, "w")
     if v1 is not None:
         close("v1", v1, jv1, "v")
@@ -100,8 +103,9 @@ def _compare(name, dtype, stream_v1):
     jx2, jv2, jw2, jproj2 = fused.substep2(js.x, js.v, js.p, js.w, jw1, js.mode_re,
                                            js.mode_im, mre1, mim1, v1=jv1)
     x2, v2, w2, proj2 = subs.substep2_plain(
-        ts.x, ts.v, ts.p, ts.w, _tensor(jw1), None if jv1 is None else _tensor(jv1),
-        _tensor(mre1), _tensor(mim1), ts.mode_re, ts.mode_im)
+        ts.x, ts.v, ts.p, ts.w, None if w1 is None else _tensor(jw1),
+        None if jv1 is None else _tensor(jv1), _tensor(mre1), _tensor(mim1), ts.mode_re,
+        ts.mode_im)
     close("x2", x2, jx2, "x")
     close("v2", v2, jv2, "v")
     close("w2", w2, jw2, "w")
@@ -115,7 +119,9 @@ def _compare(name, dtype, stream_v1):
 ], ids=["bot", "two_stream2", "two_species_bump_mixed", "bot-bf16"])
 def test_recompute_plain_substeps_match_pallas_interpret(name, dtype):
     """stream_v1=False: substep 1 returns no v1 and substep 2 rebuilds it
-    from the step-start modes, in both packages."""
+    from the step-start modes, in both packages; the port's substep 1
+    returns no w1 either (its substep 2 rebuilds it from the same E at x0),
+    so substep 1 is held to JAX's on the projections alone."""
     _compare(name, dtype, stream_v1=False)
 
 
@@ -126,6 +132,43 @@ def test_plain_substeps_past_the_tables_match_pallas_interpret(name):
 
 def test_wide_recompute_matches_pallas_interpret():
     _compare("bot_33_modes", "float64", stream_v1=False)
+
+
+@pytest.mark.parametrize("kernel_bin", ["register", "grid"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bf16"])
+def test_rebuilt_w1_is_the_streamed_w1_bit_for_bit(dtype, kernel_bin):
+    """substep2_plain of the recompute layout, which rebuilds w1 (and v1)
+    from the step-start modes, equals substep2_plain of the streamed layout
+    fed substep1_plain's w1 and v1, bit for bit: x2, v2, w2, the
+    projections and their modes; under bf16_weights the rebuilt w1 is
+    rounded to bfloat16 as the stream carries it.  In the register bin (one
+    kept mode) and the grid bin (16 modes, grid_bin set)."""
+    cfg = tcfg_mod.bump_on_tail_default(
+        nx=64, nparticle_max=4096, verbosity=0,
+        dtype="float32" if dtype == "bf16" else dtype, bf16_weights=dtype == "bf16")
+    if kernel_bin == "grid":
+        cfg = dataclasses.replace(cfg, modes=tuple(range(1, 17)), init_modes=(1,),
+                                  init_amp_cos=(0.0,), init_amp_sin=(cfg.init_amp_sin[0],))
+    cfg = cfg.validate()
+    sp = tdist.SpeciesParams.from_config(cfg, getattr(torch, cfg.dtype), "cpu")
+    streamed, rebuilt = (sk.FusedSubsteps(cfg, sp, stream_v1=s) for s in (True, False))
+    for subs in (streamed, rebuilt):
+        subs.grid_bin = kernel_bin == "grid"
+    assert rebuilt.layout == sk.RECOMPUTE and rebuilt.rebuilds_w1
+    assert streamed.layout == sk.NONLINEAR and not streamed.rebuilds_w1
+    s = Stepper(cfg, "cpu").initial_field(load_particles(cfg, "cpu"))
+    x, v, p, w, mre, mim = s.x, s.v, s.p, s.w, s.mode_re, s.mode_im
+    w1, v1, proj1, modes1 = streamed.substep1_plain(x, v, p, w, mre, mim, solve=True)
+    rw1, rv1, rproj1, rmodes1 = rebuilt.substep1_plain(x, v, p, w, mre, mim, solve=True)
+    assert rw1 is None and rv1 is None and w1.dtype == p.dtype
+    assert all(torch.equal(a, b) for a, b in zip((*proj1, *modes1), (*rproj1, *rmodes1)))
+    a, b = ([t.clone() for t in (x, v, w)] for _ in range(2))
+    want = streamed.substep2_plain(a[0], a[1], p, a[2], w1, v1, *modes1, mre, mim, solve=True)
+    got = rebuilt.substep2_plain(b[0], b[1], p, b[2], None, None, *modes1, mre, mim,
+                                 solve=True)
+    for k, (g, t) in enumerate(zip((*got[:3], *got[3], *got[4]),
+                                   (*want[:3], *want[3], *want[4]))):
+        assert torch.equal(g, t), k
 
 
 def test_wrapper_refuses_species_or_mode_table_on_another_device():

@@ -162,7 +162,9 @@ def _kernel_model(subs, x, v, p, w, modes, substep, w1=None, v1=None):
     of it at the marker, and the hat deposit onto a charge grid projected
     with the table.  Then the reciprocal wrap, each species' host-folded
     -f0'/f0 and dt q/m.  `modes` is (re, im) in substep 1, (re1, im1, re0,
-    im0) in substep 2."""
+    im0) in substep 2.  The recompute layout's substep 1 returns no w1 and
+    its substep 2 rebuilds w1 (and v1) from E at x0 of the step-start
+    modes."""
     prm, layout = sk.kernel_params(subs.cfg), subs.layout
     table, species = host(subs.angles), host(subs.species)
     cdm1, sd = sk.mode_constants(subs.cfg)
@@ -236,9 +238,12 @@ def _kernel_model(subs, x, v, p, w, modes, substep, w1=None, v1=None):
             return None, None, project(x1, p)
         w_1 = w + c["dtqm_half"] * drive(e, w) * kern(v)
         v_1 = v + c["dtqm_half"] * e if layout == sk.NONLINEAR else None
-        return w_1, v_1, project(x1, w_1)
+        return w_1 if layout != sk.RECOMPUTE else None, v_1, project(x1, w_1)
     if layout in (sk.FULLF, sk.RECOMPUTE):
-        v1 = v + c["dtqm_half"] * gather(x, *modes[2:])
+        e0 = gather(x, *modes[2:])
+        v1 = v + c["dtqm_half"] * e0
+        if layout == sk.RECOMPUTE:
+            w1 = w + c["dtqm_half"] * drive(e0, w) * kern(v)
     elif layout == sk.LINEAR:
         v1 = v
     e = gather(wrap(x + prm.dt_half * v), *modes[:2])
