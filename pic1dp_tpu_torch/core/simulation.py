@@ -7,7 +7,8 @@ and interval-based output, finalize with a timer report.
 The main loop is host-side Python.  Steps between events are queued on the
 device back to back; the host waits for the device only at a snapshot, at
 most once per `output_interval`, at a step with a scheduled optimization
-(merge/remove/split), and at a checkpoint.
+(merge/remove/split), and at a checkpoint.  A snapshot's record is written
+to pic1dp.out once the next chunk is queued, while the device runs it (run).
 
 A snapshot's device half (Stepper.snapshot) writes everything its record
 and the progress line need into one packed buffer (diagnostics.SnapshotLayout),
@@ -19,8 +20,10 @@ it eagerly, and so do the CPU, the EXPLICIT path and a gloo group.
 `self.timers` (utils/timers.PhaseTimers), which the Simulation hands to its
 Stepper and its SnapshotWriter, holds the run's phases and counters: a
 snapshot is the phase "output", split into "output: capture" (where a
-snapshot graph is captured), "output: device" (the graph's replay or the
-eager chain, ending in the one copy) and "output: write"; the counters
+snapshot graph is captured) and "output: device" (the graph's replay or the
+eager chain, ending in the one copy); its record's write, later, is the
+phase "output: write", and "deferred writes" counts the records written
+after the next chunk was queued; the counters
 "snapshot graph replays", "snapshot graph captures" and "snapshot eager" say
 how each snapshot ran, "snapshot marker passes" its passes over the
 markers (one a species on a CUDA device, none on the CPU), and "snapshot d2h
@@ -240,7 +243,9 @@ class Simulation:
         self.time += self.cfg.dt
 
     def output_snapshot(self) -> dict:
-        """Compute + (optionally) write one snapshot; returns the scalars."""
+        """Compute one snapshot and hand its record to the writer, which
+        holds it until the next chunk is queued (run) or the writer is
+        closed; returns the scalars, in arrays of the caller's own."""
         assert self.state is not None
         with self.timers.phase("output"):
             # exact full-spectrum grid charge for the diagnostic stream
@@ -258,7 +263,7 @@ class Simulation:
                 snap = self.snapshot_layout.unpack(self._to_host(packed))
             eng = snap.energies
             if self.writer is not None:
-                self.writer.write_snapshot(self.time, eng, snap.mode_re, snap.mode_im,
+                self.writer.defer_snapshot(self.time, eng, snap.mode_re, snap.mode_im,
                                            snap.electric, snap.rho, snap.ptcl)
         if self.cfg.verbosity >= 1:
             self._print_progress(eng, snap.mode_re, snap.mode_im, snap.nlive)
@@ -268,9 +273,11 @@ class Simulation:
                 f"(itime = {self.itime}); the run has diverged — reduce dt "
                 "or check the configuration. Last checkpoint (if enabled) "
                 f"is in {self.checkpoint_path!r}.")
+        # copies: the record the writer holds keeps its own arrays
         return {"time": self.time, "field_energy": float(eng.field),
-                "marker": eng.marker, "total": eng.total, "pertb": eng.pertb,
-                "mode_re": snap.mode_re, "mode_im": snap.mode_im}
+                "marker": eng.marker.copy(), "total": eng.total.copy(),
+                "pertb": eng.pertb.copy(), "mode_re": snap.mode_re.copy(),
+                "mode_im": snap.mode_im.copy()}
 
     def _to_host(self, packed: torch.Tensor) -> np.ndarray:
         """A snapshot's packed buffer in a new host array: one device-to-host
@@ -306,7 +313,17 @@ class Simulation:
     def run(self, snapshot_callback: Callable[[dict], None] | None = None) -> None:
         """Main loop (reference src/pic1dp.F90:77-109).  Steps between
         events go to the device in one multi_step call; a step with
-        scheduled particle optimization takes the per-step path."""
+        scheduled particle optimization takes the per-step path.
+
+        At a snapshot the host waits for the device, takes the snapshot,
+        runs the callback and any checkpoint, all on the snapshot's state,
+        then queues the next chunk and only then writes the snapshot's
+        record to pic1dp.out (the counter "deferred writes"), while the
+        device runs the chunk; the last record is written as the run ends.
+        So while a callback runs the file holds the records up to the
+        previous snapshot, and however run() ends (its last snapshot, an
+        exception from a callback or the divergence check, an interrupt)
+        it holds the record of every snapshot taken."""
         if self.cfg.verbosity >= 1:
             # reference src/pic1dp.F90:54-55
             from pic1dp_tpu_torch import __version__
@@ -318,22 +335,29 @@ class Simulation:
             # header belongs to the compact format only (reference
             # src/pic1dp_output.F90:524-526 vs :537)
             self._print("progress:\nprogrss  itime     time  int E^2 dx")
-        snap = self.output_snapshot()  # t = 0 snapshot (reference :74)
-        if snapshot_callback:
-            snapshot_callback(snap)
-        while not self._check_termination():
-            k, itime_k, time_k = self._plain_steps_ahead()
-            if k > 0:
-                self.state = self.stepper.multi_step(self.state, k)
-                self.itime, self.time = itime_k, time_k
-            else:
-                self.step_once()
-            if self._output_due() or self._check_termination():
-                self._sync()
-                snap = self.output_snapshot()
-                if snapshot_callback:
-                    snapshot_callback(snap)
-            self._maybe_checkpoint()
+        try:
+            snap = self.output_snapshot()  # t = 0 snapshot (reference :74)
+            if snapshot_callback:
+                snapshot_callback(snap)
+            while not self._check_termination():
+                k, itime_k, time_k = self._plain_steps_ahead()
+                if k > 0:
+                    self.state = self.stepper.multi_step(self.state, k)
+                    self.itime, self.time = itime_k, time_k
+                else:
+                    self.step_once()
+                # the host writes while the device runs the chunk
+                if self.writer is not None and self.writer.write_pending():
+                    self.timers.count("deferred writes")
+                if self._output_due() or self._check_termination():
+                    self._sync()
+                    snap = self.output_snapshot()
+                    if snapshot_callback:
+                        snapshot_callback(snap)
+                self._maybe_checkpoint()
+        finally:
+            if self.writer is not None:
+                self.writer.write_pending()
         if self.writer is not None:
             self.writer.close()
         if self.cfg.verbosity >= 1:
@@ -509,6 +533,8 @@ class Simulation:
         if (self.checkpoint_interval is not None
                 and self.time - self._last_checkpoint_time
                 >= self.checkpoint_interval - _EPS):
+            if self.writer is not None:     # pic1dp.out up to this snapshot
+                self.writer.write_pending()
             path = self.save_checkpoint()
             self._last_checkpoint_time = self.time
             if self.cfg.verbosity >= 2:

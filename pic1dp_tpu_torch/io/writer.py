@@ -13,11 +13,20 @@ Produces the same logical record stream as the reference
                  3 x (nv_opd) dists
 
 in the PETSc binary-viewer format (io/petsc_binary.py), streamed to disk as
-the run progresses, so the file is valid after every snapshot and readable by
-both pic1dp_tpu.analysis and the reference's Python tools.
+the run progresses and readable by both pic1dp_tpu.analysis and the
+reference's Python tools.
 
-A snapshot's write is the phase "output: write" of the writer's `timers`
-(a Simulation hands it its own), and its bytes the counter "bytes written".
+A Simulation hands each record over with `defer_snapshot`: the writer holds
+it, at most one, and writes it at `write_pending`, which Simulation.run calls
+once it has enqueued the next chunk (so the host writes while the device
+steps), or at the next `defer_snapshot`, or at `close`.  So the file is
+valid, every record whole, after each of those calls: while a snapshot
+callback runs it holds the records up to the previous snapshot, and at the
+end of a run (however the run ended) all of them.  `write_snapshot` writes at
+once.
+
+A record's write is the phase "output: write" of the writer's `timers` (a
+Simulation hands it its own), and its bytes the counter "bytes written".
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ class SnapshotWriter:
                                 cfg.nx_opd, cfg.nv_opd, *cfg.modes])
         pb.write_real(self._fh, [cfg.lx, cfg.v_max])
         self._fh.flush()
+        self._pending: tuple | None = None
 
     def write_snapshot(self, time: float, energies, mode_re, mode_im,
                        electric, rho, ptcl) -> None:
@@ -73,9 +83,27 @@ class SnapshotWriter:
             self._fh.flush()
             self.timers.count("bytes written", n)
 
+    def defer_snapshot(self, *record) -> None:
+        """Hold a record, write_snapshot's arguments, until write_pending or
+        close; a record held before is written first.  Its arrays are the
+        writer's from then on: nothing may write to them."""
+        self.write_pending()
+        self._pending = record
+
+    def write_pending(self) -> bool:
+        """Write the record held, if there is one; whether one was written."""
+        if self._pending is None:
+            return False
+        record, self._pending = self._pending, None
+        self.write_snapshot(*record)
+        return True
+
     def close(self) -> None:
         if not self._fh.closed:
-            self._fh.close()
+            try:
+                self.write_pending()
+            finally:
+                self._fh.close()
 
     def __enter__(self):
         return self

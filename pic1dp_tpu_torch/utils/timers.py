@@ -10,7 +10,7 @@ and its end-of-run percentage table (src/pic1dp_output.F90:576-627):
     timer (src/pic1dp_field.F90:268 calls wtimer_start where wtimer_stop was
     intended — the context manager cannot make that mistake);
   * a phase opened inside another is its child (the code names it
-    "<parent>: <part>", as "output: write" inside "output"); the table
+    "<parent>: <part>", as "output: device" inside "output"); the table
     prints each phase's seconds and its self time, its seconds less those
     of its children;
   * counters (`count`) add up what the run did: copies, bytes, replays,

@@ -93,10 +93,14 @@ def test_progress_lines_agree(runs):
     jlines, jrows = _progress(runs["jax"]["err"])
     assert runs["torch"]["err"].splitlines()[0] == "pic1dp_tpu_torch version 0.1.0"
     assert tlines == jlines
-    # the port's table indents a phase's parts below it, and times "step"
-    # only with tracing on (on a card the device's seconds)
+    # the port's table indents a phase's parts below it, times "step" only
+    # with tracing on (on a card the device's seconds), and writes a
+    # snapshot's record outside the snapshot, once the next chunk is queued
     tphases = [row.split()[0] for row in trows if not row[0].isspace()]
-    assert tphases == [row.split()[0] for row in jrows if row.split()[0] != "step"]
+    assert [p for p in tphases if p != "output:"] == \
+        [row.split()[0] for row in jrows if row.split()[0] != "step"]
+    assert [row.split()[:2] for row in trows if row.startswith("output:")] == \
+        [["output:", "write"]]
 
 
 @pytest.mark.parametrize("name", ["landau_fullf", "two_species_maxwellian"])

@@ -149,12 +149,22 @@ def test_tracing_on_nests_the_spans_in_the_callers(tmp_path):
     outputs = [ev for ev in spans if ev["name"] == "pic1dp.output"]
     assert len(caller) == 1 and len(outputs) == 3
     assert all(_inside(ev, caller[0]) for ev in outputs)
-    for part in PARTS:
-        found = [ev for ev in spans if ev["name"] == f"pic1dp.{part}"]
-        assert len(found) == 3, part
-        assert all(any(_inside(ev, out) for out in outputs) for ev in found), part
-    steps = [ev for ev in spans if ev["name"] == "pic1dp.step"]
-    assert steps and not any(_inside(ev, out) for ev in steps for out in outputs)
+    found = {part: sorted((ev for ev in spans if ev["name"] == f"pic1dp.{part}"),
+                          key=lambda ev: ev["ts"]) for part in PARTS}
+    assert all(len(found[part]) == 3 for part in PARTS)
+    assert all(any(_inside(ev, out) for out in outputs) for ev in found["output: device"])
+    # a record is written outside its snapshot: after the next chunk is
+    # queued, the last as the run ends
+    writes = found["output: write"]
+    assert all(_inside(ev, caller[0]) for ev in writes)
+    assert not any(_inside(ev, out) for ev in writes for out in outputs)
+    steps = sorted((ev for ev in spans if ev["name"] == "pic1dp.step"), key=lambda ev: ev["ts"])
+    assert len(steps) == 2 and not any(_inside(ev, out) for ev in steps for out in outputs)
+    outputs.sort(key=lambda ev: ev["ts"])
+    for write, step, out in zip(writes, steps, outputs[1:]):
+        assert step["ts"] + step["dur"] <= write["ts"]
+        assert write["ts"] + write["dur"] <= out["ts"]
+    assert outputs[-1]["ts"] + outputs[-1]["dur"] <= writes[-1]["ts"]
 
 
 @pytest.mark.parametrize("verbosity, copies", [(0, 1), (3, 1)])
