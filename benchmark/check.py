@@ -11,8 +11,11 @@ reference's diagnostics of the program's own state there.  The numbers,
 each with a limit in cells/<cell>.json:
 
   state_rel   the program's x, v and w after an interval against the
-              reference's: the largest of max |x - x_ref| / lx (periodic),
-              max |v - v_ref| / max |v_ref| and max |w - w_ref| / max |w_ref|
+              reference's: the largest of max |x - x_ref| / lx (periodic) and,
+              species by species, max |v - v_ref| / max |v_ref| and
+              max |w - w_ref| / max |w_ref| over that species' markers (each
+              species on its own scale: ions' v is some twenty times smaller
+              than electrons')
   record_rel  a record of pic1dp.out against the reference's: the largest of
               the modes (as complex numbers), E and rho, each over its own
               largest value; each energy over its scale (itself, and for the
@@ -123,15 +126,18 @@ def compare_record(numbers: Numbers, rec: dict, ref: dict, device) -> None:
 
 def _state_errors(numbers: Numbers, physics, state: dict, ref: dict, reduce_max) -> None:
     """x, v, w of the program (state, f32) against the reference's (f64),
-    each part's numerator and denominator maximized over the processes."""
+    (nspecies, n) each: v and w species by species, each species' numerator
+    and denominator maximized over the processes before the division."""
     dx = (state["x"].to(F64) - ref["x"]).abs()
     dx = torch.minimum(dx, physics.lx - dx)
-    parts = torch.stack([dx.max() / physics.lx,
-                         (state["v"].to(F64) - ref["v"]).abs().max(), ref["v"].abs().max(),
-                         (state["w"].to(F64) - ref["w"]).abs().max(), ref["w"].abs().max()])
-    x_rel, dv, vmax, dw, wmax = reduce_max(parts).tolist()
-    numbers.update("state_rel", max(x_rel, dv / vmax if vmax > 0 else math.inf,
-                                    dw / wmax if wmax > 0 else math.inf))
+    parts = [(dx.max() / physics.lx).view(1)]
+    for k in ("v", "w"):
+        parts += [(state[k].to(F64) - ref[k]).abs().amax(dim=1), ref[k].abs().amax(dim=1)]
+    maxima = reduce_max(torch.cat(parts))
+    dv, vmax, dw, wmax = maxima[1:].view(4, -1).tolist()
+    rels = [num / den if den > 0 else math.inf
+            for nums, dens in ((dv, vmax), (dw, wmax)) for num, den in zip(nums, dens)]
+    numbers.update("state_rel", max(float(maxima[0]), *rels))
 
 
 def check_runs(physics, markers, runs: list[RunOutput], interval: float, dt: float,

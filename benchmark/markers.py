@@ -3,8 +3,16 @@
 Every run of a cell starts from these markers, and the plain reference
 starts from the same.  x and v are drawn on the device by a torch.Generator
 seeded from the seed and the process's place in the job, in two large
-calls, in the dtype the program holds them in; p and w follow from them
-through the reference's loader in float64, rounded once to that dtype.
+calls, in the dtype the program holds them in, x first.  The configuration's
+marker loading, as the reference's Physics reads it, decides v:
+
+  uniform   v uniform in [-v_max, v_max], formed in the markers' dtype
+  physical  v ~ f0 species by species (Maxwellian only): standard normals
+            drawn in the markers' dtype, v0 + sqrt(T/m) times them formed in
+            float64 and rounded once to that dtype
+
+p and w follow from x and v through the reference's loader in float64,
+rounded once to that dtype.
 """
 
 from __future__ import annotations
@@ -35,14 +43,19 @@ def block_seed(seed: int, rank: int) -> int:
 def make(physics, dtype: torch.dtype, n_block: int, n_global: int, seed: int, rank: int,
          device) -> Markers:
     """Block `rank` of n_global markers per species: x uniform in [0, lx),
-    v uniform in [-v_max, v_max], every marker live."""
+    v by the configuration's marker loading, every marker live."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(block_seed(seed, rank))
     shape = (physics.nspecies, n_block)
     x = torch.rand(shape, generator=gen, dtype=dtype, device=device) * physics.lx
     x = torch.where(x < physics.lx, x, 0.0)
-    v = (torch.rand(shape, generator=gen, dtype=dtype, device=device) - 0.5) \
-        * (2.0 * physics.v_max)
+    if physics.marker == "physical":
+        normal = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        vth = torch.sqrt(physics.temperature / physics.mass)
+        v = (physics.v0 + vth * normal.to(torch.float64)).to(dtype)
+    else:
+        v = (torch.rand(shape, generator=gen, dtype=dtype, device=device) - 0.5) \
+            * (2.0 * physics.v_max)
     p, w = physics.load_weights(x, v, n_global)
     return Markers(x=x, v=v, p=p.to(dtype), w=w.to(dtype),
                    live=torch.ones(shape, dtype=torch.bool, device=device))

@@ -2,6 +2,9 @@
 model of pic1dp (PRE 83, 056402; https://github.com/wenjundeng/pic1dp):
 marker loading, the RK2 step with the partial-DFT field solve, the energy
 diagnostics, the x-v distribution snapshots and the record of pic1dp.out.
+Markers are loaded uniformly in v, or drawn from a Maxwellian f0 species by
+species (physical loading); the step, the solve and the diagnostics do not
+depend on which.
 
 Written from the equations of the Fortran code (src/pic1dp_particle.F90
 loading, src/pic1dp_interaction.F90 push and deposit, src/pic1dp_field.F90
@@ -67,8 +70,13 @@ class Physics:
         self.equilibrium = program["equilibrium"]
         if self.equilibrium not in ("bump_on_tail", "maxwellian"):
             raise NotImplementedError(f"equilibrium {self.equilibrium}")
-        if program["marker"] != "uniform":
-            raise NotImplementedError("uniform marker loading only")
+        self.marker = program["marker"]
+        if self.marker not in ("uniform", "physical"):
+            raise NotImplementedError(f"marker loading {self.marker}")
+        if self.marker == "physical" and self.equilibrium != "maxwellian":
+            # markers drawn from f0 need a Maxwellian f0, as the reference's
+            # input_init requires (src/pic1dp_input.F90:287-300)
+            raise ValueError("physical marker loading needs the Maxwellian equilibrium")
         self.modes = [int(m) for m in program["modes"]]
         self.init = list(zip(program["init_modes"], program["init_amp_cos"],
                              program["init_amp_sin"]))
@@ -116,11 +124,16 @@ class Physics:
     # ---- loading ----
 
     def load_weights(self, x, v, n_global: int):
-        """(p, w) of markers drawn uniformly in x and v (src/pic1dp_particle.F90
-        :179-237, :259-264): p = f0 lx 2 v_max / N, w = sum of the initial
-        perturbation's modes times p, and p += w (nonlinear), in float64."""
+        """(p, w) of N = n_global markers a species, x uniform and v by the
+        marker loading, in float64 (src/pic1dp_particle.F90:172-237,
+        :259-264): p = f0 lx 2 v_max / N for v uniform, p = density lx / N
+        for v drawn from f0 (physical); w = sum of the initial perturbation's
+        modes times p; and p += w (nonlinear)."""
         x, v = x.to(F64), v.to(F64)
-        p = self.f0(v) * (self.lx * 2.0 * self.v_max / n_global)
+        if self.marker == "physical":
+            p = self.density * self.lx / n_global * torch.ones_like(x)
+        else:
+            p = self.f0(v) * (self.lx * 2.0 * self.v_max / n_global)
         w = torch.zeros_like(x)
         for mode, amp_c, amp_s in self.init:
             theta = (2.0 * math.pi / self.lx) * mode * x
