@@ -54,10 +54,12 @@ Nonlinear delta-f has two kernel layouts (ops/substep_kernels.py): substep 1
 streams the midpoint velocities v1 and weights w1 to substep 2, or substep 2
 rebuilds both from E at x0 of the step-start modes (the recompute layout:
 four fewer streams per marker, one more gather of E).  Both give the same
-bits.  Each substep 2 that rebuilds w1 is counted as "w1 rebuilds", and
-each substep of the grid bin (more than 4 kept modes:
+bits.  Each substep 2 that rebuilds w1 is counted as "w1 rebuilds", each
+substep of the grid bin (more than 4 kept modes:
 FusedSubsteps.uses_grid_bin), both of every step and of push_pair, as
-"grid-bin substeps"; one captured in a CUDA graph at each replay.
+"grid-bin substeps", and each of the species loop (one species a block:
+FusedSubsteps.uses_species_loop) as "species-loop substeps"; one captured
+in a CUDA graph at each replay.
 substep_kernels.layout takes the one measured faster on the H100 for the
 config's kernel (PERF.md);
 PIC1DP_STREAM_V1=1 or 0 overrides it (stream or rebuild), read once, when
@@ -204,9 +206,8 @@ class Stepper:
     def _solved_substep1(self, state: SimState, mode_re, mode_im):
         """Substep 1 from the step-start modes: (w1, v1, projections, modes),
         the projections all-reduced over the group and solved (by the
-        kernel without a group); counted as a "grid-bin substeps" in the
-        grid bin."""
-        self._count_grid_bin()
+        kernel without a group); counted as _count_bins counts it."""
+        self._count_bins()
         w1, v1, proj, *modes = self._substep1(state.x, state.v, state.p, state.w, mode_re,
                                               mode_im, solve=self.kernel_solves)
         if self.kernel_solves:
@@ -228,19 +229,21 @@ class Stepper:
                           solve: bool = False):
         """The substep 2 call on the state's markers (x, v and w updated in
         place), counted as a "w1 rebuilds" where the layout rebuilds w1 and
-        as a "grid-bin substeps" in the grid bin (in a CUDA graph at each
-        replay)."""
+        as _count_bins counts it (in a CUDA graph at each replay)."""
         if self.substeps.rebuilds_w1:
             self.timers.count("w1 rebuilds")
-        self._count_grid_bin()
+        self._count_bins()
         return self._substep2(state.x, state.v, state.p, state.w, w1, v1, *modes1, mode_re0,
                               mode_im0, solve=solve)
 
-    def _count_grid_bin(self) -> None:
+    def _count_bins(self) -> None:
         """Count a substep call as "grid-bin substeps" where the substeps
-        run the grid bin."""
+        run the grid bin, and as "species-loop substeps" where they run the
+        species loop."""
         if self.substeps.uses_grid_bin():
             self.timers.count("grid-bin substeps")
+        if self.substeps.uses_species_loop():
+            self.timers.count("species-loop substeps")
 
     # ---- grid-space pieces ----
 

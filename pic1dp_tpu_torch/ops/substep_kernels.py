@@ -551,6 +551,12 @@ class FusedSubsteps:
         self.blocks_per_sm = BLOCKS_PER_SM
         self.grid_bin = False
         self._many_modes = cfg.nmode >= 1 and mode_bin(cfg.nmode) == GRID_BIN
+        # the register bins' dispatch (csrc/substep_kernels.cu,
+        # launch_species): the main path's kernel only for nonlinear delta-f
+        # with one species and drive form 0 or 1
+        self._species_form = (self.layout not in (NONLINEAR, RECOMPUTE)
+                              or cfg.nspecies > 1
+                              or any(c["kform"] > 1 for c in _drive_constants(cfg)))
         # torch's own division on the device (on a CUDA tensor a product with
         # the scalar's reciprocal, which may differ from a division in the
         # last bit): the kernels read g and never divide
@@ -717,6 +723,13 @@ class FusedSubsteps:
         """Whether the kernels run the grid bin (above 4 kept modes, or
         grid_bin set)."""
         return self.grid_bin or self._many_modes
+
+    def uses_species_loop(self) -> bool:
+        """Whether the kernels run the species loop, a (bps, ns) grid of one
+        species a block: in the grid bin, with more than one species, with
+        a drive form above 1 (the two-stream drives), or outside nonlinear
+        delta-f; else the main path's kernel."""
+        return self.uses_grid_bin() or self._species_form
 
     def _grids(self, x, grid: int, substep: int):
         """The grid bin's device buffer, (grid, egrids (nx + 1) + 2 nx)
