@@ -2070,10 +2070,16 @@ def time_kernels(cfg, inputs=None, stream_v1: bool | None = None,
               for name, ss in ((k1, 1), (k2, 2))}
     smem = sk.angle_smem_bytes(cfg.nmode, cfg.nx, x.element_size())
     if subs.uses_grid_bin():
-        grids = [sk.grid_smem(cfg.nx, x.element_size(), sk.grid_egrids(ss)) for ss in (1, 2)]
-        where = "grid bin, grids in " + ", ".join(
-            f"substep {ss}: " + (f"shared memory ({b} B, {c} charge grids)" if b
-                                 else "the device buffer") for ss, (b, c) in zip((1, 2), grids))
+        def form(ss):
+            egrids = sk.grid_egrids(ss)
+            b = sk.grid_lanes(cfg.nx, x.element_size(), egrids)
+            if b:
+                return f"substep {ss}: lane copies in shared memory ({b} B)"
+            b, c = sk.grid_smem(cfg.nx, x.element_size(), egrids)
+            return f"substep {ss}: " + (f"shared memory ({b} B, {c} charge grids)" if b
+                                        else "the device buffer")
+
+        where = "grid bin, grids in " + ", ".join(form(ss) for ss in (1, 2))
     else:
         where = f"{cfg.nmode if cfg.nmode == 1 else 4}-mode bin, angle table in " + (
             f"shared memory ({smem} B)" if smem else "device memory")

@@ -57,7 +57,9 @@ four fewer streams per marker, one more gather of E).  Both give the same
 bits.  Each substep 2 that rebuilds w1 is counted as "w1 rebuilds", each
 substep of the grid bin (more than 4 kept modes:
 FusedSubsteps.uses_grid_bin), both of every step and of push_pair, as
-"grid-bin substeps", and each of the species loop (one species a block:
+"grid-bin substeps", those of them that deposit in the grid bin's lane form
+(each lane on a charge copy of its own: FusedSubsteps.uses_grid_lanes) as
+"grid-bin lane deposits", and each of the species loop (one species a block:
 FusedSubsteps.uses_species_loop) as "species-loop substeps"; one captured
 in a CUDA graph at each replay.
 substep_kernels.layout takes the one measured faster on the H100 for the
@@ -207,7 +209,7 @@ class Stepper:
         """Substep 1 from the step-start modes: (w1, v1, projections, modes),
         the projections all-reduced over the group and solved (by the
         kernel without a group); counted as _count_bins counts it."""
-        self._count_bins()
+        self._count_bins(1)
         w1, v1, proj, *modes = self._substep1(state.x, state.v, state.p, state.w, mode_re,
                                               mode_im, solve=self.kernel_solves)
         if self.kernel_solves:
@@ -232,16 +234,19 @@ class Stepper:
         as _count_bins counts it (in a CUDA graph at each replay)."""
         if self.substeps.rebuilds_w1:
             self.timers.count("w1 rebuilds")
-        self._count_bins()
+        self._count_bins(2)
         return self._substep2(state.x, state.v, state.p, state.w, w1, v1, *modes1, mode_re0,
                               mode_im0, solve=solve)
 
-    def _count_bins(self) -> None:
-        """Count a substep call as "grid-bin substeps" where the substeps
-        run the grid bin, and as "species-loop substeps" where they run the
-        species loop."""
+    def _count_bins(self, substep: int) -> None:
+        """Count a call of substep `substep` as "grid-bin substeps" where the
+        substeps run the grid bin, as "grid-bin lane deposits" where it
+        runs in the lane form, and as "species-loop substeps" where they run
+        the species loop."""
         if self.substeps.uses_grid_bin():
             self.timers.count("grid-bin substeps")
+        if self.substeps.uses_grid_lanes(substep):
+            self.timers.count("grid-bin lane deposits")
         if self.substeps.uses_species_loop():
             self.timers.count("species-loop substeps")
 

@@ -71,25 +71,51 @@
 //   * pushes its markers with E = (1 - f) E_g[ix0] + f E_g[ix0 + 1]
 //     (grid_gather), V markers per thread with 16-byte loads as in the
 //     register bins, and deposits charge * w at x with the hat weights onto
-//     its warp's charge grid (deposit_lanes: one __match_any_sync a marker
-//     finds the lanes that share its cell, whose two halves the lowest of
-//     them sums in lane order onto rho[ix0] and rho[nx + ix0]; so there is
-//     no float atomic and the sum repeats bit for bit.  Two matches a
-//     marker, one per half, or the lanes one after another, measured
-//     slower: PERF.md, PR 8);
-//   * sums the warps' grids in warp order, rho[j] + rho[nx + j - 1],
-//     projects the block's charge onto the kept modes with the table, a
-//     warp a mode (the same (2, nmode) partials row as the register bins),
-//     and the last block sums the rows (grid_finish).
+//     a charge copy in one of two forms (below), with no float atomic, so
+//     the sum repeats bit for bit;
+//   * sums the copies in a fixed order into one charge grid, projects it
+//     onto the kept modes with the table, a warp a mode (the same
+//     (2, nmode) partials row as the register bins), and the last block
+//     sums the rows (grid_finish).
 //
 // So a marker's work does not depend on nmode: only the block's grid build
-// and projection do.  The grids take (egrids (nx + 1) + 2 copies nx) values
-// of T of dynamic shared memory (grid_smem; opted in above 48 KB): one
-// charge grid per warp (copies = 8) where that fits in kGridSmemMax, else
-// 4, 2 or 1 grids, each shared by kWarps / copies warps that deposit in
-// turns separated by __syncthreads; where not even one fits, the block's
-// grids lie in its own slice of the device buffer Args::grids, walked the
-// same way.  The grid bin builds only the species loop.
+// and projection do.  The form of the charge copies follows the shape
+// alone (nx, the item size and the E grids), never a knob:
+//
+//   lane form  (where kLaneBlocks blocks of its copies fit in an SM,
+//              grid_lanes: nx up to 208 in f32, 100 in f64) each warp keeps
+//              kLaneCopies copies of the nx cells, laid out cell-major (cell
+//              c of copy k at kLaneCopies c + k, no bank conflict), and its
+//              lanes add their markers' two halves at their two cells
+//              themselves (deposit_own), as the hist kernels' kLanes form
+//              does: no match.  Lane l uses copy l % kLaneCopies, and the
+//              kLaneTurns lanes of a copy take turns in lane order within
+//              the warp, so one lane's markers are added in the order it
+//              walks them and the lanes of a copy in lane order, which the
+//              grid fixes.  The tail sums each cell's copies, then the warps
+//              in order (sum_lanes).  A copy a lane (one turn) would hold one
+//              block an SM at nx 192, 8 warps, too few to hide the push's
+//              latency: 1.2-1.5 times the warp form's time (PERF.md §6);
+//              kLaneCopies copies a warp keep the warp form's kLaneBlocks
+//              blocks an SM.  Its own kernels (substep1_kernel and
+//              substep2_kernel with a last template argument kLanes).
+//   warp form  (wider grids) one charge grid of 2 nx values a warp
+//              (deposit_lanes: one __match_any_sync a marker finds the
+//              lanes that share its cell, whose two halves the lowest of
+//              them sums in lane order onto rho[ix0] and rho[nx + ix0]; two
+//              matches a marker, one per half, or the lanes one after
+//              another, measured slower: PERF.md §6); the warps' grids
+//              are summed in warp order, rho[j] + rho[nx + j - 1].  The
+//              grids take (egrids (nx + 1) + 2 copies nx) values of T
+//              (grid_smem): one charge grid per warp (copies = 8) where that
+//              fits in kGridSmemMax, else 4, 2 or 1 grids, each shared by
+//              kWarps / copies warps that deposit in turns separated by
+//              __syncthreads; where not even one fits, the block's grids
+//              lie in its own slice of the device buffer Args::grids,
+//              walked the same way.
+//
+// Both forms' shared memory is dynamic (opted in above 48 KB).  The grid
+// bin builds only the species loop.
 //
 // bf16_weights (the delta-f layouts; Config.validate refuses it with full-f):
 // float arithmetic with p stored and w1 streamed as bfloat16
@@ -222,6 +248,31 @@ inline int grid_smem(int nx, int itemsize, int egrids, int* copies) {
   }
   *copies = 1;
   return 0;
+}
+
+// The grid bin's lane form: a warp's lanes deposit in kLaneTurns turns, the
+// kLaneCopies lanes of a turn each on a copy of the nx cells of its own
+// (lane l on copy l % kLaneCopies); its kernels leave registers for
+// kLaneBlocks blocks an SM, the warp form's residency.
+constexpr int kLaneTurns = 4;
+constexpr int kLaneCopies = 32 / kLaneTurns;
+constexpr int kLaneBlocks = 4;
+// shared memory of one H100 SM for its blocks (228 KB), and the 1 KB the
+// system reserves of it a block
+constexpr int kSmSmem = 233472;
+constexpr int kBlockReserve = 1024;
+
+// The lane form's dynamic shared memory: `egrids` E grids of nx + 1 values
+// of `itemsize` bytes and kWarps warps' kLaneCopies copies of nx values,
+// where kLaneBlocks such blocks fit in an SM with the grid bin's static
+// arrays (2 kThreads values and a flag) and the system's reserve; else 0,
+// and the grid bin takes its warp form (grid_smem).
+// ops/substep_kernels.grid_lanes mirrors it.
+inline int grid_lanes(int nx, int itemsize, int egrids) {
+  const long long bytes = (static_cast<long long>(egrids) * (nx + 1) +
+                           static_cast<long long>(kLaneCopies) * kWarps * nx) * itemsize;
+  const long long block = bytes + 2LL * kThreads * itemsize + 128 + kBlockReserve;
+  return kLaneBlocks * block <= kSmSmem ? static_cast<int>(bytes) : 0;
 }
 
 // The E grids a substep's grid-bin kernel has room for: E_g, and in
@@ -400,6 +451,10 @@ __device__ __forceinline__ void deposit_at(const Params<T>& q, const Pair<T>* an
 
 __device__ __forceinline__ float neg_mul(float a, float b) { return __fmul_rn(-a, b); }
 __device__ __forceinline__ double neg_mul(double a, double b) { return __dmul_rn(-a, b); }
+
+// A sum that ptxas may not fuse with the product before it into an FMA.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // The solve of component c of a (2, nmode) projection row (c < nmode: p_c of
 // mode c, else p_s of mode c - nmode) from its stored value:
@@ -706,15 +761,15 @@ __device__ __forceinline__ void deposit_group(const GridRefs<T>& r, int nx, cons
   }
 }
 
-// push1 and push2 in the grid form: E from the E grids by grid_gather, the
-// deposit onto the warp's charge grid.  Substep 1's v1 and w1 and substep 2's
-// rebuilt ones are the same expressions of the same gather from equal grids,
-// so the same bits.
+// push1 and push2 in the grid form, both charge-copy forms: E from the E
+// grids eg (and eg0) by grid_gather, the group's streams updated, and each
+// marker's deposit, val at the cell and fraction of its pushed position.
+// Substep 1's v1 and w1 and substep 2's rebuilt ones are the same
+// expressions of the same gather from equal grids, so the same bits.
 template <int SUB, int L, bool kSpecies, int W, typename T, typename PT, typename WT>
-__device__ __forceinline__ void grid_push(const Params<T>& q, const GridRefs<T>& r,
-                                          Group<T, PT, WT, W>& g, bool on) {
-  int cell[W];
-  T frac[W], val[W];
+__device__ __forceinline__ void grid_terms(const Params<T>& q, const T* eg, const T* eg0,
+                                           Group<T, PT, WT, W>& g, int (&cell)[W],
+                                           T (&frac)[W], T (&val)[W]) {
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     const T x0 = g.x[k], v0 = g.v[k], pp = upcast(g.p[k]),
@@ -724,7 +779,7 @@ __device__ __forceinline__ void grid_push(const Params<T>& q, const GridRefs<T>&
     hat_cell(q, x0, &f0, &c0);
     const T x1 = wrap(q, x0 + q.dt_half * v0);
     if constexpr (SUB == 1) {
-      const T e = grid_gather(r.eg, c0, f0);
+      const T e = grid_gather(eg, c0, f0);
       const T w1 = midpoint_w<L, kSpecies>(q, pp, w0, v0, e);
       g.w1[k] = to_storage<WT>(w1);
       g.v1[k] = fma_t(q.dtqm_half, e, v0);
@@ -735,14 +790,14 @@ __device__ __forceinline__ void grid_push(const Params<T>& q, const GridRefs<T>&
       if constexpr (L == kNonlinear) {
         v1 = g.v1[k];
       } else if constexpr (L == kFullf || L == kRecompute) {
-        e0 = grid_gather(r.eg0, c0, f0);
+        e0 = grid_gather(eg0, c0, f0);
         v1 = fma_t(q.dtqm_half, e0, v0);
       }
       const T w1 = substep2_w1<L, kSpecies>(q, g.w1[k], pp, w0, v0, e0);
       T f1;
       int c1;
       hat_cell(q, x1, &f1, &c1);
-      const T e = grid_gather(r.eg, c1, f1);
+      const T e = grid_gather(eg, c1, f1);
       const T x2 = wrap(q, x0 + q.dt * v1);
       const T w2 = w0 + q.dtqm_full * (L == kLinear ? pp * e : (pp - w1) * e) *
                             minus_dlnf0_dv<T, kSpecies>(q, v1);
@@ -753,6 +808,15 @@ __device__ __forceinline__ void grid_push(const Params<T>& q, const GridRefs<T>&
       val[k] = q.charge * (L == kFullf ? pp : w2);
     }
   }
+}
+
+// grid_terms with the deposit onto the warp's charge grid (the warp form).
+template <int SUB, int L, bool kSpecies, int W, typename T, typename PT, typename WT>
+__device__ __forceinline__ void grid_push(const Params<T>& q, const GridRefs<T>& r,
+                                          Group<T, PT, WT, W>& g, bool on) {
+  int cell[W];
+  T frac[W], val[W];
+  grid_terms<SUB, L, kSpecies>(q, r.eg, r.eg0, g, cell, frac, val);
   deposit_group(r, q.nx, cell, frac, val, on);
 }
 
@@ -856,20 +920,14 @@ __device__ __forceinline__ void grid_finish(const Params<T>& p, const Args<T, PT
   if (threadIdx.x == 0) *a.done = 0u;
 }
 
-// The grid bin's body on its grids at g (shared memory or the block's slice
-// of Args::grids): eg, [eg0,] then `copies` charge grids of 2 nx values.
-// Build the E grids and zero the charge grids; walk the block's species;
-// sum the copies in order, rho[j] + rho[nx + j - 1] of each, into the
-// first's rho[0, nx); project it into the partials row; finish.
-template <int SUB, typename T, typename PT, typename WT, int L, bool kSpecies>
-__device__ __forceinline__ void grid_run(const Params<T>& p, const Args<T, PT, WT>& a,
-                                         const SpeciesTable<T>& tab, T* g, int copies,
-                                         T* red) {
+// The block's E grids: eg[j] = E_g[j] of the modes (a.re, a.im) for every
+// cell, eg[nx] = eg[0]; and where substep 2 rebuilds v1, eg0 the same of
+// the step-start modes (a.re0, a.im0).
+template <int SUB, int L, typename T, typename PT, typename WT>
+__device__ __forceinline__ void build_egrids(const Params<T>& p, const Args<T, PT, WT>& a,
+                                             T* eg, T* eg0) {
   constexpr bool kTwo = SUB == 2 && (L == kFullf || L == kRecompute);
   const int nx = p.nx;
-  T* eg = g;
-  T* eg0 = g + (nx + 1);
-  T* rho = g + egrids<SUB>() * (nx + 1);
   for (int j = threadIdx.x; j < nx; j += kThreads) {
     const T e = grid_e(a.angles, nx, p.nmode, j, a.re, a.im);
     eg[j] = e;
@@ -880,6 +938,22 @@ __device__ __forceinline__ void grid_run(const Params<T>& p, const Args<T, PT, W
       if (j == 0) eg0[nx] = e0;
     }
   }
+}
+
+// The grid bin's body on its grids at g (shared memory or the block's slice
+// of Args::grids): eg, [eg0,] then `copies` charge grids of 2 nx values.
+// Build the E grids and zero the charge grids; walk the block's species;
+// sum the copies in order, rho[j] + rho[nx + j - 1] of each, into the
+// first's rho[0, nx); project it into the partials row; finish.
+template <int SUB, typename T, typename PT, typename WT, int L, bool kSpecies>
+__device__ __forceinline__ void grid_run(const Params<T>& p, const Args<T, PT, WT>& a,
+                                         const SpeciesTable<T>& tab, T* g, int copies,
+                                         T* red) {
+  const int nx = p.nx;
+  T* eg = g;
+  T* eg0 = g + (nx + 1);
+  T* rho = g + egrids<SUB>() * (nx + 1);
+  build_egrids<SUB, L>(p, a, eg, eg0);
   for (int i = threadIdx.x; i < copies * 2 * nx; i += kThreads) rho[i] = T(0);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
@@ -926,6 +1000,152 @@ __device__ __forceinline__ void grid_body(const Params<T>& p, const Args<T, PT, 
   }
 }
 
+// ---- the grid bin's lane form ----
+
+// Where a lane deposits: its copy (cell c at mine[kLaneCopies c]), and the
+// E grids.
+template <typename T>
+struct LaneRefs {
+  const T* eg;
+  const T* eg0;
+  T* mine;
+};
+
+// Each of the lane's W markers, where `on`, adds (1 - f) val at its cell
+// and f val at the next, periodic in x, to the lane's copy, in marker
+// order: no match.  The kLaneTurns lanes of a copy take their turns in
+// lane order, between __syncwarp.  Every lane of the warp must call it.
+template <int W, typename T>
+__device__ __forceinline__ void deposit_own(const LaneRefs<T>& r, int nx, const int (&cell)[W],
+                                            const T (&frac)[W], const T (&val)[W], bool on) {
+  const int turn = (threadIdx.x & 31) / kLaneCopies;
+#pragma unroll
+  for (int t = 0; t < kLaneTurns; ++t) {
+    if (t == turn && on) {
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        T* left = r.mine + kLaneCopies * cell[k];
+        T* right = r.mine + kLaneCopies * (cell[k] == nx - 1 ? 0 : cell[k] + 1);
+        *left = add_rn(*left, val[k] * (T(1) - frac[k]));
+        *right = add_rn(*right, val[k] * frac[k]);
+      }
+    }
+    if constexpr (kLaneTurns > 1) __syncwarp();
+  }
+}
+
+// grid_terms with the deposit onto the lane's own copy.
+template <int SUB, int L, bool kSpecies, int W, typename T, typename PT, typename WT>
+__device__ __forceinline__ void lane_push(const Params<T>& q, const LaneRefs<T>& r,
+                                          Group<T, PT, WT, W>& g, bool on) {
+  int cell[W];
+  T frac[W], val[W];
+  grid_terms<SUB, L, kSpecies>(q, r.eg, r.eg0, g, cell, frac, val);
+  deposit_own(r, q.nx, cell, frac, val, on);
+}
+
+// grid_walk in the lane form: the same markers in the same groups, every
+// loop as often in each thread of the block (so that a warp's lanes can
+// take their turns).  Loading the first group before the block builds its
+// E grids, or the next group before this one's arithmetic, measured slower
+// (PERF.md §6).
+template <int SUB, int L, bool kSpecies, typename T, typename PT, typename WT>
+__device__ __forceinline__ void lane_walk(const Params<T>& q, const Args<T, PT, WT>& a,
+                                          const LaneRefs<T>& r, long long base) {
+  constexpr int V = vec_width<T>();
+  using G = Group<T, PT, WT, V>;
+  const long long n = q.n;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long start = static_cast<long long>(blockIdx.x) * kThreads;
+  const long long head = a.aligned ? min(n, (V - base % V) % V) : n;
+  const long long groups = (n - head) / V;
+  const long long body = base + head;
+  auto one = [&](long long t, long long end) {
+    Group<T, PT, WT, 1> single{};
+    const bool on = t < end;
+    if (on) load_group<SUB, L>(single, a, base + t);
+    lane_push<SUB, L, kSpecies>(q, r, single, on);
+    if (on) store_group<SUB, L>(single, a, base + t);
+  };
+  for (long long t = start; t < head; t += stride) one(t + threadIdx.x, head);
+  for (long long t = head + groups * V + start; t < n; t += stride) one(t + threadIdx.x, n);
+  for (long long k0 = start; k0 < groups; k0 += stride) {
+    const long long k = k0 + threadIdx.x;
+    G g{};
+    if (k < groups) load_group<SUB, L>(g, a, body + k * V);
+    lane_push<SUB, L, kSpecies>(q, r, g, k < groups);
+    if (k < groups) store_group<SUB, L>(g, a, body + k * V);
+  }
+}
+
+// The lane form's tail: rho[j] = the sum of cell j's copies, the
+// kLaneCopies copies of each warp in turn from copy slot(q) on, wrapping
+// (q = warp nx + j; each warp's sum lands in that copy's place), then the
+// warps in order.  slot(q) = (q + q / (32 / C)) % C, with C = kLaneCopies,
+// puts the 32 threads of a warp, which take 32 consecutive q at C q, on 32
+// banks in both passes.  Every thread of the block must call it; it ends
+// with rho written and the copies overwritten.
+template <typename T>
+__device__ __forceinline__ void sum_lanes(T* lanes, int nx, T* rho) {
+  constexpr int C = kLaneCopies;
+  static_assert(C >= 4 && C <= 16, "slot spreads a warp over the banks at 4 to 16 copies");
+  auto slot = [](int q) { return (q + q / (32 / C)) & (C - 1); };
+  for (int q = threadIdx.x; q < kWarps * nx; q += kThreads) {
+    const int first = slot(q);
+    T* cell = lanes + C * q;
+    T acc = cell[first];
+#pragma unroll
+    for (int l = 1; l < C; ++l) acc = add_rn(acc, cell[(first + l) & (C - 1)]);
+    cell[first] = acc;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < nx; j += kThreads) {
+    T acc = lanes[C * j + slot(j)];
+    for (int w = 1; w < kWarps; ++w) {
+      const int q = w * nx + j;
+      acc = add_rn(acc, lanes[C * q + slot(q)]);
+    }
+    rho[j] = acc;
+  }
+}
+
+// The grid bin's body in the lane form, for both substeps: the warps'
+// copies, then eg [and eg0], in dynamic shared memory (grid_lanes).  Build
+// the E grids and zero the copies; walk the block's species; sum the
+// copies into eg's place (E is no longer needed), project it into the
+// partials row; finish.
+template <int SUB, typename T, typename PT, typename WT, int L, bool kSpecies>
+__device__ __forceinline__ void lane_body(const Params<T>& p, const Args<T, PT, WT>& a,
+                                          const SpeciesTable<T>& tab) {
+  extern __shared__ __align__(128) unsigned char angle_buf[];
+  __shared__ T red[2 * kThreads];
+  const int nx = p.nx;
+  T* lanes = reinterpret_cast<T*>(angle_buf);
+  T* eg = lanes + kLaneCopies * kWarps * nx;
+  T* eg0 = eg + (nx + 1);
+  const LaneRefs<T> r{
+      eg, eg0, lanes + kLaneCopies * (threadIdx.x >> 5) * nx + (threadIdx.x & (kLaneCopies - 1))};
+  build_egrids<SUB, L>(p, a, eg, eg0);
+  // kLaneCopies copies nx values of T (kLaneCopies >= 4): a multiple of 16
+  // bytes from a 128-byte base
+  uint4* zero = reinterpret_cast<uint4*>(lanes);
+  const int words = kLaneCopies * kWarps * nx * static_cast<int>(sizeof(T)) / 16;
+  for (int i = threadIdx.x; i < words; i += kThreads) zero[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  if constexpr (kSpecies) {
+    for (int s = blockIdx.y; s < tab.ns; s += gridDim.y)
+      lane_walk<SUB, L, kSpecies>(with_species(p, tab, a.species, s), a, r, s * p.n);
+  } else {
+    lane_walk<SUB, L, kSpecies>(p, a, r, 0);
+  }
+  __syncthreads();
+  sum_lanes(lanes, nx, eg);
+  __syncthreads();
+  project_grid(p, a.angles, eg,
+               a.partials + static_cast<long long>(block_row<kSpecies>()) * 2 * p.nmode);
+  grid_finish<kSpecies>(p, a, red);
+}
+
 // Substep 1 (reads x0, v0, p, w0 and the step-start modes; writes w1, v1
 // where the layout streams them, and the projections at x1).  PT and WT are
 // the storage types of p and w1 (T, or bfloat16 with T float).
@@ -949,6 +1169,25 @@ substep2_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T
     grid_body<2, T, PT, WT, L, kSpecies>(p, a, tab);
   else
     substep_body<2, T, PT, WT, NM, L, kSpecies>(p, a, tab);
+}
+
+// Substep 1 and 2 in the grid bin's lane form (kLanes; launch_grid_bin
+// takes them where grid_lanes fits), with the arguments and results of the
+// kernels above, their registers bound for kLaneBlocks blocks an SM.
+template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies, bool kGrid,
+          bool kLanes>
+__global__ void __launch_bounds__(kThreads, kLaneBlocks)
+substep1_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T> tab) {
+  static_assert(NM == 0 && kGrid && kLanes && kLaneCopies >= 4, "the lane form is the grid bin's");
+  lane_body<1, T, PT, WT, L, kSpecies>(p, a, tab);
+}
+
+template <typename T, typename PT, typename WT, int NM, int L, bool kSpecies, bool kGrid,
+          bool kLanes>
+__global__ void __launch_bounds__(kThreads, kLaneBlocks)
+substep2_kernel(const Params<T> p, const Args<T, PT, WT> a, const SpeciesTable<T> tab) {
+  static_assert(NM == 0 && kGrid && kLanes && kLaneCopies >= 4, "the lane form is the grid bin's");
+  lane_body<2, T, PT, WT, L, kSpecies>(p, a, tab);
 }
 
 // The device's grid-angle trig chain (hat_trig's) on its own, for the
@@ -982,13 +1221,28 @@ auto kernel_of() {
     return substep2_kernel<T, PT, WT, NM, L, kSpecies, kGrid>;
 }
 
+// The grid bin's lane form of substep SUB in layout L.
+template <int SUB, typename T, typename PT, typename WT, int L>
+auto lane_kernel_of() {
+  if constexpr (SUB == 1)
+    return substep1_kernel<T, PT, WT, 0, L, true, true, true>;
+  else
+    return substep2_kernel<T, PT, WT, 0, L, true, true, true>;
+}
+
+// A launch of `kernel` over `grid` blocks; in the species loop grid / ns
+// blocks for each species (block_row).
+template <bool kSpecies, typename K, typename T, typename PT, typename WT>
+void launch_kernel(K kernel, const HostParams& h, const Args<T, PT, WT>& a, int grid,
+                   cudaStream_t st) {
+  const dim3 blocks = kSpecies ? dim3(grid / h.nspecies, h.nspecies) : dim3(grid);
+  kernel<<<blocks, kThreads, a.angle_smem, st>>>(to_params<T>(h), a, to_species<T>(h));
+}
+
 template <int SUB, typename T, typename PT, typename WT, int NM, int L, bool kSpecies,
           bool kGrid>
 void launch(const HostParams& h, const Args<T, PT, WT>& a, int grid, cudaStream_t st) {
-  const auto kernel = kernel_of<SUB, T, PT, WT, NM, L, kSpecies, kGrid>();
-  // the species loop: grid / ns blocks for each species (block_row)
-  const dim3 blocks = kSpecies ? dim3(grid / h.nspecies, h.nspecies) : dim3(grid);
-  kernel<<<blocks, kThreads, a.angle_smem, st>>>(to_params<T>(h), a, to_species<T>(h));
+  launch_kernel<kSpecies>(kernel_of<SUB, T, PT, WT, NM, L, kSpecies, kGrid>(), h, a, grid, st);
 }
 
 // The species mode of a register bin: the main path's kernel for nonlinear
@@ -1004,27 +1258,36 @@ void launch_species(const HostParams& h, const Args<T, PT, WT>& a, int grid,
   launch<SUB, T, PT, WT, NM, L, true, false>(h, a, grid, st);
 }
 
-// The grid bin (species loop only): its grids' shared memory by grid_smem,
-// opted in above 48 KB once per device (at the first launch, which the
-// wrapper's callers make outside any graph capture), else the device buffer.
+// The grid bin (species loop only): the lane form where grid_lanes fits,
+// else the warp form with its grids' shared memory by grid_smem, else the
+// device buffer; both forms' kernels opted in above 48 KB once per device
+// (at the first launch, which the wrapper's callers make outside any graph
+// capture).
 template <int SUB, typename T, typename PT, typename WT, int L>
 int launch_grid_bin(const HostParams& h, Args<T, PT, WT> a, int grid, cudaStream_t st) {
   static unsigned long long opted_in = 0;   // one bit per device
+  const int itemsize = static_cast<int>(sizeof(T));
   int copies = 0;
-  a.angle_smem = grid_smem(h.nx, static_cast<int>(sizeof(T)), egrids<SUB>(), &copies);
+  const int lanes = grid_lanes(h.nx, itemsize, egrids<SUB>());
+  a.angle_smem = lanes > 0 ? lanes : grid_smem(h.nx, itemsize, egrids<SUB>(), &copies);
   if (a.angle_smem == 0 && a.grids == nullptr) return cudaErrorInvalidValue;
+  using Kernel = decltype(kernel_of<SUB, T, PT, WT, 0, L, true, true>());
+  const Kernel forms[2] = {kernel_of<SUB, T, PT, WT, 0, L, true, true>(),
+                           lane_kernel_of<SUB, T, PT, WT, L>()};
   if (a.angle_smem > kSmemNoOptIn) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
     if (dev >= 64 || !(opted_in >> dev & 1ull)) {
-      e = cudaFuncSetAttribute(kernel_of<SUB, T, PT, WT, 0, L, true, true>(),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kGridSmemMax);
-      if (e != cudaSuccess) return e;
+      for (const auto kernel : forms) {
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kGridSmemMax);
+        if (e != cudaSuccess) return e;
+      }
       if (dev < 64) opted_in |= 1ull << dev;
     }
   }
-  launch<SUB, T, PT, WT, 0, L, true, true>(h, a, grid, st);
+  launch_kernel<true>(forms[lanes > 0 ? 1 : 0], h, a, grid, st);
   return cudaSuccess;
 }
 
@@ -1123,6 +1386,17 @@ int pic1dp_mode_bin(int nmode) { return mode_bin(nmode); }
 int pic1dp_grid_smem(int nx, int itemsize, int egrids, int* copies) {
   return grid_smem(nx, itemsize, egrids, copies);
 }
+
+// The grid bin's lane form: its dynamic shared memory bytes, 0 where the
+// grid bin takes its warp form (grid_lanes).
+int pic1dp_grid_lanes(int nx, int itemsize, int egrids) {
+  return grid_lanes(nx, itemsize, egrids);
+}
+
+// The lane form's copies a warp and blocks an SM (kLaneCopies, kLaneBlocks).
+int pic1dp_grid_lane_copies() { return kLaneCopies; }
+
+int pic1dp_grid_lane_blocks() { return kLaneBlocks; }
 
 // V of the instantiation that runs nmode kept modes with arithmetic of
 // `itemsize` bytes (4 or 8); 0 for a count below 1.

@@ -37,8 +37,10 @@ holds
     picks the register bin of 1 or 4 modes, mode_bin, with the main path's
     instantiation for one bump-on-tail or Maxwellian species in nonlinear
     delta-f and the species loop otherwise; above 4 modes the grid bin,
-    which gathers E from a grid of the nx cells and deposits onto a charge
-    grid in shared memory, grid_smem); one launch counter per layout and
+    which gathers E from a grid of the nx cells and deposits onto charge
+    copies in shared memory: each lane on its own where they fit,
+    grid_lanes, else a grid a warp, grid_smem); one launch counter per
+    layout and
     build (KERNELS).  What they take beside the streams is made here: the
     grid-angle table (angle_table, staged into shared memory by the register
     bins when it fits, angle_smem_bytes), the species table (species_table:
@@ -94,6 +96,12 @@ ANGLE_SMEM_MAX = 48 * 1024 - 4096
 GRID_SMEM_MAX = 232448 - 8192
 # kWarps: the charge grids a grid-bin block keeps when they fit, one per warp
 GRID_COPIES = THREADS // 32
+# kLaneCopies, kLaneBlocks: the grid bin's lane form keeps GRID_LANE_COPIES
+# charge copies a warp (its lanes on them in turns), and is taken where
+# GRID_LANE_BLOCKS blocks of them fit in an SM, which its kernels' registers
+# leave room for
+GRID_LANE_COPIES = 8
+GRID_LANE_BLOCKS = 4
 # mode_bin's value for the grid bin (kGridBin)
 GRID_BIN = 0
 # shared memory of one H100 SM for its blocks (228 KB), and what a block
@@ -344,6 +352,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             for nx in (*range(1, 20000, 37), 2**16)
             for b in (4, 8) for e in (1, 2)):
         raise RuntimeError("grid_smem does not match the C grid_smem")
+    lib.pic1dp_grid_lanes.argtypes = [i32, i32, i32]
+    if (lib.pic1dp_grid_lane_copies(), lib.pic1dp_grid_lane_blocks()) != (
+            GRID_LANE_COPIES, GRID_LANE_BLOCKS) or any(
+            lib.pic1dp_grid_lanes(nx, b, e) != grid_lanes(nx, b, e)
+           for nx in (*range(1, 20000, 37), *range(100, 500), 2**16)
+           for b in (4, 8) for e in (1, 2)):
+        raise RuntimeError("grid_lanes does not match the C grid_lanes")
     prm = ctypes.POINTER(SubstepParams)
     for suffix in _SUFFIX.values():
         getattr(lib, f"pic1dp_substep1_{suffix}").argtypes = \
@@ -406,16 +421,41 @@ def grid_smem(nx: int, itemsize: int, egrids: int) -> tuple[int, int]:
     return 0, 1
 
 
+def _block_smem(dynamic: int, itemsize: int) -> int:
+    """Shared memory a grid-bin block holds in an SM: its dynamic bytes, its
+    static arrays (2 THREADS values of T and a flag) and the 1 KB the system
+    reserves of it a block."""
+    return dynamic + 2 * THREADS * itemsize + 128 + BLOCK_SMEM_RESERVED
+
+
+@functools.lru_cache(maxsize=None)
+def grid_lanes(nx: int, itemsize: int, egrids: int) -> int:
+    """Bytes of the grid bin's lane form's dynamic shared memory: `egrids` E
+    grids of nx + 1 values of `itemsize` bytes and GRID_COPIES warps'
+    GRID_LANE_COPIES copies of the nx cells, where GRID_LANE_BLOCKS such
+    blocks fit in an SM, the warp form's residency; 0 where they do not,
+    and the grid bin deposits in its warp form (grid_smem) (grid_lanes in
+    csrc/substep_kernels.cu).  The form follows the shape alone: nx up to
+    208 in f32 and 100 in f64 take it (nx 192 in f32: 50,696 bytes in
+    substep 2), nx 192 in f64 and nx 1024 and wider do not."""
+    nbytes = (egrids * (nx + 1) + GRID_LANE_COPIES * GRID_COPIES * nx) * itemsize
+    return nbytes if GRID_LANE_BLOCKS * _block_smem(nbytes, itemsize) <= SM_SMEM else 0
+
+
 @functools.lru_cache(maxsize=None)
 def grid_blocks_per_sm(nx: int, itemsize: int, egrids: int,
                        blocks_per_sm: int = BLOCKS_PER_SM) -> int:
-    """Blocks per SM of a grid-bin launch: blocks_per_sm, or fewer where
-    that many blocks' shared memory (grid_smem, the static arrays, the
-    driver's reserve) does not fit in an SM, so that the grid is one wave
-    of resident blocks (at nx 1024 in f32, 3 blocks of 72 KB)."""
-    dynamic = grid_smem(nx, itemsize, egrids)[0]
-    per_block = dynamic + 2 * THREADS * itemsize + 128 + BLOCK_SMEM_RESERVED
-    return max(1, min(blocks_per_sm, SM_SMEM // per_block))
+    """Blocks per SM of a grid-bin launch: blocks_per_sm (in the lane form
+    at most GRID_LANE_BLOCKS, which its kernels' registers leave room for),
+    or fewer where that many blocks' shared memory (_block_smem) does not
+    fit in an SM, so that the grid is one wave of resident blocks (at nx
+    1024 in f32, 3 blocks of 72 KB)."""
+    dynamic = grid_lanes(nx, itemsize, egrids)
+    if dynamic:
+        blocks_per_sm = min(blocks_per_sm, GRID_LANE_BLOCKS)
+    else:
+        dynamic = grid_smem(nx, itemsize, egrids)[0]
+    return max(1, min(blocks_per_sm, SM_SMEM // _block_smem(dynamic, itemsize)))
 
 
 def launch_grid(markers: int, vec: int, sms: int, blocks_per_sm: int = BLOCKS_PER_SM) -> int:
@@ -723,6 +763,14 @@ class FusedSubsteps:
         """Whether the kernels run the grid bin (above 4 kept modes, or
         grid_bin set)."""
         return self.grid_bin or self._many_modes
+
+    def uses_grid_lanes(self, substep: int) -> bool:
+        """Whether substep `substep` runs the grid bin in its lane form (each
+        lane on a charge copy of its own, where grid_lanes fits at cfg.nx and
+        cfg.dtype)."""
+        itemsize = getattr(torch, self.cfg.dtype).itemsize
+        return self.uses_grid_bin() and grid_lanes(self.cfg.nx, itemsize,
+                                                   grid_egrids(substep)) > 0
 
     def uses_species_loop(self) -> bool:
         """Whether the kernels run the species loop, a (bps, ns) grid of one

@@ -1,12 +1,16 @@
 """The Stepper counts each substep of the grid bin (more than 4 kept modes,
 FusedSubsteps.uses_grid_bin) as "grid-bin substeps": both substeps of every
 step and of push_pair (a step with an optimization event), and, in a CUDA
-graph, both of every replayed step.
+graph, both of every replayed step; and those that deposit in the grid
+bin's lane form (FusedSubsteps.uses_grid_lanes: nx 192 in f32) as
+"grid-bin lane deposits".
 
 On the CPU: a run counts two a step at 32 modes, the steps with an event
-included, and none in the register bins (1 and 4 modes).  The test marked
-`chip` runs on a CUDA device only: eager steps and a graph's replays count
-two a step, as many as the grid-bin substep kernels launched.  This file
+included, and none in the register bins (1 and 4 modes); two lane deposits
+a step in the lane form (nx 192 in f32, nx 64 in f64) and none in the warp
+form (nx 192 in f64, nx 1024) or with one kept mode.  The test
+marked `chip` runs on a CUDA device only: eager steps and a graph's replays
+count two a step, as many as the grid-bin substep kernels launched.  This file
 imports no jax, so the card's machine runs it:
 python -m pytest --noconftest -p no:cacheprovider tests/test_torch_grid_bin_counter.py -m chip"""
 
@@ -56,6 +60,35 @@ def test_a_run_counts_two_grid_bin_substeps_a_step(case, tmp_path):
     assert sim.timers.counter("grid-bin substeps") == (2 * sim.itime if grid else 0)
 
 
+# (config, whether its substeps deposit in the grid bin's lane form)
+LANE_RUNS = {
+    "nx_192_f32": (lambda: _modes(32, dtype="float32"), True),
+    "nx_192_f32_events": (lambda: _modes(32, dtype="float32", optimization=OptimizationConfig(
+        tmerge=(0.3, 0.7), thshmerge=(0.3, 0.3))), True),
+    "nx_64": (lambda: _modes(32, nx=64), True),
+    "nx_192_f64": (lambda: _modes(32), False),
+    "nx_1024_f32": (lambda: _modes(32, nx=1024, dtype="float32"), False),
+    "modes_1": (lambda: _modes(1, dtype="float32"), False),
+}
+
+
+@pytest.mark.parametrize("case", list(LANE_RUNS))
+def test_a_run_counts_two_lane_deposits_a_step(case, tmp_path):
+    """"grid-bin lane deposits" is twice the steps run in the grid bin's lane
+    form (nx 192 in f32, nx 64 in f64), push_pair's steps included, beside
+    "grid-bin substeps", and 0 in its warp form (nx 192 in f64, nx 1024)
+    and in the register bins."""
+    make, lanes = LANE_RUNS[case]
+    sim = Simulation(make(), out_path=str(tmp_path), device="cpu")
+    subs = sim.stepper.substeps
+    assert subs.uses_grid_lanes(1) == subs.uses_grid_lanes(2) == lanes
+    sim.run()
+    assert sim.itime == 20
+    assert sim.timers.counter("grid-bin lane deposits") == (2 * sim.itime if lanes else 0)
+    assert sim.timers.counter("grid-bin substeps") == (
+        2 * sim.itime if subs.uses_grid_bin() else 0)
+
+
 # ---- on a CUDA device ----
 
 @pytest.fixture
@@ -68,8 +101,9 @@ def cuda():
 @pytest.mark.chip
 def test_graph_replays_count_two_grid_bin_substeps_a_step(cuda):
     """Eager steps and a CUDA graph's replayed steps at 32 kept modes each
-    count two "grid-bin substeps", as many as the substep kernels
-    launched, and the replays are the eager steps bit for bit."""
+    count two "grid-bin substeps" and, at nx 192, two "grid-bin lane
+    deposits", as many as the substep kernels launched, and the replays are
+    the eager steps bit for bit."""
     cfg = dataclasses.replace(bot(nparticle_max=1 << 21, verbosity=0),
                               modes=tuple(range(1, 33))).validate()
     graphed, eager = Stepper(cfg, cuda), Stepper(cfg, cuda)
@@ -87,6 +121,8 @@ def test_graph_replays_count_two_grid_bin_substeps_a_step(cuda):
     t = graphed.timers
     assert t.counter("graph replays") == 2
     assert t.counter("grid-bin substeps") == 2 * 17 == eager.timers.counter("grid-bin substeps")
+    assert t.counter("grid-bin lane deposits") == 2 * 17 == eager.timers.counter(
+        "grid-bin lane deposits")
     assert sum(k.launches for k in kernels) - before == 2 * 2 * 17
     for f in ("x", "v", "w", "mode_re", "mode_im"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
